@@ -21,8 +21,9 @@ result lines are printed):
   6. serve    engram-27b at full width and full depth (36 layers, 22.9 B
               parameters, seeded random bf16 weights drawn on the card)
               behind ``Engine(pool="CXL", max_batch=8, max_len=512)``:
-              8 requests, 16 new tokens each, kernel launch counts, one
-              device->host read per steady decode wave, no other sync.
+              after a warm-up at the same shapes, 8 requests with 16 new
+              tokens each, twice: kernel launch counts, one device->host
+              read per steady decode wave, no other sync.
 
 The line before the last is a JSON object listing both kernels; the last
 is ``{"ok": true, "device": {...}}``.
@@ -79,8 +80,8 @@ def call_ms(fn, args_list, warmup: int = 3) -> float:
 
 def device_ms(fn, args_list, warmup: int = 3) -> float:
     """Mean device time per call: every kernel, copy and fill the profiler
-    (CUPTI) records over ``args_list``, summed, over the call count. Falls
-    back to ``call_ms`` if the profiler records no device time."""
+    (CUPTI) records over ``args_list``, summed, over the call count. Raises
+    if the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for a in args_list[:warmup]:
@@ -91,10 +92,8 @@ def device_ms(fn, args_list, warmup: int = 3) -> float:
             fn(*a)
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages())
-    if us > 0:
-        return us / 1e3 / len(args_list)
-    print("device_ms: the profiler recorded no device time; CUDA events")
-    return call_ms(fn, args_list)
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / len(args_list)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -262,13 +261,12 @@ def check_agreement(dev) -> None:
 # phase 6: the main path at full width
 # ---------------------------------------------------------------------------
 
-def serve_full(cfg, dev, smi: str) -> dict:
-    """Serve 8 requests on full-width engram-27b; returns each kernel's
-    launch count over that run."""
+def serve_full(cfg, dev, smi: str, reps: int = 2) -> dict:
+    """Serve 8 requests on full-width engram-27b, ``reps`` times after a
+    warm-up at the same shapes; returns each kernel's launch count over
+    the last run."""
     import numpy as np
     import torch
-    from repro_torch.kernels.engram_gather import gather_rows
-    from repro_torch.kernels.gated_fuse import engram_gated_fuse
     from repro_torch.models.model import init_params
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving import Engine
@@ -285,11 +283,25 @@ def serve_full(cfg, dev, smi: str) -> dict:
     eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
                  prompt_bucket=32, device=dev)
     del params
-    eng.warmup()
-    rt = eng.runtime()
     rng = np.random.RandomState(0)
     prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
                for n in (5, 9, 12, 16, 20, 24, 28, 32)]
+    eng.warmup(prompts)              # the measured 8 x 32 prefill group
+    rt = eng.runtime()
+    for rep in range(reps):
+        launches = serve_once(cfg, eng, rt, prompts, dev, smi, rep)
+    profile_waves(eng, rt, prompts)
+    return launches
+
+
+def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> dict:
+    """One counted run of the main path: every request to completion with
+    the kernels' launch counters and the engine's stats reset just before
+    it; checks the counts, the reads per wave and the outputs."""
+    import torch
+    from repro_torch.kernels.engram_gather import gather_rows
+    from repro_torch.kernels.gated_fuse import engram_gated_fuse
+    eng.reset_stats()
     n_steps0 = len(eng._step_times)
 
     gather_rows.launches = 0
@@ -337,17 +349,17 @@ def serve_full(cfg, dev, smi: str) -> dict:
 
     decode_s = sum(eng._step_times[n_steps0:])
     decode_tokens = st.generated_tokens - st.prefills
-    print(f"serve: {len(prompts)} requests x 16 tokens, "
+    print(f"serve run {rep + 1}: {len(prompts)} requests x 16 tokens, "
           f"{st.prefill_waves} prefill group(s), {st.decode_steps} decode "
           f"waves; K1 launches {launches['engram_gather']}, K2 launches "
           f"{launches['gated_fuse']}; device->host reads per step {pulls}; "
           f"no other sync")
-    print(f"serve [{smi}]: decode {decode_tokens / decode_s:.2f} tok/s "
-          f"({decode_tokens} tokens in {decode_s * 1e3:.1f} ms of decode "
-          f"waves), mean TTFT {st.mean_ttft_s * 1e3:.2f} ms, peak memory "
+    print(f"serve run {rep + 1} [{smi}]: decode "
+          f"{decode_tokens / decode_s:.2f} tok/s ({decode_tokens} tokens in "
+          f"{decode_s * 1e3:.1f} ms of decode waves), mean TTFT "
+          f"{st.mean_ttft_s * 1e3:.2f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, run "
           f"{run_s:.2f} s")
-    profile_waves(eng, rt, prompts)
     return launches
 
 

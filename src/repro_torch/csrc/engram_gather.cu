@@ -12,9 +12,9 @@
 // once; at a decode wave (16 tables x 8 slots = 128 rows of 320 B) that is
 // about 80 KB, a few tens of nanoseconds at 3.35 TB/s, so the launch
 // itself sets the time. The design keeps every access a full 16-byte
-// vector when the row width, row stride and both base pointers allow it,
-// and takes the widest element that divides them otherwise (8, 4, 2 or 1
-// bytes) in the same kernel, never a host-side fallback.
+// vector when the row width, row stride and both base pointers allow it
+// (every engram-27b table), and copies byte by byte otherwise, in the
+// same kernel, never a host-side fallback.
 //
 // The table is a base pointer plus a row stride in bytes, so the same
 // kernel can read rows from any addressable memory (device memory here;
@@ -74,12 +74,6 @@ extern "C" int engram_gather_rows(const void* table, int64_t row_stride,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((bits & 15) == 0)
     launch<uint4>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
-  else if ((bits & 7) == 0)
-    launch<uint2>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
-  else if ((bits & 3) == 0)
-    launch<unsigned int>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
-  else if ((bits & 1) == 0)
-    launch<unsigned short>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
   else
     launch<unsigned char>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
   return (int)cudaGetLastError();

@@ -59,6 +59,8 @@ def gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     item = table.element_size()
     out = torch.empty((gid.shape[0], hd), dtype=table.dtype,
                       device=table.device)
+    if out.numel() == 0:
+        return out                       # nothing to copy: no launch
     rc = _kernel()(table.data_ptr(), table.stride(0) * item, R,
                    gid.data_ptr(), gid.shape[0], out.data_ptr(), hd * item,
                    torch.cuda.current_stream(table.device).cuda_stream)

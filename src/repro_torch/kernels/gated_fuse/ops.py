@@ -56,8 +56,10 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
                          f"{tuple(wp.shape)} do not match")
     if not all(t.is_contiguous() for t in (h, e, wg, wp)):
         raise ValueError("engram_gated_fuse: operands must be contiguous")
-    n_t = h.numel() // d if d else 0
     out = torch.empty_like(h)
+    if out.numel() == 0:
+        return out                       # nothing to compute: no launch
+    n_t = h.numel() // d
     rc = _kernel()(_DTYPE_CODES[h.dtype], h.data_ptr(), e.data_ptr(),
                    wg.data_ptr(), wp.data_ptr(), out.data_ptr(), n_t, d, F,
                    torch.cuda.current_stream(h.device).cuda_stream)

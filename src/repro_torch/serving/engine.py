@@ -60,6 +60,11 @@ _UNPORTED = {
     "idle_spill_tokens": "5 (overload and KV spill)",
     "fabric": "6 (tierchain.py and fabric.py)",
     "fabric_nodes": "6 (tierchain.py and fabric.py)",
+    "store": "7 (router, api and workload)",
+    "clock": "7 (router, api and workload)",
+    "name": "7 (router, api and workload)",
+    "rid_start": "7 (router, api and workload)",
+    "step_latency_hint_s": "7 (router, api and workload)",
 }
 
 
@@ -73,8 +78,6 @@ class Request:
     first_token_s: float = 0.0
     done_s: float = 0.0
     status: str = "queued"     # queued | running | done | cancelled
-    klass: str = "uniform"
-    slo: str = "batch"
     # virtual-clock lifecycle stamps (serving/clock.py)
     submitted_v: float = 0.0
     first_token_v: float = 0.0
@@ -131,10 +134,7 @@ class Engine:
                  flags: RunFlags = RunFlags(), max_batch: int = 8,
                  max_len: int = 512, prompt_bucket: int = 32,
                  pool: Optional[str] = None, seed: int = 0,
-                 step_latency_hint_s: Optional[float] = None,
-                 emulate_step_s: Optional[float] = None, store=None,
-                 name: Optional[str] = None, rid_start: int = 0,
-                 clock: Optional[VirtualClock] = None,
+                 emulate_step_s: Optional[float] = None,
                  emu_prefill_scaled: bool = False, device=None,
                  **unported):
         """``device``: where the model runs — the CUDA device unless the
@@ -144,9 +144,10 @@ class Engine:
 
         ``emulate_step_s``: evaluate pool stalls at a production operating
         point instead of this host's step times (stalls are accounted in
-        ``emu_time_s`` rather than slept). ``store``: an externally built
-        store; ``clock``: the fleet ``VirtualClock``; ``name``/``rid_start``:
-        replica label and request-id base — as in the reference."""
+        ``emu_time_s`` rather than slept), as in the reference. The
+        reference's fleet options (``store``, ``clock``, ``name``,
+        ``rid_start``, ``step_latency_hint_s``) raise until the router is
+        ported."""
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -158,7 +159,6 @@ class Engine:
         check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.name = name
         self.flags = flags
         self.max_batch = max_batch
         self.max_len = max_len
@@ -166,8 +166,8 @@ class Engine:
         self.pool = pool_tier(pool) if pool else None
         self.emulate_step_s = emulate_step_s
         self.emu_prefill_scaled = bool(emu_prefill_scaled)
-        self.clock = clock if clock is not None else VirtualClock()
-        self.cursor = self.clock.cursor(name if name else "engine")
+        self.clock = VirtualClock()
+        self.cursor = self.clock.cursor("engine")
         if params is None:
             params = init_params(cfg, seed, self.device)
         if params["embed"]["w"].device.type != self.device.type:
@@ -184,10 +184,8 @@ class Engine:
             # link contention only at the emulated operating point (see the
             # reference engine: real-mode cursors mirror host wall time)
             link_clock = self.clock if emulate_step_s is not None else None
-            self.store = store if store is not None \
-                else make_store(cfg.engram, pool, clock=link_clock)
-            if hasattr(self.store, "bind_cursor"):
-                self.store.bind_cursor(self.cursor)
+            self.store = make_store(cfg.engram, pool, clock=link_clock)
+            self.store.bind_cursor(self.cursor)
             self.scheduler = PrefetchScheduler(self.store, cfg.engram,
                                                layers=cfg.engram_layers(),
                                                n_layers=cfg.n_layers)
@@ -213,11 +211,9 @@ class Engine:
         self.done: dict[int, Request] = {}
         self.cancelled: dict[int, Request] = {}
         self.stats = EngineStats()
-        self._rid = int(rid_start)
+        self._rid = 0
         self._runtime = None
         self._step_times: list[float] = []
-        if step_latency_hint_s:
-            self._step_times.append(step_latency_hint_s)
         self._free: deque[int] = deque(range(max_batch))   # free slot ids
         self._tokens_host = np.zeros((max_batch,), np.int64)  # self.tokens
         self._next_keys: Optional[np.ndarray] = None  # (B,1,L,T) prefetched
@@ -225,19 +221,12 @@ class Engine:
 
     # ------------------------------------------------------------ public API
 
-    def submit(self, prompt: list, max_new: int = 16,
-               arrival_s: Optional[float] = None,
-               klass: str = "uniform", slo: str = "batch") -> int:
-        """Queue a request. ``arrival_s``: its arrival on the virtual
-        clock (an idle replica fast-forwards to it)."""
+    def submit(self, prompt: list, max_new: int = 16) -> int:
+        """Queue a request; returns its id."""
         self._rid += 1
-        if arrival_s is not None:
-            self.cursor.advance_to(arrival_s)
         req = Request(self._rid, list(prompt), max_new,
                       submitted_s=time.perf_counter(),
-                      klass=klass or "uniform", slo=slo or "batch",
-                      submitted_v=arrival_s if arrival_s is not None
-                      else self.cursor.now_s)
+                      submitted_v=self.cursor.now_s)
         self.queue.append(req)
         return self._rid
 
@@ -281,12 +270,15 @@ class Engine:
         self.cancelled[req.rid] = req
         self.stats.requests_cancelled += 1
 
-    def warmup(self) -> None:
-        """One tiny request through admission and decode, outside the
-        measured run (first cuBLAS calls, kernel library loads)."""
-        rid = self.submit([1, 2, 3], max_new=2)
+    def warmup(self, prompts: Optional[list] = None) -> None:
+        """One admission group and one decode wave outside the measured
+        run (first cuBLAS calls at these shapes, allocator growth).
+        ``prompts``: the group, to warm up at a measured run's own prefill
+        shape; default one 3-token prompt."""
+        rids = [self.submit(p, max_new=2) for p in (prompts or [[1, 2, 3]])]
         self.run()
-        self.done.pop(rid, None)
+        for rid in rids:
+            self.done.pop(rid, None)
         self.reset_stats()
 
     def reset_stats(self) -> None:

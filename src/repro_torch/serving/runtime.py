@@ -137,23 +137,13 @@ class EngramRuntime:
 
     # ----------------------------------------------------------- lifecycle
 
-    def submit(self, prompt, max_new: int = 16,
-               arrival_s=None, klass: str = "uniform",
-               slo: str = "batch") -> RequestHandle:
+    def submit(self, prompt, max_new: int = 16) -> RequestHandle:
         """Queue a request; returns its lifecycle handle. Accepts a token
-        list or a pre-built `Request` (rid is (re)assigned either way).
-        ``arrival_s``/``klass``/``slo``: virtual arrival time, workload
-        class, and SLO class (serving/clock.py, serving/workload.py,
-        serving/slo.py)."""
+        list or a pre-built `Request` (rid is (re)assigned either way)."""
         if isinstance(prompt, Request):
-            rid = self.engine.submit(prompt.prompt, prompt.max_new,
-                                     arrival_s=arrival_s,
-                                     klass=getattr(prompt, "klass", klass),
-                                     slo=getattr(prompt, "slo", slo))
+            rid = self.engine.submit(prompt.prompt, prompt.max_new)
         else:
-            rid = self.engine.submit(list(prompt), max_new,
-                                     arrival_s=arrival_s, klass=klass,
-                                     slo=slo)
+            rid = self.engine.submit(list(prompt), max_new)
         req = self.engine.queue[-1]
         assert req.rid == rid
         h = RequestHandle(self, req)
@@ -164,10 +154,6 @@ class EngramRuntime:
     def now_s(self) -> float:
         """This replica's position on the virtual timeline."""
         return self.engine.cursor.now_s
-
-    def advance_to(self, t_s: float) -> None:
-        """Fast-forward an idle replica to a future arrival time."""
-        self.engine.cursor.advance_to(t_s)
 
     def step(self) -> list[TokenEvent]:
         """One serving wave: admit queued requests into free slots, then

@@ -67,3 +67,20 @@ def test_gated_fuse_kernel_close(dtype, T, d, F):
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), gated_fuse_ref(*ops).float(),
                                **tol)
+
+
+@pytest.mark.cuda
+def test_empty_inputs_launch_nothing():
+    """Counters grow only where a kernel launches: an empty input returns
+    an empty output without a launch."""
+    dev = _card()
+    g0, f0 = gather_rows.launches, engram_gated_fuse.launches
+    table = torch.randn(64, 160, device=dev).to(torch.bfloat16)
+    assert gather_rows(table, torch.zeros(0, dtype=torch.int64,
+                                          device=dev)).shape == (0, 160)
+    h = torch.zeros(0, 128, device=dev)
+    out = engram_gated_fuse(h, torch.zeros(0, 64, device=dev),
+                            torch.zeros(128, 128, device=dev),
+                            torch.zeros(64, 128, device=dev))
+    assert out.shape == (0, 128)
+    assert (gather_rows.launches, engram_gated_fuse.launches) == (g0, f0)

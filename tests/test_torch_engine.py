@@ -176,6 +176,14 @@ def test_unported_options_raise(setup):
         Engine(cached, pool="CXL", **kw)
     with pytest.raises(TypeError):
         Engine(cfg, no_such_option=1, **kw)
+    # the reference's fleet surface waits for the router
+    for bad in (dict(store=object()), dict(clock=object()), dict(name="r0"),
+                dict(rid_start=5), dict(step_latency_hint_s=0.01)):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            Engine(cfg, **bad, **kw)
+    eng = Engine(cfg, max_batch=1, max_len=64, prompt_bucket=8, **kw)
+    with pytest.raises(TypeError):
+        eng.submit([1, 2], max_new=2, arrival_s=1.0)
 
 
 def test_port_imports_nothing_of_jax():
