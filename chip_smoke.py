@@ -10,11 +10,14 @@ result lines are printed):
   2. build    both CUDA kernels from ``src/repro_torch/csrc`` into
               ``build/kernels/`` (one nvcc per source, in parallel).
   3. K1       engram_gather against its plain version, bit-equal, at the
-              engram-27b table shape (16 x 2,265,088 x 160 bf16) and on
-              small tables whose rows are not 16-byte aligned; timed.
+              engram-27b table shape (16 x 2,265,088 x 160 bf16): one
+              table, and the decode wave's one launch over both Engram
+              layers' tables; and on small tables whose rows are not
+              16-byte aligned; timed beside index_select.
   4. K2       gated_fuse against its plain version at d = 5120, F = 2560
-              in bf16 (T = 8 and 256) and on small ragged shapes in bf16
-              and float32; timed.
+              in bf16 (T = 8 and 256, every timed call with its own cold
+              weights; the split plan printed) and on small ragged shapes
+              in bf16 and float32; timed.
   5. agree    the reduced engram-27b config served on the card (kernels)
               and on the CPU (plain versions) in float32: identical token
               streams and matching prefill logits.
@@ -22,8 +25,9 @@ result lines are printed):
               parameters, seeded random bf16 weights drawn on the card)
               behind ``Engine(pool="CXL", max_batch=8, max_len=512)``:
               after a warm-up at the same shapes, 8 requests with 16 new
-              tokens each, twice: kernel launch counts, one device->host
-              read per steady decode wave, no other sync.
+              tokens each, twice: kernel launch counts (K1 once per
+              decode wave), one device->host read per steady decode wave,
+              no other sync.
 
 The line before the last is a JSON object listing both kernels; the last
 is ``{"ok": true, "device": {...}}``.
@@ -112,42 +116,77 @@ def check_k1(cfg, dev) -> dict:
     from repro_torch.kernels.engram_gather import (engram_gather,
                                                    engram_gather_ref,
                                                    gather_rows,
+                                                   gather_rows_multi,
+                                                   gather_rows_multi_ref,
                                                    gather_rows_ref)
     from repro_torch.models.params import pd, tree_init
     e = cfg.engram
+    L = len(cfg.engram_layers())
     T, V, hd = e.n_tables, padded_vocab(e), e.head_dim
-    tables = tree_init(pd(T, V, hd, dtype="bfloat16", scale=1.0), 1, dev)
+    tables = [tree_init(pd(T, V, hd, dtype="bfloat16", scale=1.0), 1 + j,
+                        dev) for j in range(L)]
     gen = torch.Generator(device=dev).manual_seed(1)
-    flat = tables.view(T * V, hd)
-    row_bytes = hd * tables.element_size()
+    flats = [t.view(T * V, hd) for t in tables]
+    flat = flats[0]
+    row_bytes = hd * tables[0].element_size()
+    index_select = lambda t, g: torch.index_select(t, 0, g)  # noqa: E731
     result = {}
-    for n in (16 * 8, 16 * 8 * 32):          # one decode wave; a 32-token
-        gids = [torch.randint(0, T * V, (n,), generator=gen, device=dev)
-                for _ in range(40)]           # prompt group of 8
+    def cold(shape):
+        """40 calls' worth of fresh random row ids: on the main path a
+        wave's rows are cold, so no timed call may find rows that an
+        earlier call (of any of the compared functions) left in L2."""
+        return [torch.randint(0, T * V, shape, generator=gen, device=dev)
+                for _ in range(40)]
+
+    for n in (16 * 8, 16 * 8 * 32):          # one layer of a decode wave;
+        gids = cold((n,))                     # a 32-token prompt group of 8
         out = gather_rows(flat, gids[0])
         ref = gather_rows_ref(flat, gids[0])
         check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
               f"K1 not bit-equal at N={n}")
         err = (out.float() - ref.float()).abs().max().item()
         args = [(flat, g) for g in gids]
-        index_select = lambda t, g: torch.index_select(t, 0, g)  # noqa
-        ms = device_ms(gather_rows, args)
-        plain = device_ms(gather_rows_ref, args)
-        lib = device_ms(index_select, args)
+        ms = device_ms(gather_rows, [(flat, g) for g in cold((n,))])
+        plain = device_ms(gather_rows_ref, [(flat, g) for g in cold((n,))])
+        lib = device_ms(index_select, [(flat, g) for g in cold((n,))])
         b_ms, b_by = bound(2 * n * row_bytes + 8 * n, 0)
         result[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-        print(f"K1 gather_rows N={n} rows x {row_bytes} B: bit-equal; "
-              f"device ms: kernel {ms:.5f}, plain {plain:.5f}, index_select "
-              f"{lib:.5f}, byte bound {b_ms:.6f}; per call with launch: "
-              f"kernel {call_ms(gather_rows, args):.5f}, plain "
+        print(f"K1 gather_rows N={n} rows x {row_bytes} B, one table: "
+              f"bit-equal; device ms: kernel {ms:.5f}, plain {plain:.5f}, "
+              f"index_select {lib:.5f}, byte bound {b_ms:.6f}; per call "
+              f"with launch: kernel {call_ms(gather_rows, args):.5f}, plain "
               f"{call_ms(gather_rows_ref, args):.5f}, index_select "
               f"{call_ms(index_select, args):.5f}")
+    # the decode wave's own launch: every Engram layer's 128 rows at once,
+    # against one index_select per layer (the library route: L calls)
+    n = 16 * 8
+    gids = cold((L, n))
+    out = gather_rows_multi(flats, gids[0])
+    ref = gather_rows_multi_ref(flats, gids[0])
+    check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
+          f"K1 multi-table not bit-equal at {L} x {n}")
+    args = [(flats, g) for g in gids]
+    per_layer = lambda ts, g: [torch.index_select(t, 0, r)  # noqa: E731
+                               for t, r in zip(ts, g)]
+    ms = device_ms(gather_rows_multi, [(flats, g) for g in cold((L, n))])
+    plain = device_ms(gather_rows_multi_ref,
+                      [(flats, g) for g in cold((L, n))])
+    lib = device_ms(per_layer, [(flats, g) for g in cold((L, n))])
+    b_ms, b_by = bound(L * (2 * n * row_bytes + 8 * n), 0)
+    result["wave"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    print(f"K1 gather_rows_multi {L} tables x {n} rows (a decode wave, one "
+          f"launch): bit-equal; device ms: kernel {ms:.5f}, plain "
+          f"{plain:.5f}, {L} index_selects {lib:.5f}, byte bound "
+          f"{b_ms:.6f}; per call with launch: kernel "
+          f"{call_ms(gather_rows_multi, args):.5f}, {L} index_selects "
+          f"{call_ms(per_layer, args):.5f}")
     idx = torch.randint(0, V, (8, 1, T), generator=gen, device=dev)
-    check(torch.equal(engram_gather(tables, idx).view(torch.int16),
-                      engram_gather_ref(tables, idx).view(torch.int16)),
+    check(torch.equal(engram_gather(tables[0], idx).view(torch.int16),
+                      engram_gather_ref(tables[0], idx).view(torch.int16)),
           "K1 engram_gather (T sub-tables) not bit-equal")
-    del tables, flat
+    del tables, flats, flat
     # rows whose width, stride or base are not 16-byte aligned
     small = [torch.randn(1000, 7, device=dev).to(torch.bfloat16),
              torch.randn(1000, 5, device=dev),
@@ -158,9 +197,18 @@ def check_k1(cfg, dev) -> dict:
         check(torch.equal(gather_rows(tab, g), gather_rows_ref(tab, g)),
               f"K1 not bit-equal on a {tuple(tab.shape)} {tab.dtype} table "
               f"with row stride {tab.stride(0)}")
+    # two tables of different row strides, one of them not 16-byte aligned
+    pair = [torch.randn(900, 160, device=dev).to(torch.bfloat16),
+            torch.randn(700, 168, device=dev).to(torch.bfloat16)[:, 3:163]]
+    g = torch.stack([torch.randint(0, t.shape[0], (77,), generator=gen,
+                                   device=dev) for t in pair])
+    check(torch.equal(gather_rows_multi(pair, g),
+                      gather_rows_multi_ref(pair, g)),
+          "K1 multi-table not bit-equal over unaligned row strides")
     torch.cuda.synchronize()
     print("K1 unaligned rows (bf16 hd=7, f32 hd=5, bf16 stride-offset "
-          "view, f64 hd=3): bit-equal")
+          "view, f64 hd=3; two tables of row strides 320 and 336 B, one "
+          "offset by 6 B): bit-equal")
     torch.cuda.empty_cache()
     return result
 
@@ -173,6 +221,7 @@ def check_k2(cfg, dev) -> dict:
     import torch
     from repro_torch.kernels.gated_fuse import (engram_gated_fuse,
                                                 gated_fuse_ref)
+    from repro_torch.kernels.gated_fuse.ops import plan_split
     d = cfg.d_model
     F = len(cfg.engram.orders) * cfg.engram.emb_dim
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -185,33 +234,45 @@ def check_k2(cfg, dev) -> dict:
 
     result = {}
     for n_t in (8, 256):                 # decode batch; 8 x 32-token prefill
-        ops = operands(n_t, d, F, torch.bfloat16)
-        out = engram_gated_fuse(*ops)
-        ref = gated_fuse_ref(*ops)
+        # each timed call has its own weights (78.6 MB, beyond the 50 MB
+        # L2): on the main path K2's weights are never warm
+        sets = [operands(n_t, d, F, torch.bfloat16) for _ in range(10)]
+        out = engram_gated_fuse(*sets[0])
+        ref = gated_fuse_ref(*sets[0])
         torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        check(torch.equal(out, engram_gated_fuse(*sets[0])),
+              f"K2 not bit-identical across two calls at T={n_t}")
         err = (out.float() - ref.float()).abs().max().item()
-        sets = [ops] + [operands(n_t, d, F, torch.bfloat16)[:2] + ops[2:]
-                        for _ in range(9)]
         ms = device_ms(engram_gated_fuse, sets)
         plain = device_ms(gated_fuse_ref, sets)
         nbytes = 2 * (2 * n_t * d + n_t * F + d * d + F * d)
         flops = 2 * n_t * d * (d + F)
         b_ms, b_by = bound(nbytes, flops)
+        plan = plan_split(n_t, d, F)
         result[n_t] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        print(f"K2 gated_fuse T={n_t} d={d} F={F} bf16: max|err| {err:.3e} "
-              f"within rtol=2^-7 atol=1e-3; device ms: kernel {ms:.5f}, "
-              f"plain {plain:.5f}, bound {b_ms:.6f} ({b_by}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); per call "
-              f"with launch: kernel {call_ms(engram_gated_fuse, sets):.5f}")
+        print(f"K2 gated_fuse T={n_t} d={d} F={F} bf16: token tile "
+              f"{plan.bn}, split {plan.s_g} + {plan.s_p} parts (slabs per "
+              f"part {plan.q_g}, {plan.q_p}), grid {plan.grid} = "
+              f"{plan.blocks} blocks; max|err| {err:.3e} within rtol=2^-7 "
+              f"atol=1e-3, bit-identical across calls; device ms, cold "
+              f"weights: kernel {ms:.5f}, plain {plain:.5f}, bound "
+              f"{b_ms:.6f} ({b_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP, {100 * b_ms / ms:.1f} % of bound); "
+              f"per call with launch: kernel "
+              f"{call_ms(engram_gated_fuse, sets):.5f}")
+        del sets, out, ref
+        torch.cuda.empty_cache()
     for n_t, dd, ff, dtype, tol in ((5, 100, 36, torch.bfloat16, BF16_TOL),
+                                    (13, 512, 264, torch.bfloat16, BF16_TOL),
                                     (37, 98, 30, torch.float32, F32_TOL),
                                     (40, 128, 64, torch.float32, F32_TOL)):
         ops = operands(n_t, dd, ff, dtype)
         torch.testing.assert_close(engram_gated_fuse(*ops).float(),
                                    gated_fuse_ref(*ops).float(), **tol)
-    print("K2 ragged shapes (bf16 5x100x36, f32 37x98x30 scalar loads, "
-          "f32 40x128x64 vector loads): within tolerance")
+    print("K2 ragged shapes (bf16 5x100x36 element loads, bf16 13x512x264 "
+          "cp.async, f32 37x98x30 scalar loads, f32 40x128x64 vector "
+          "loads): within tolerance")
     return result
 
 
@@ -332,8 +393,8 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> dict:
           "not every request completed with 16 tokens")
     check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
           "a token outside the vocabulary")
-    check(launches["engram_gather"] == 2 * st.decode_steps,
-          f"K1 launches {launches['engram_gather']} != 2 x "
+    check(launches["engram_gather"] == st.decode_steps,
+          f"K1 launches {launches['engram_gather']} != one per "
           f"{st.decode_steps} charged decode waves")
     check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
           f"K2 launches {launches['gated_fuse']} != 2 x "
@@ -436,15 +497,17 @@ def main() -> int:
         dict(name="engram_gather", route="cuda",
              source="src/repro_torch/csrc/engram_gather.cu",
              replaces="src/repro/kernels/engram_gather/engram_gather.py:30",
-             launches=launches["engram_gather"], **k1[16 * 8]),
+             launches=launches["engram_gather"], **k1["wave"]),
         dict(name="gated_fuse", route="cuda",
              source="src/repro_torch/csrc/gated_fuse.cu",
              replaces="src/repro/kernels/gated_fuse/gated_fuse.py:36",
              launches=launches["gated_fuse"], **k2[8]),
     ]
-    print("shapes: engram_gather at N=128 rows (one decode wave), "
-          "gated_fuse at T=8 (decode); also measured: "
-          + json.dumps({"engram_gather_N4096": k1[16 * 8 * 32],
+    print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
+          "one launch; library_ms is two index_selects), gated_fuse at T=8 "
+          "(decode); also measured: "
+          + json.dumps({"engram_gather_N128_one_table": k1[16 * 8],
+                        "engram_gather_N4096_one_table": k1[16 * 8 * 32],
                         "gated_fuse_T256": k2[256]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@ of ``repro.core.engram``).
 
 Retrieval strategies of the reference, as they run on one device:
 
-  local         plain row gather (torch indexing, as the reference uses
-                XLA's gather outside Pallas);
+  local         plain row gather (``_take_rows``: one torch indexing op over
+                the flattened table, as the reference gathers with XLA
+                outside Pallas);
   local_kernel  the same gather through the engram_gather kernel (K1);
   tp / pooled   the reference's mesh strategies. Without a mesh they reduce
                 to ``local`` exactly as the reference's do, and this port
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import EngramConfig, ModelConfig
-from ..kernels.engram_gather import engram_gather, engram_gather_ref
+from ..kernels.engram_gather import engram_gather
 from ..kernels.gated_fuse import engram_gated_fuse
 from ..models.layers import rmsnorm
 from ..models.params import pd
@@ -44,10 +45,20 @@ def engram_defs(cfg: ModelConfig, dtype: str):
     } for _ in cfg.engram_layers()]}
 
 
+def _take_rows(tables, idx):
+    """tables (T,V,hd); idx (...,T) -> (...,T,hd): the reference's
+    per-table ``jnp.take`` as one gather over the flattened (T*V, hd)
+    table (row ``idx[..., t] + t*V``), not T gathers and a stack."""
+    T, V, hd = tables.shape
+    gid = idx.to(torch.int64) + torch.arange(
+        T, device=idx.device, dtype=torch.int64) * V
+    flat = tables.reshape(T * V, hd)
+    return flat.index_select(0, gid.reshape(-1)).view(*idx.shape, hd)
+
+
 def retrieve_local(ecfg: EngramConfig, tables, idx):
-    """tables (T,V,hd); idx (B,S,T) -> (B,S,T*hd), plain per-table gather
-    (K1's plain version)."""
-    rows = engram_gather_ref(tables, idx)
+    """tables (T,V,hd); idx (B,S,T) -> (B,S,T*hd), plain row gather."""
+    rows = _take_rows(tables, idx)
     return rows.reshape(*rows.shape[:-2], -1)
 
 

@@ -1,80 +1,120 @@
-// Engram row gather for Hopper (sm_90a): out[i] = table[gid[i]].
+// Engram row gather for Hopper (sm_90a), over up to 8 tables in one launch:
+//     out[t][i] = table_t[gid[t][i]]        t < n_tables, i < n_per_table
 //
 // Replaces the TPU kernel src/repro/kernels/engram_gather/engram_gather.py,
 // function gather_rows (body _copy_kernel): there the grid runs one row per
 // step and scalar-prefetches each row's address into the BlockSpec index
-// map. This is the paper's own wide-grid cxl2vram_copy shape again: a flat
-// grid over (row, 16-byte chunk) pairs, so neighbouring threads copy
-// neighbouring chunks of one row (a 320-byte engram-27b row is twenty
-// 16-byte loads and stores, spread over twenty threads of a warp).
+// map. Here one launch serves a whole decode wave, every Engram layer's
+// table at once (the single-table gather is the one-table case).
 //
-// What bounds it on the H100: bytes. Each row is read once and written
-// once; at a decode wave (16 tables x 8 slots = 128 rows of 320 B) that is
-// about 80 KB, a few tens of nanoseconds at 3.35 TB/s, so the launch
-// itself sets the time. The design keeps every access a full 16-byte
-// vector when the row width, row stride and both base pointers allow it
-// (every engram-27b table), and copies byte by byte otherwise, in the
-// same kernel, never a host-side fallback.
+// What bounds it on the H100: latency, not bytes. A decode wave moves 2
+// layers x 128 rows x 320 B, about 160 KB, tens of nanoseconds at
+// 3.35 TB/s; what a row costs is two dependent round trips to memory,
+// first its id and then its bytes, plus the launch. So the design keeps
+// that chain short and every row's chain in flight at once:
+//  - a flat grid of 128-thread blocks over (row, 16-byte chunk) pairs:
+//    neighbouring threads copy neighbouring chunks of one row (a 320-byte
+//    row is 20 lanes), and every lane of a row loads the row's id itself,
+//    one address, so one transaction per warp and no shuffle in the chain
+//    (on the H100 this beat one lane loading the id and broadcasting it
+//    with __shfl_sync, at a decode wave's 128 and 256 rows);
+//  - the table's fields are selected with constant indices, so they are
+//    read straight from the launch's parameter bank (a dynamic index would
+//    be a memory load, in series with the id's);
+//  - plain loads for table rows (on the H100 they beat read-only,
+//    L1-non-allocating ones here); (row, chunk) arithmetic is 32-bit, and
+//    only the byte offset of a row in its table is 64-bit.
+// Every access is a 16-byte vector when the row width, every row stride
+// and every base pointer allow it (every engram-27b table); otherwise the
+// same kernel copies byte by byte, never a host-side fallback.
 //
-// The table is a base pointer plus a row stride in bytes, so the same
-// kernel can read rows from any addressable memory (device memory here;
-// pinned, mapped host memory for the paper's CXL-to-VRAM copy). Row ids
-// are int64. A row id outside [0, n_rows) traps: the wrapper cannot check
-// device-resident ids without a host sync, and a silent zero row would
-// hide the fault. The kernel allocates nothing and launches on the
-// caller's stream.
+// Each table is a base pointer plus a row stride in bytes and a row count,
+// so the kernel can read rows from any addressable memory (device memory
+// here; pinned, mapped host memory for the paper's CXL-to-VRAM copy). Row
+// ids are int64, laid out [table][row]. A row id outside [0, n_rows) traps:
+// the wrapper cannot check device-resident ids without a host sync, and a
+// silent zero row would hide the fault. The kernel allocates nothing and
+// launches on the caller's stream.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <typename V>
-__global__ void __launch_bounds__(256)
-gather_rows_kernel(const char* __restrict__ table, int64_t row_stride,
-                   int64_t n_rows, const int64_t* __restrict__ gid, int64_t n,
-                   char* __restrict__ out, int64_t row_bytes) {
-  const int64_t per_row = row_bytes / (int64_t)sizeof(V);
-  const int64_t total = n * per_row;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += step) {
-    const int64_t i = t / per_row;
-    const int64_t j = t - i * per_row;
-    const int64_t r = gid[i];
-    if (r < 0 || r >= n_rows) __trap();
-    const V* src = reinterpret_cast<const V*>(table + r * row_stride);
-    reinterpret_cast<V*>(out + i * row_bytes)[j] = src[j];
-  }
-}
+constexpr int MAX_TABLES = 8;
+constexpr int THREADS = 128;
+
+struct Tables {
+  const char* base[MAX_TABLES];
+  int64_t row_stride[MAX_TABLES];  // bytes
+  int64_t n_rows[MAX_TABLES];
+};
 
 template <typename V>
-void launch(const void* table, int64_t row_stride, int64_t n_rows,
-            const int64_t* gid, int64_t n, void* out, int64_t row_bytes,
-            cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t total = n * (row_bytes / (int64_t)sizeof(V));
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 8192) blocks = 8192;  // grid-stride loop covers the rest
-  gather_rows_kernel<V><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const char*>(table), row_stride, n_rows, gid, n,
-      static_cast<char*>(out), row_bytes);
+__global__ void __launch_bounds__(THREADS)
+gather_rows_kernel(const Tables tabs, const int64_t* __restrict__ gid,
+                   int n_per_table, int n_total, char* __restrict__ out,
+                   int row_bytes) {
+  const int per_row = row_bytes / (int)sizeof(V);
+  const int total = n_total * per_row;
+  for (int x = blockIdx.x * THREADS + threadIdx.x; x < total;
+       x += gridDim.x * THREADS) {
+    const int i = x / per_row, j = x - i * per_row;
+    const int t = i / n_per_table;
+    const int64_t r = gid[i];
+    const char* base = tabs.base[0];
+    int64_t stride = tabs.row_stride[0], rows = tabs.n_rows[0];
+#pragma unroll
+    for (int k = 1; k < MAX_TABLES; ++k)
+      if (t == k) {
+        base = tabs.base[k];
+        stride = tabs.row_stride[k];
+        rows = tabs.n_rows[k];
+      }
+    if (r < 0 || r >= rows) __trap();
+    reinterpret_cast<V*>(out + (size_t)i * row_bytes)[j] =
+        reinterpret_cast<const V*>(base + r * stride)[j];
+  }
 }
 
 }  // namespace
 
-// out (n, row_bytes) <- rows gid[0..n) of the table at `table` whose rows
-// start every `row_stride` bytes. Returns cudaGetLastError().
-extern "C" int engram_gather_rows(const void* table, int64_t row_stride,
-                                  int64_t n_rows, const int64_t* gid,
-                                  int64_t n, void* out, int64_t row_bytes,
-                                  void* stream) {
-  if (n <= 0 || row_bytes <= 0) return 0;
-  const uint64_t bits = (uint64_t)(uintptr_t)table | (uint64_t)(uintptr_t)out |
-                        (uint64_t)row_stride | (uint64_t)row_bytes;
+// out (n_tables, n_per_table, row_bytes) <- for each table t, the rows
+// gid[t * n_per_table + i] of the table at bases[t], whose rows start every
+// row_strides[t] bytes and number n_rows[t]. Returns cudaGetLastError().
+extern "C" int engram_gather_tables(const void* const* bases,
+                                    const int64_t* row_strides,
+                                    const int64_t* n_rows, int n_tables,
+                                    const int64_t* gid, int64_t n_per_table,
+                                    void* out, int64_t row_bytes,
+                                    void* stream) {
+  if (n_tables < 1 || n_tables > MAX_TABLES || n_per_table < 0 ||
+      row_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_total = n_tables * n_per_table;
+  if (n_total == 0 || row_bytes == 0) return 0;
+  if (n_total >= (1LL << 31) || row_bytes >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Tables tabs = {};
+  uint64_t bits = (uint64_t)(uintptr_t)out | (uint64_t)row_bytes;
+  for (int t = 0; t < n_tables; ++t) {
+    tabs.base[t] = static_cast<const char*>(bases[t]);
+    tabs.row_stride[t] = row_strides[t];
+    tabs.n_rows[t] = n_rows[t];
+    bits |= (uint64_t)(uintptr_t)bases[t] | (uint64_t)row_strides[t];
+  }
+  const bool vec = (bits & 15) == 0;
+  const int64_t chunks = n_total * (vec ? row_bytes / 16 : row_bytes);
+  if (chunks >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  int64_t blocks = (chunks + THREADS - 1) / THREADS;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // the chunk loop covers the rest
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((bits & 15) == 0)
-    launch<uint4>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
+  if (vec)
+    gather_rows_kernel<uint4><<<(unsigned)blocks, THREADS, 0, s>>>(
+        tabs, gid, (int)n_per_table, (int)n_total, static_cast<char*>(out),
+        (int)row_bytes);
   else
-    launch<unsigned char>(table, row_stride, n_rows, gid, n, out, row_bytes, s);
+    gather_rows_kernel<unsigned char><<<(unsigned)blocks, THREADS, 0, s>>>(
+        tabs, gid, (int)n_per_table, (int)n_total, static_cast<char*>(out),
+        (int)row_bytes);
   return (int)cudaGetLastError();
 }

@@ -1,74 +1,106 @@
 """Wrappers for the engram_gather kernel (``csrc/engram_gather.cu``).
 
-``gather_rows`` is the kernel's one entry; ``engram_gather`` flattens the T
-sub-tables of one Engram layer into a (T*V, hd) row space (row id
-``idx + t*V``) so one launch covers every hash head. Unlike the TPU
-wrappers, nothing is padded: the row count is whatever the wave needs and
-the lane width is the table's own (the TPU's power-of-two row buckets and
-128-lane padding guard against recompiles and VMEM tiling, neither of which
-exists here).
+``gather_rows_multi`` is the kernel's one entry: rows from up to 8 tables
+(one per Engram layer) in one launch. ``gather_rows`` is its one-table
+case, and ``engram_gather`` flattens the T sub-tables of one Engram layer
+into a (T*V, hd) row space (row id ``idx + t*V``) so one launch covers
+every hash head. Unlike the TPU wrappers, nothing is padded: the row count
+is whatever the wave needs and the lane width is the table's own (the
+TPU's power-of-two row buckets and 128-lane padding guard against
+recompiles and VMEM tiling, neither of which exists here).
 
-``gather_rows.launches`` counts kernel launches.
+``gather_rows.launches`` counts the kernel's launches, through whichever
+entry.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
 from ..build import load
-from .ref import gather_rows_ref
+from .ref import gather_rows_multi_ref, gather_rows_ref
 
+MAX_TABLES = 8
 _FN = None
 
 
 def _kernel():
     global _FN
     if _FN is None:
-        fn = load("engram_gather").engram_gather_rows
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p]
+        fn = load("engram_gather").engram_gather_tables
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
-    """out[i] = table[gid[i]]. table (R, hd) with unit stride along hd and
-    any row stride; gid (N,) int64 (int32 is converted once) on the
-    table's device -> out (N, hd) in the table's dtype.
+def gather_rows_multi(tables: Sequence[torch.Tensor],
+                      gid: torch.Tensor) -> torch.Tensor:
+    """out[t, i] = tables[t][gid[t, i]]. tables: 1 to 8 (R_t, hd) tensors
+    of one dtype and width, each with unit stride along hd and any row
+    stride; gid (L, N) int64 (int32 is converted once) on their device ->
+    out (L, N, hd) in the tables' dtype, in one launch.
 
     CPU tensors take the plain version. On CUDA the kernel launches on the
     current stream; row ids are not range-checked on the host (that would
-    need a sync) — the kernel traps on one outside the table."""
-    if table.device.type == "cpu":
-        return gather_rows_ref(table, gid)
-    if table.device.type != "cuda" or gid.device != table.device:
-        raise ValueError(f"gather_rows: table on {table.device}, "
-                         f"gid on {gid.device}")
-    if table.dim() != 2 or table.stride(1) != 1:
-        raise ValueError("gather_rows: table must be (rows, hd) with unit "
-                         f"stride along hd, got shape {tuple(table.shape)} "
-                         f"strides {table.stride()}")
-    if gid.dim() != 1 or gid.dtype not in (torch.int64, torch.int32):
-        raise ValueError(f"gather_rows: gid must be 1-D int64/int32, got "
-                         f"{gid.dtype} {tuple(gid.shape)}")
+    need a sync) — the kernel traps on one outside its table."""
+    first = tables[0]
+    if first.device.type == "cpu":
+        return gather_rows_multi_ref(tables, gid)
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError(f"gather_rows_multi: 1 to {MAX_TABLES} tables, got "
+                         f"{len(tables)}")
+    if first.device.type != "cuda" or any(
+            t.device != first.device for t in tables) or \
+            gid.device != first.device:
+        raise ValueError(f"gather_rows_multi: tables on "
+                         f"{[str(t.device) for t in tables]}, gid on "
+                         f"{gid.device}")
+    hd = first.shape[-1]
+    for t in tables:
+        if t.dim() != 2 or t.stride(1) != 1 or t.shape[1] != hd or \
+                t.dtype != first.dtype:
+            raise ValueError("gather_rows_multi: each table must be (rows, "
+                             f"{hd}) {first.dtype} with unit stride along "
+                             f"hd, got {t.dtype} shape {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    if gid.dim() != 2 or gid.shape[0] != len(tables) or \
+            gid.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"gather_rows_multi: gid must be ({len(tables)}, N) "
+                         f"int64/int32, got {gid.dtype} {tuple(gid.shape)}")
     gid = gid.to(torch.int64).contiguous()
-    R, hd = table.shape
-    item = table.element_size()
-    out = torch.empty((gid.shape[0], hd), dtype=table.dtype,
-                      device=table.device)
+    L, N = gid.shape
+    item = first.element_size()
+    out = torch.empty((L, N, hd), dtype=first.dtype, device=first.device)
     if out.numel() == 0:
         return out                       # nothing to copy: no launch
-    rc = _kernel()(table.data_ptr(), table.stride(0) * item, R,
-                   gid.data_ptr(), gid.shape[0], out.data_ptr(), hd * item,
-                   torch.cuda.current_stream(table.device).cuda_stream)
+    bases = (ctypes.c_void_p * L)(*[t.data_ptr() for t in tables])
+    strides = (ctypes.c_int64 * L)(*[t.stride(0) * item for t in tables])
+    n_rows = (ctypes.c_int64 * L)(*[t.shape[0] for t in tables])
+    rc = _kernel()(bases, strides, n_rows, L, gid.data_ptr(), N,
+                   out.data_ptr(), hd * item,
+                   torch.cuda.current_stream(first.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"engram_gather kernel launch failed: "
                            f"cudaError {rc}")
     gather_rows.launches += 1
     return out
+
+
+def gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[gid[i]]: the one-table case of ``gather_rows_multi``.
+    table (R, hd) with unit stride along hd and any row stride; gid (N,)
+    int64/int32 on the table's device -> out (N, hd)."""
+    if table.device.type == "cpu":
+        return gather_rows_ref(table, gid)
+    if gid.dim() != 1:
+        raise ValueError(f"gather_rows: gid must be 1-D, got "
+                         f"{tuple(gid.shape)}")
+    return gather_rows_multi([table], gid.reshape(1, -1))[0]
 
 
 gather_rows.launches = 0

@@ -6,30 +6,111 @@ flattened into the kernel's T rows; the kernel masks the ragged T edge, so
 nothing is padded (the TPU wrapper pads T to its row tile and falls back to
 the oracle when d or F is not lane-aligned; this kernel takes any width).
 
+bf16 runs the tensor-core kernel. ``plan_split`` chooses its token tile
+and how the contraction is split into parts (one block per column tile,
+token tile and part), so that a small T still fills the card; the wrapper
+allocates the parts' f32 workspace with ``torch.empty`` and owns the
+per-tile arrival counters, zeroed once per device (the kernel leaves them
+zero). Calls on one device are stream-ordered, as the port's are: two
+concurrent launches on different streams would share the counters.
+float32 runs the CUDA-core kernel, unsplit.
+
 ``engram_gated_fuse.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 
 from ..build import load
 from .ref import gated_fuse_ref
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+BM = 64              # output columns per block (csrc/gated_fuse.cu, tc::BM)
+BK = 64              # contraction slab (tc::BK)
+TOKEN_TILES = (8, 16, 32, 64, 128)
+SMS = 132            # H100 SXM streaming multiprocessors
+TARGET_BLOCKS = 2 * SMS
+
+_FNS: dict = {}
+_COUNTERS: dict = {}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = load("gated_fuse").gated_fuse_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the bf16 kernel tiles one call: token tile ``bn``; g's d-slabs
+    in ``s_g`` parts of ``q_g`` slabs, then p's F-slabs in ``s_p`` parts of
+    ``q_p`` (the last part of each may be shorter)."""
+    bn: int
+    q_g: int
+    s_g: int
+    q_p: int
+    s_p: int
+    col_tiles: int
+    tok_tiles: int
+
+    @property
+    def parts(self) -> int:
+        return self.s_g + self.s_p
+
+    @property
+    def grid(self) -> tuple:
+        return (self.col_tiles, self.tok_tiles, self.parts)
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.tok_tiles * self.parts
+
+
+def _even_parts(slabs: int, q: int) -> tuple:
+    """(slabs per part, parts) cutting ``slabs`` into parts of at most
+    about ``q``, as even as whole slabs allow, none empty."""
+    if slabs == 0:
+        return 1, 0
+    s = -(-slabs // q)
+    q = -(-slabs // s)
+    return q, -(-slabs // q)
+
+
+def plan_split(n_t: int, d: int, F: int) -> SplitPlan:
+    """Token tile: the smallest of 8..128 that holds T (128 beyond). Parts:
+    enough that column tiles x token tiles x parts reaches TARGET_BLOCKS
+    (two blocks per SM), with g and p never sharing a part."""
+    bn = next((b for b in TOKEN_TILES if b >= n_t), TOKEN_TILES[-1])
+    col_tiles, tok_tiles = -(-d // BM), -(-n_t // bn)
+    slabs_g, slabs_p = -(-d // BK), -(-F // BK)
+    want = math.ceil(TARGET_BLOCKS / (col_tiles * tok_tiles))
+    q = max(1, math.ceil((slabs_g + slabs_p) / want))
+    q_g, s_g = _even_parts(slabs_g, q)
+    q_p, s_p = _even_parts(slabs_p, q)
+    return SplitPlan(bn, q_g, s_g, q_p, s_p, col_tiles, tok_tiles)
+
+
+def _kernel(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load("gated_fuse"), name)
+        if name == "gated_fuse_bf16_launch":
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + \
+                [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + \
+                [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed per-tile counters on ``device``, allocated
+    (and zeroed) only when a call needs more tiles than any before."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
@@ -44,8 +125,8 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
                                       for t in (e, wg, wp)):
         raise ValueError("engram_gated_fuse: all operands must be on one "
                          "CUDA device")
-    if h.dtype not in _DTYPE_CODES or any(t.dtype != h.dtype
-                                          for t in (e, wg, wp)):
+    if h.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != h.dtype for t in (e, wg, wp)):
         raise ValueError("engram_gated_fuse: operands must all be bfloat16 "
                          f"or all float32, got {h.dtype}, {e.dtype}, "
                          f"{wg.dtype}, {wp.dtype}")
@@ -60,9 +141,19 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
     if out.numel() == 0:
         return out                       # nothing to compute: no launch
     n_t = h.numel() // d
-    rc = _kernel()(_DTYPE_CODES[h.dtype], h.data_ptr(), e.data_ptr(),
-                   wg.data_ptr(), wp.data_ptr(), out.data_ptr(), n_t, d, F,
-                   torch.cuda.current_stream(h.device).cuda_stream)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (h, e, wg, wp, out)]
+    if h.dtype == torch.float32:
+        rc = _kernel("gated_fuse_f32_launch")(*ptrs, n_t, d, F, stream)
+    else:
+        plan = plan_split(n_t, d, F)
+        ws = torch.empty(plan.parts * plan.tok_tiles * plan.bn
+                         * plan.col_tiles * BM, dtype=torch.float32,
+                         device=h.device)
+        cnt = _counters(h.device, plan.col_tiles * plan.tok_tiles)
+        rc = _kernel("gated_fuse_bf16_launch")(
+            *ptrs, ws.data_ptr(), cnt.data_ptr(), n_t, d, F, plan.bn,
+            plan.q_g, plan.s_g, plan.q_p, plan.s_p, stream)
     if rc != 0:
         raise RuntimeError(f"gated_fuse kernel launch failed: cudaError {rc}")
     engram_gated_fuse.launches += 1

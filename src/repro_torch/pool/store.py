@@ -11,8 +11,9 @@ where rows live. The protocol::
 
 This slice ports ``TierStore`` (one ``TierSpec``) and ``LocalStore``
 (weights on the device, no emulated cost) verbatim, and ``TableFetcher``
-over the engram_gather kernel (K1). The hot-row cache, tier chain and
-fabric raise (ROADMAP queue 1, items 3 and 6).
+over the engram_gather kernel (K1), with ``fetch_layers`` gathering every
+Engram layer's rows of a wave in one launch. The hot-row cache, tier
+chain and fabric raise (ROADMAP queue 1, items 3 and 6).
 """
 from __future__ import annotations
 
@@ -314,14 +315,24 @@ class TableFetcher:
 
     def __call__(self, keys=None, *, gid=None) -> torch.Tensor:
         """Gather rows (N, hd) by packed ``keys`` or precomputed ``gid``."""
-        from ..kernels.engram_gather import gather_rows
         if gid is None:
             gid = self.gid_for(keys)
-        gid = np.asarray(gid, np.int64)
-        if gid.size and (gid.min() < 0 or gid.max() >= self.flat.shape[0]):
-            raise IndexError(f"row id outside the {self.flat.shape[0]}-row "
-                             "table")
-        return gather_rows(self.flat, upload(gid, self.flat.device))
+        return fetch_layers([self], [gid])[0]
+
+
+def fetch_layers(fetchers, gids) -> torch.Tensor:
+    """Every Engram layer's rows in ONE engram_gather launch: ``gids[j]``
+    are flat row ids in ``fetchers[j]``'s table space, all of one length N
+    -> (L, N, hd). The ids are range-checked on the host and uploaded in
+    one copy."""
+    from ..kernels.engram_gather import gather_rows_multi
+    gid = np.stack([np.asarray(g, np.int64).reshape(-1) for g in gids])
+    for f, g in zip(fetchers, gid):
+        rows = f.flat.shape[0]
+        if g.size and (g.min() < 0 or g.max() >= rows):
+            raise IndexError(f"row id outside the {rows}-row table")
+    dev = fetchers[0].flat.device
+    return gather_rows_multi([f.flat for f in fetchers], upload(gid, dev))
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,9 @@ This slice ports the engine's main path: monolithic batched admission (one
 multi-slot prefill per prompt bucket) and greedy continuous-batched decode
 waves over ``max_batch`` slots, with the pool tier's cost charged through
 the ``PrefetchScheduler`` and the store. With a pool tier
-(``pool="CXL"``...) every decode wave materialises its Engram rows through
-``TableFetcher``, i.e. the engram_gather kernel (K1); every forward fuses
-them through the gated_fuse kernel (K2).
+(``pool="CXL"``...) every decode wave materialises every Engram layer's
+rows in one engram_gather (K1) launch (``fetch_layers``); every forward
+fuses them through the gated_fuse kernel (K2).
 
 Single-sync waves, as in the reference: the host reads the device through
 ``_host`` only, once per admission group (first tokens | the group's
@@ -43,7 +43,7 @@ from ..models.model import (build_decode_step, build_prefill_step,
                             init_decode_state, init_params)
 from ..models.transformer import RunFlags, check_supported
 from ..pool.scheduler import PrefetchScheduler
-from ..pool.store import TableFetcher, make_store
+from ..pool.store import TableFetcher, fetch_layers, make_store
 from ..pool.tiers import pool_tier
 from .clock import VirtualClock
 from .slots import update_slots
@@ -425,17 +425,20 @@ class Engine:
         return torch.cat([new_tok.to(torch.int64), keys.reshape(-1)])
 
     def _miss_fetches(self, keys: np.ndarray):
-        """Per-layer fetch closures gathering a wave's rows through
-        ``TableFetcher`` (K1). ``keys`` is the FULL batch's (B, S, L, T)
+        """ONE fused fetch gathering every Engram layer's rows of a wave in
+        one engram_gather (K1) launch; the scheduler splits it into the
+        per-layer handles. ``keys`` is the FULL batch's (B, S, L, T)
         packed-key block: decode consumes rows for every slot, while the
         store is charged with live keys only."""
         B, S = keys.shape[:2]
+        gids = [f.gid_for(keys[:, :, j, :])
+                for j, f in enumerate(self._fetchers)]
 
-        def layer_fetch(j):
-            gid = self._fetchers[j].gid_for(keys[:, :, j, :])
-            return lambda: self._fetchers[j](gid=gid).reshape(B, S, -1)
+        def fetch():
+            rows = fetch_layers(self._fetchers, gids)
+            return [r.reshape(B, S, -1) for r in rows]
 
-        return [layer_fetch(j) for j in range(len(self._fetchers))]
+        return fetch
 
     def _decode_wave(self) -> list:
         """One batched greedy-decode wave over the live slots — exactly one

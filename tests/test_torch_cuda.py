@@ -11,7 +11,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.engram_gather import (engram_gather,  # noqa: E402
                                                engram_gather_ref,
-                                               gather_rows, gather_rows_ref)
+                                               gather_rows, gather_rows_multi,
+                                               gather_rows_multi_ref,
+                                               gather_rows_ref)
 from repro_torch.kernels.gated_fuse import (engram_gated_fuse,  # noqa: E402
                                             gated_fuse_ref)
 
@@ -67,6 +69,48 @@ def test_gated_fuse_kernel_close(dtype, T, d, F):
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), gated_fuse_ref(*ops).float(),
                                **tol)
+
+
+@pytest.mark.cuda
+def test_gather_rows_multi_kernel_bit_equal():
+    """One launch over two tables of different row strides (320 and 336
+    bytes), the second offset by 6 bytes, so not 16-byte aligned."""
+    dev = _card()
+    pair = [torch.randn(900, 160, device=dev).to(torch.bfloat16),
+            torch.randn(700, 168, device=dev).to(torch.bfloat16)[:, 3:163]]
+    gid = torch.stack([torch.randint(0, t.shape[0], (129,), device=dev)
+                       for t in pair])
+    before = gather_rows.launches
+    got = gather_rows_multi(pair, gid)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_multi_ref(pair, gid))
+    aligned = [pair[0], torch.randn(50, 160, device=dev).to(torch.bfloat16)]
+    gid = torch.stack([torch.randint(0, 50, (128,), device=dev)] * 2)
+    assert torch.equal(gather_rows_multi(aligned, gid),
+                       gather_rows_multi_ref(aligned, gid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,F", [(5120, 2560), (100, 36)])
+@pytest.mark.parametrize("T", [1, 8, 13, 64, 65, 256])
+def test_gated_fuse_kernel_split_deterministic(dtype, T, d, F):
+    """The bf16 kernel's split contraction (and the f32 kernel): within one
+    bf16 ulp or f32 tolerance of the plain version, and bit-identical
+    across two calls (partials summed in part order, no float atomics)."""
+    dev = _card()
+    rng = np.random.RandomState(T)
+    ops = [torch.from_numpy(a).to(dev, TORCH_DTYPES[dtype]) for a in (
+        rng.randn(T, d), rng.randn(T, F), rng.randn(d, d) / np.sqrt(d),
+        rng.randn(F, d) / np.sqrt(F))]
+    first = engram_gated_fuse(*ops)
+    second = engram_gated_fuse(*ops)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(first.float(), gated_fuse_ref(*ops).float(),
+                               **tol)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -21,16 +21,18 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import deepseek_7b as ref_deepseek_7b  # noqa: E402
+from repro.configs import engram_27b as ref_engram_27b  # noqa: E402
 from repro.models.model import init_params as ref_init_params  # noqa: E402
 from repro.pool.store import TableFetcher as RefTableFetcher  # noqa: E402
 from repro.serving import Engine as RefEngine  # noqa: E402
 from repro_torch.configs import SpecConfig, StoreConfig  # noqa: E402
-from repro_torch.configs import deepseek_7b  # noqa: E402
+from repro_torch.configs import deepseek_7b, engram_27b  # noqa: E402
 from repro_torch.kernels.engram_gather import gather_rows  # noqa: E402
 from repro_torch.kernels.gated_fuse import engram_gated_fuse  # noqa: E402
 from repro_torch.models.params import from_jax  # noqa: E402
-from repro_torch.pool.store import TableFetcher  # noqa: E402
+from repro_torch.pool.store import TableFetcher, fetch_layers  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -136,6 +138,62 @@ def test_table_fetcher_padded_rows(setup):
                                   np.asarray(ref(keys)))
     with pytest.raises(IndexError):
         fetcher(gid=np.array([fetcher.T * fetcher.V]))
+
+
+def test_fetch_layers_bit_equal_to_reference_fetchers():
+    """The wave's one multi-table gather (CPU: K1's plain version) returns,
+    for each Engram layer of the reduced engram-27b config, exactly the
+    rows of the reference's per-layer ``TableFetcher``."""
+    cfg, rcfg = engram_27b.reduced(), ref_engram_27b.reduced()
+    e = cfg.engram
+    rparams = ref_init_params(rcfg, 0)
+    params = from_jax(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
+    layers = params["engram"]["layers"]
+    assert len(layers) == len(cfg.engram_layers()) == 2
+    fetchers = [TableFetcher(e, lay["tables"]) for lay in layers]
+    rng = np.random.RandomState(5)
+    keys = [rng.randint(0, e.table_vocab, size=(6, e.n_tables))
+            + (np.arange(e.n_tables) + j * e.n_tables) * e.table_vocab
+            for j in range(2)]
+    got = fetch_layers(fetchers, [f.gid_for(k) for f, k in
+                                  zip(fetchers, keys)])
+    assert tuple(got.shape) == (2, 6 * e.n_tables, e.head_dim)
+    for j, lay in enumerate(rparams["engram"]["layers"]):
+        ref = RefTableFetcher(rcfg.engram, lay["tables"])
+        np.testing.assert_array_equal(got[j].numpy(), np.asarray(ref(keys[j])))
+    with pytest.raises(IndexError):
+        fetch_layers(fetchers, [[0], [fetchers[1].T * fetchers[1].V]])
+
+
+def _two_engram_layers(mod):
+    cfg = _tiny(mod)
+    return dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, layers=(1, 2)))
+
+
+def test_decode_wave_fetches_every_layer_in_one_call(monkeypatch):
+    """Pool mode with two Engram layers: each decode wave makes ONE fused
+    fetch (one K1 launch on the card) for both layers, and the engine
+    still emits the reference's streams with equal StoreStats."""
+    cfg = _two_engram_layers(deepseek_7b)
+    rcfg = _two_engram_layers(ref_deepseek_7b)
+    rparams = ref_init_params(rcfg, 0)
+    params = from_jax(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
+    calls = []
+
+    def counting(fetchers, gids):
+        calls.append(len(fetchers))
+        return fetch_layers(fetchers, gids)
+
+    monkeypatch.setattr(engine_mod, "fetch_layers", counting)
+    kw = dict(max_batch=3, max_len=64, prompt_bucket=8, pool="CXL")
+    ref = RefEngine(rcfg, params=rparams, **kw)
+    want = _serve(ref)
+    eng = Engine(cfg, params=params, device="cpu", **kw)
+    assert _serve(eng) == want
+    assert calls == [2] * eng.stats.decode_steps
+    assert dataclasses.asdict(eng.store.stats()) == \
+        dataclasses.asdict(ref.store.stats())
 
 
 def test_cancel_queued_and_running(setup):

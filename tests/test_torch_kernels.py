@@ -15,6 +15,9 @@ import numpy as np  # noqa: E402
 
 from repro.configs import engram_27b as ref_engram_27b  # noqa: E402
 from repro.core.engram import engram_fuse as ref_engram_fuse  # noqa: E402
+from repro.core.engram import padded_vocab as ref_padded_vocab  # noqa: E402
+from repro.core.engram import \
+    retrieve_local as ref_retrieve_local  # noqa: E402
 from repro.kernels.engram_gather.ops import \
     engram_gather as ref_engram_gather  # noqa: E402
 from repro.kernels.engram_gather.ref import \
@@ -22,12 +25,14 @@ from repro.kernels.engram_gather.ref import \
 from repro.kernels.gated_fuse.ops import \
     engram_gated_fuse as ref_gated_fuse  # noqa: E402
 from repro_torch.configs import engram_27b  # noqa: E402
-from repro_torch.core.engram import engram_fuse  # noqa: E402
+from repro_torch.core.engram import engram_fuse, retrieve_local  # noqa
 from repro_torch.kernels.engram_gather import (engram_gather,  # noqa: E402
                                                engram_gather_ref,
-                                               gather_rows, gather_rows_ref)
+                                               gather_rows, gather_rows_multi,
+                                               gather_rows_ref)
 from repro_torch.kernels.gated_fuse import (engram_gated_fuse,  # noqa: E402
                                             gated_fuse_ref)
+from repro_torch.kernels.gated_fuse.ops import BK, plan_split  # noqa: E402
 from repro_torch.models.params import to_torch  # noqa: E402
 
 torch.set_num_threads(2)
@@ -94,6 +99,46 @@ def test_gather_rows_bit_equal_to_reference(dtype):
     sub = table[:, 3:100]
     np.testing.assert_array_equal(_bits(gather_rows(sub, edge)),
                                   _bits(sub[edge]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_multi_bit_equal_to_reference(dtype):
+    """K1's multi-table entry on CPU tensors: each table's rows equal the
+    reference's gather of that table, bit for bit, whatever the tables'
+    row counts and row strides."""
+    rng = np.random.RandomState(1)
+    tabs_j = [jnp.asarray(rng.randn(r, 24), jnp.dtype(dtype))
+              for r in (300, 41)]
+    gid = np.stack([rng.randint(0, 300, 19), rng.randint(0, 41, 19)])
+    cpu = torch.device("cpu")
+    tabs = [to_torch(np.asarray(t), cpu) for t in tabs_j]
+    tabs[1] = torch.cat([tabs[1], tabs[1][:, :5]], dim=1)[:, :24]  # strided
+    got = gather_rows_multi(tabs, torch.from_numpy(gid))
+    assert tuple(got.shape) == (2, 19, 24)
+    for j in range(2):
+        np.testing.assert_array_equal(
+            _bits(got[j]),
+            _jax_bits(ref_gather_rows(tabs_j[j], jnp.asarray(gid[j]))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_retrieve_local_bit_equal_to_reference(dtype):
+    """Prefill retrieval (strategy local, and pooled/tp without a mesh) is
+    the port's own one-gather counterpart of the reference's ``_take_rows``
+    and equals the reference's ``retrieve_local`` bit for bit, on the
+    reduced engram-27b table shape."""
+    cfg, rcfg = engram_27b.reduced(), ref_engram_27b.reduced()
+    e = cfg.engram
+    rng = np.random.RandomState(4)
+    tables_j = jnp.asarray(
+        rng.randn(e.n_tables, ref_padded_vocab(rcfg.engram), e.head_dim),
+        jnp.dtype(dtype))
+    idx = rng.randint(0, e.table_vocab, (3, 5, e.n_tables))
+    want = ref_retrieve_local(rcfg.engram, tables_j, jnp.asarray(idx))
+    tables = to_torch(np.asarray(tables_j), torch.device("cpu"))
+    got = retrieve_local(e, tables, torch.from_numpy(idx))
+    assert tuple(got.shape) == (3, 5, e.n_tables * e.head_dim)
+    np.testing.assert_array_equal(_bits(got), _jax_bits(want))
 
 
 def test_gather_rows_rejects_out_of_range_on_cpu():
@@ -165,6 +210,43 @@ def test_kernel_fusion_vs_reference_model_fusion(dtype):
                                   else BF16_TOL))
 
 
+@pytest.mark.parametrize("d,F", [(5120, 2560), (100, 36), (64, 64),
+                                 (130, 200), (512, 264), (4096, 0)])
+@pytest.mark.parametrize("T", [1, 8, 13, 64, 65, 256])
+def test_gated_fuse_split_plan_covers_every_slab_once(T, d, F):
+    """K2's split planner: the token tile holds T (or tiles it at 128),
+    the parts cover each contraction's slabs exactly once with none empty,
+    and the grid is column tiles x token tiles x parts."""
+    plan = plan_split(T, d, F)
+    assert plan.bn in (8, 16, 32, 64, 128)
+    assert plan.bn >= min(T, 128) and plan.bn * plan.tok_tiles >= T
+    assert plan.bn * (plan.tok_tiles - 1) < T
+    assert plan.col_tiles * 64 >= d > (plan.col_tiles - 1) * 64
+    # part z < s_g covers g's slabs [z*q_g, (z+1)*q_g), then p's likewise
+    # (blockIdx.z in csrc/gated_fuse.cu), the last part of each clipped
+    ranges = []
+    for kind, K, q, parts in (("g", d, plan.q_g, plan.s_g),
+                              ("p", F, plan.q_p, plan.s_p)):
+        slabs = -(-K // BK)
+        ranges += [(kind, z * q, min((z + 1) * q, slabs))
+                   for z in range(parts)]
+    assert len(ranges) == plan.parts
+    for kind, K in (("g", d), ("p", F)):
+        covered = [s for k, a, b in ranges if k == kind for s in range(a, b)]
+        assert all(b > a for k, a, b in ranges if k == kind)
+        assert covered == list(range(-(-K // BK)))
+    assert plan.grid == (plan.col_tiles, plan.tok_tiles, plan.parts)
+    assert plan.blocks == plan.col_tiles * plan.tok_tiles * plan.parts
+
+
+def test_gated_fuse_split_fills_the_card_at_decode():
+    """At the decode shape (T = 8, d = 5120, F = 2560) the 80 column tiles
+    alone would leave SMs idle: the split gives at least 132 blocks."""
+    plan = plan_split(8, 5120, 2560)
+    assert plan.col_tiles * plan.tok_tiles == 80
+    assert plan.blocks >= 132 and plan.parts >= 2
+
+
 # ----------------------------------------------------- wrappers on the CPU
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -177,6 +259,9 @@ def test_cpu_tensors_take_the_plain_versions():
     tabs = torch.randn(2, 10, 4)
     idx = torch.tensor([[[1, 9]]])
     assert torch.equal(engram_gather(tabs, idx), engram_gather_ref(tabs, idx))
+    two = torch.tensor([[3, 1], [0, 49]])
+    assert torch.equal(gather_rows_multi([table, table], two),
+                       torch.stack([table[two[0]], table[two[1]]]))
     ops = [torch.from_numpy(a).float() for a in _fuse_inputs(3, 16, 8)]
     assert torch.equal(engram_gated_fuse(*ops), gated_fuse_ref(*ops))
     assert gather_rows.launches == 0
