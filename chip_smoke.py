@@ -15,25 +15,39 @@ result lines are printed):
               layers' tables; and on small tables whose rows are not
               16-byte aligned; timed beside index_select.
   4. K2       gated_fuse against its plain version at d = 5120, F = 2560
-              in bf16 (T = 8 and 256, every timed call with its own cold
-              weights; the split plan printed) and on small ragged shapes
-              in bf16 and float32; timed.
+              in bf16 (T = 8, 256 and 2112: decode, an 8 x 32 prefill
+              group, a 2100-token prompt; every timed call with its own
+              cold weights; the split plan printed) and on small ragged
+              shapes in bf16 and float32; timed.
   5. agree    the reduced engram-27b config served on the card (kernels)
               and on the CPU (plain versions) in float32: identical token
               streams and matching prefill logits.
-  6. serve    engram-27b at full width and full depth (36 layers, 22.9 B
-              parameters, seeded random bf16 weights drawn on the card)
-              behind ``Engine(pool="CXL", max_batch=8, max_len=512)``:
-              after a warm-up at the same shapes, 8 requests with 16 new
-              tokens each, twice: kernel launch counts (K1 once per
-              decode wave), one device->host read per steady decode wave,
-              no other sync.
+  6. agree    the same, chunked (``prefill_chunk=8``, a PrefixKVCache,
+              later prompts restoring a shared head), and a 2100-token
+              prompt through monolithic admission (chunked attention in
+              every layer), at the emulated operating point: identical
+              streams, StoreStats and PrefixCacheStats.
+  7. serve    engram-27b at full width and full depth (36 layers, 22.9 B
+              parameters, seeded random bf16 weights drawn on the card,
+              shared by phases 7 to 9) behind ``Engine(pool="CXL",
+              max_batch=8, max_len=512)``: after a warm-up at the same
+              shapes, 8 requests with 16 new tokens each, twice: kernel
+              launch counts (K1 once per decode wave), one device->host
+              read per steady decode wave, no other sync; then a profile.
+  8. long     one 2100-token prompt, 8 new tokens, monolithic admission,
+              ``max_len=4096``: TTFT and peak memory.
+  9. chunked  ``prefill_chunk=16``, a PrefixKVCache and a TinyLFU hot-row
+              cache: 8 prompts of 40 to 64 tokens sharing a 32-token
+              head, 8 new tokens each, run twice; prefix and hot-row hits
+              on the second run, launch and read budgets per step.
 
-The line before the last is a JSON object listing both kernels; the last
-is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object listing both kernels (launches
+summed over phases 7 to 9); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -233,7 +247,8 @@ def check_k2(cfg, dev) -> dict:
                 (mk(F, d) / math.sqrt(F)).to(dtype))
 
     result = {}
-    for n_t in (8, 256):                 # decode batch; 8 x 32-token prefill
+    # decode batch; 8 x 32-token prefill group; a 2100-token prompt
+    for n_t in (8, 256, 2112):
         # each timed call has its own weights (78.6 MB, beyond the 50 MB
         # L2): on the main path K2's weights are never warm
         sets = [operands(n_t, d, F, torch.bfloat16) for _ in range(10)]
@@ -318,21 +333,71 @@ def check_agreement(dev) -> None:
           f"logits max|diff| {(ld.cpu() - lc).abs().max().item():.2e}")
 
 
+def check_agreement_chunked(dev) -> None:
+    """Chunked admission with a prefix cache, and a prompt past the
+    2048-token chunk threshold through monolithic admission, on the card
+    and on the CPU, at the emulated operating point (so StoreStats do not
+    depend on host step times)."""
+    import numpy as np
+    from repro_torch.configs import engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.pool.cache import PrefixKVCache
+    from repro_torch.serving import Engine
+    cfg = engram_27b.reduced()
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    rng = np.random.RandomState(1)
+    head = list(rng.randint(1, cfg.vocab_size, size=16))
+    prompts = [head + list(rng.randint(1, cfg.vocab_size, size=n))
+               for n in (5, 9, 14)]
+    long_prompt = list(rng.randint(1, cfg.vocab_size, size=2100))
+    kw = dict(pool="CXL", emulate_step_s=5e-5)
+    seen = []
+    for device, params in (("cpu", params_cpu), (dev, params_dev)):
+        eng = Engine(cfg, params=params, max_batch=2, max_len=64,
+                     prompt_bucket=8, prefill_chunk=8,
+                     prefix_cache=PrefixKVCache(64 << 20, 8), device=device,
+                     **kw)
+        streams = []
+        for p in prompts:            # one at a time: later ones restore
+            rid = eng.submit(p, max_new=8)
+            eng.run()
+            streams.append(eng.done[rid].out)
+        mono = Engine(cfg, params=params, max_batch=1, max_len=2176,
+                      prompt_bucket=32, device=device, **kw)
+        rid = mono.submit(long_prompt, max_new=8)
+        mono.run()
+        streams.append(mono.done[rid].out)
+        seen.append(dict(
+            streams=streams, store=dataclasses.asdict(eng.store.stats()),
+            prefix=dataclasses.asdict(eng.prefix_cache.stats()),
+            long_store=dataclasses.asdict(mono.store.stats()),
+            clock=eng.clock.stats(), hits=eng.stats.prefix_hit_blocks))
+    cpu, card = seen
+    for key in cpu:
+        check(cpu[key] == card[key],
+              f"chunked agreement: {key} differs: cpu {cpu[key]} vs card "
+              f"{card[key]}")
+    check(card["hits"] > 0, "no prefix-cache hit in the chunked agreement")
+    print(f"agree chunked: reduced engram-27b (f32, pool=CXL, emulated "
+          f"step 5e-5 s), prefill_chunk=8 with a PrefixKVCache over "
+          f"{len(prompts)} prompts sharing a 16-token head "
+          f"({card['hits']} blocks restored) and one 2100-token prompt "
+          f"through monolithic admission: streams, StoreStats, "
+          f"PrefixCacheStats and the virtual clock identical on card and "
+          f"CPU")
+
+
 # ---------------------------------------------------------------------------
-# phase 6: the main path at full width
+# phases 7-9: the serving paths at full width
 # ---------------------------------------------------------------------------
 
-def serve_full(cfg, dev, smi: str, reps: int = 2) -> dict:
-    """Serve 8 requests on full-width engram-27b, ``reps`` times after a
-    warm-up at the same shapes; returns each kernel's launch count over
-    the last run."""
-    import numpy as np
+def draw_params(cfg, dev):
+    """Full-width weights on the card, drawn once for phases 7 to 9."""
     import torch
     from repro_torch.models.model import init_params
     from repro_torch.models.params import tree_leaves
-    from repro_torch.serving import Engine
-
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -341,9 +406,60 @@ def serve_full(cfg, dev, smi: str, reps: int = 2) -> dict:
           f"vocab {cfg.vocab_size} engram layers {cfg.engram_layers()}: "
           f"{n_params / 1e9:.3f} B parameters drawn in "
           f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.engram_gather import gather_rows
+    from repro_torch.kernels.gated_fuse import engram_gated_fuse
+    gather_rows.launches = 0
+    engram_gated_fuse.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.engram_gather import gather_rows
+    from repro_torch.kernels.gated_fuse import engram_gated_fuse
+    return {"engram_gather": gather_rows.launches,
+            "gated_fuse": engram_gated_fuse.launches}
+
+
+def drive(eng, rt, on_step=None) -> tuple[list, float]:
+    """Step the runtime until idle under PyTorch's sync debug mode: the
+    reads of each step and the run's seconds. Fails on any sync outside
+    the engine's counted reads."""
+    import torch
+    pulls = []
+    t_run = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            while eng.busy:
+                before = eng.stats.d2h_pulls
+                if on_step is not None:
+                    on_step()
+                rt.step()
+                pulls.append(eng.stats.d2h_pulls - before)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"{len(syncs)} stray syncs on the wave: {syncs[:3]}")
+    return pulls, time.perf_counter() - t_run
+
+
+def serve_full(cfg, params, dev, smi: str, reps: int = 2) -> dict:
+    """Serve 8 requests on full-width engram-27b, ``reps`` times after a
+    warm-up at the same shapes; returns each kernel's launch count over
+    the last run."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Engine
+
+    torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
                  prompt_bucket=32, device=dev)
-    del params
     rng = np.random.RandomState(0)
     prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
                for n in (5, 9, 12, 16, 20, 24, 28, 32)]
@@ -360,35 +476,15 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> dict:
     the kernels' launch counters and the engine's stats reset just before
     it; checks the counts, the reads per wave and the outputs."""
     import torch
-    from repro_torch.kernels.engram_gather import gather_rows
-    from repro_torch.kernels.gated_fuse import engram_gated_fuse
     eng.reset_stats()
     n_steps0 = len(eng._step_times)
 
-    gather_rows.launches = 0
-    engram_gated_fuse.launches = 0
+    reset_launches()
     handles = [rt.submit(p, max_new=16) for p in prompts]
-    pulls = []
-    t_run = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            while eng.busy:
-                before = eng.stats.d2h_pulls
-                rt.step()
-                pulls.append(eng.stats.d2h_pulls - before)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
-    launches = {"engram_gather": gather_rows.launches,
-                "gated_fuse": engram_gated_fuse.launches}
+    pulls, run_s = drive(eng, rt)
+    launches = read_launches()
 
     st = eng.stats
-    syncs = [str(w.message) for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
-    check(not syncs, f"{len(syncs)} stray syncs on the wave: {syncs[:3]}")
     check(all(h.finished and len(h.tokens) == 16 for h in handles),
           "not every request completed with 16 tokens")
     check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
@@ -424,15 +520,19 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> dict:
     return launches
 
 
-def profile_waves(eng, rt, prompts, max_new: int = 6) -> None:
+def profile_waves(eng, rt, prompts, max_new: int = 6,
+                  label: str = "profile") -> None:
     """Where a steady decode wave's time goes, from a short extra run after
     the counted one: wall time per wave, device time per wave (CUPTI, all
-    kernels summed) and the kernels that take most of it."""
+    kernels summed) and the kernels that take most of it. The first step
+    (admission, and in chunked mode the chunk waves) is not profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         rt.submit(p, max_new=max_new)
     rt.step()                        # admission + the post-admission wave
+    while eng._prefill_jobs:         # chunked: the rest of the prompts
+        rt.step()
     torch.cuda.synchronize()
     waves0 = eng.stats.decode_steps
     t0 = time.perf_counter()
@@ -446,13 +546,176 @@ def profile_waves(eng, rt, prompts, max_new: int = 6) -> None:
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
     n_ops = sum(e.count for e in ev)
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile: {n} steady decode waves under the profiler: wall "
+    print(f"{label}: {n} steady decode waves under the profiler: wall "
           f"{wall_ms / n:.3f} ms/wave, device busy {dev_ms / n:.3f} ms/wave "
           f"({100 * dev_ms / wall_ms:.1f} % of wall), {n_ops / n:.0f} "
           f"device kernels/copies per wave")
     for e in top:
-        print(f"profile:   {e.self_device_time_total / 1e3 / n:9.4f} ms/wave"
+        print(f"{label}:   {e.self_device_time_total / 1e3 / n:9.4f} ms/wave"
               f"  {e.count / n:6.1f} calls/wave  {e.key[:90]}")
+
+
+def serve_long_prompt(cfg, params, dev, smi: str) -> dict:
+    """One 2100-token prompt (padded to 2112) through monolithic admission
+    with ``max_len=4096``: every layer's prefill attention is chunked.
+    After a warm-up with another prompt of that length, one counted run
+    with 8 new tokens; returns the kernels' launches over it."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=4096,
+                 prompt_bucket=32, device=dev)
+    rng = np.random.RandomState(3)
+    warm, prompt = (list(rng.randint(1, cfg.vocab_size, size=2100))
+                    for _ in range(2))
+    eng.warmup([warm])
+    rt = eng.runtime()
+    eng.reset_stats()
+    reset_launches()
+    h = rt.submit(prompt, max_new=8)
+    pulls, run_s = drive(eng, rt)
+    launches = read_launches()
+    st = eng.stats
+    check(h.finished and len(h.tokens) == 8
+          and all(0 <= t < cfg.vocab_size for t in h.tokens),
+          f"long prompt: {h.tokens} is not 8 tokens of the vocabulary")
+    check(launches["engram_gather"] == st.decode_steps == 7,
+          f"long prompt: K1 launches {launches['engram_gather']} != one "
+          f"per {st.decode_steps} decode waves")
+    check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
+          f"long prompt: K2 launches {launches['gated_fuse']} != 2 x "
+          f"({st.prefill_waves} prefill groups + {st.decode_steps} waves)")
+    check(pulls == [3] + [1] * (st.decode_steps - 1),
+          f"long prompt: device->host reads per step {pulls}")
+    kv = sum(t.numel() * t.element_size()
+             for t in tree_leaves(eng.state["caches"]))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"long prompt: 2100 tokens (bucket 2112) + 8 new, monolithic "
+          f"admission, chunked attention in all {cfg.n_layers} layers; K1 "
+          f"launches {launches['engram_gather']}, K2 launches "
+          f"{launches['gated_fuse']}; reads per step {pulls}; no other sync")
+    print(f"long prompt [{smi}]: TTFT {st.mean_ttft_s * 1e3:.2f} ms, run "
+          f"{run_s:.3f} s, peak memory {peak / 1e9:.2f} GB, KV cache "
+          f"{kv / 1e9:.2f} GB (max_batch 8 x max_len 4096)")
+    return launches
+
+
+def serve_chunked(cfg, params, dev, smi: str, C: int = 16) -> dict:
+    """Chunked admission with a prefix cache and a TinyLFU hot-row cache:
+    8 prompts of 40 to 64 tokens sharing a 32-token head, 8 new tokens
+    each, run twice. Checks, per step, the launch and read budgets, and on
+    the second run prefix and hot-row hits. Returns the kernels' launches
+    summed over both runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import StoreConfig
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.pool.cache import PrefixKVCache
+    from repro_torch.serving import Engine
+    from repro_torch.serving.slots import select_slots, update_slots
+
+    torch.cuda.reset_peak_memory_stats()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=1 << 20,
+                                      admission="tinylfu")))
+    eng = Engine(ccfg, params=params, pool="CXL", max_batch=8, max_len=512,
+                 prompt_bucket=32, prefill_chunk=C,
+                 prefix_cache=PrefixKVCache(1 << 30, C), device=dev)
+    rt = eng.runtime()
+    rng = np.random.RandomState(4)
+    head = list(rng.randint(1, cfg.vocab_size, size=32))
+    prompts = [head + list(rng.randint(1, cfg.vocab_size, size=n))
+               for n in (8, 11, 14, 17, 21, 25, 28, 32)]
+    times = {"chunk": [], "decode": []}
+
+    def timed(name, fn):
+        def wave():
+            t0 = time.perf_counter()
+            out = fn()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return wave
+
+    eng._chunk_wave = timed("chunk", eng._chunk_wave)
+    eng._decode_wave = timed("decode", eng._decode_wave)
+    total = {"engram_gather": 0, "gated_fuse": 0}
+    for run in (1, 2):
+        eng.reset_stats()
+        eng.store.reset_stats()
+        for v in times.values():
+            v.clear()
+        marks = []
+
+        def mark():
+            marks.append((eng.stats.prefill_waves, eng.stats.prefills,
+                          eng.stats.decode_steps,
+                          eng.prefix_cache.stats().inserts))
+
+        reset_launches()
+        handles = [rt.submit(p, max_new=8) for p in prompts]
+        pulls, run_s = drive(eng, rt, on_step=mark)
+        launches = read_launches()
+        mark()
+        st = eng.stats
+        check(all(h.finished and len(h.tokens) == 8
+                  and all(0 <= t < cfg.vocab_size for t in h.tokens)
+                  for h in handles),
+              "chunked: not every request completed with 8 tokens")
+        check(launches["engram_gather"] == st.decode_steps,
+              f"chunked: K1 launches {launches['engram_gather']} != one per "
+              f"{st.decode_steps} decode waves")
+        check(launches["gated_fuse"]
+              == 2 * (st.decode_steps + C * st.prefill_waves),
+              f"chunked: K2 launches {launches['gated_fuse']} != 2 x "
+              f"({st.decode_steps} decode waves + {C} x {st.prefill_waves} "
+              f"unrolled chunk steps)")
+        # per step: one read per chunk wave, per prefix spill and per
+        # decode wave, and one more on a decode wave after a job went live
+        want = []
+        for a, b in zip(marks, marks[1:]):
+            waves, live, dec, spills = (y - x for x, y in zip(a, b))
+            want.append(waves + spills + dec + int(live > 0 and dec > 0))
+        check(pulls == want, f"chunked: reads per step {pulls}, want {want}")
+        store = eng.store.stats()
+        if run == 2:
+            check(st.prefix_hit_blocks > 0, "chunked: no prefix-cache hit")
+            check(store.hit_rate > 0, "chunked: no hot-row cache hit")
+        chunk_ms = 1e3 * sum(times["chunk"]) / len(times["chunk"])
+        dec_tokens = st.generated_tokens - st.prefills
+        print(f"chunked run {run}: {len(prompts)} prompts of "
+              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens "
+              f"(32-token shared head), C={C}: {st.prefill_waves} chunk "
+              f"waves, {st.decode_steps} decode waves, prefix blocks "
+              f"{st.prefix_hit_blocks}/{st.prefix_lookup_blocks} hit "
+              f"({st.prefill_tokens_restored} tokens restored, "
+              f"{st.prefill_tokens} computed), hot-row hit rate "
+              f"{store.hit_rate:.4f}; K1 {launches['engram_gather']}, K2 "
+              f"{launches['gated_fuse']} launches; reads per step {pulls}; "
+              f"no other sync")
+        print(f"chunked run {run} [{smi}]: chunk wave {chunk_ms:.1f} ms "
+              f"mean wall, decode {dec_tokens / sum(times['decode']):.2f} "
+              f"tok/s ({dec_tokens} tokens in "
+              f"{1e3 * sum(times['decode']):.1f} ms of decode waves), mean "
+              f"TTFT {st.mean_ttft_s * 1e3:.2f} ms, run {run_s:.2f} s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        for k in total:
+            total[k] += launches[k]
+    # a chunk wave's slot surgery: gather the 8 job slots' whole state and
+    # scatter it back (each slot's KV at max_len 512)
+    slots = list(range(8))
+    ms = call_ms(lambda: update_slots(eng.state,
+                                      select_slots(eng.state, slots), slots),
+                 [()] * 10)
+    slot_bytes = sum(t[0].numel() * t.element_size()
+                     for t in tree_leaves(eng.state))
+    print(f"chunked [{smi}]: select_slots + update_slots over 8 slots "
+          f"({8 * slot_bytes / 1e6:.1f} MB of state gathered and written "
+          f"back) {ms:.3f} ms per chunk wave")
+    profile_waves(eng, rt, prompts, label="chunked profile")
+    return total
 
 
 def main() -> int:
@@ -491,7 +754,14 @@ def main() -> int:
     k1 = check_k1(cfg, dev)
     k2 = check_k2(cfg, dev)
     check_agreement(dev)
-    launches = serve_full(cfg, dev, smi)
+    check_agreement_chunked(dev)
+    params = draw_params(cfg, dev)
+    launches = {"engram_gather": 0, "gated_fuse": 0}
+    for phase in (serve_full, serve_long_prompt, serve_chunked):
+        for k, n in phase(cfg, params, dev, smi).items():
+            launches[k] += n
+        gc.collect()             # the phase's engine (a cycle with its
+        torch.cuda.empty_cache()  # runtime) before the next one's caches
 
     kernels = [
         dict(name="engram_gather", route="cuda",
@@ -505,10 +775,12 @@ def main() -> int:
     ]
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
-          "(decode); also measured: "
+          "(decode); launches summed over the serve, long-prompt and "
+          "chunked runs; also measured: "
           + json.dumps({"engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],
-                        "gated_fuse_T256": k2[256]}))
+                        "gated_fuse_T256": k2[256],
+                        "gated_fuse_T2112": k2[2112]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

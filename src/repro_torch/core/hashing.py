@@ -15,6 +15,7 @@ Packed segment keys are int64 throughout: the reference's int32 span guard
 from __future__ import annotations
 
 import functools
+import zlib
 
 import numpy as np
 import torch
@@ -113,6 +114,18 @@ def decode_engram_indices(ecfg: EngramConfig, last_tokens: torch.Tensor,
     return idx[:, -1:, :]
 
 
+def block_engram_indices(ecfg: EngramConfig, last_tokens: torch.Tensor,
+                         block: torch.Tensor) -> torch.Tensor:
+    """Indices for a block of new tokens. last_tokens (B, max_order-1)
+    history (oldest first), block (B, m). Returns (B, m, n_tables): the
+    whole block's indices from token IDs alone (a chunk-prefill wave's
+    keys, a speculated window's prefetch)."""
+    ctx = torch.cat([last_tokens.to(torch.int64),
+                     block.to(torch.int64)], dim=1)
+    idx = engram_indices(ecfg, ctx)                       # (B, o-1+m, T)
+    return idx[:, -block.shape[1]:, :]
+
+
 def pack_segment_keys(ecfg: EngramConfig, idx: torch.Tensor,
                       n_layer_slots: int) -> torch.Tensor:
     """``idx (..., T)`` -> ``(..., L, T)`` int64 keys
@@ -140,3 +153,25 @@ def update_last_tokens(last_tokens: torch.Tensor,
         return last_tokens
     return torch.cat([last_tokens[:, 1:],
                       new_token.to(last_tokens.dtype)[:, None]], dim=1)
+
+
+def prefix_chain_keys(tokens, block_tokens: int) -> list:
+    """Chained keys over a prompt's whole ``block_tokens``-sized blocks
+    (host only): key ``i`` identifies the entire token prefix through
+    block ``i``, so two prompts share key ``i`` iff their first
+    ``(i+1)*block_tokens`` tokens are equal — the prefix KV cache's
+    identity. Two crc32 streams with different seeds folded into one
+    64-bit key: the same in every process (unlike the salted ``hash()``).
+    The trailing partial block gets no key."""
+    if block_tokens <= 0:
+        raise ValueError(f"block_tokens must be positive, got {block_tokens}")
+    toks = [int(t) for t in tokens]
+    h1, h2 = 0, 0x9E3779B9
+    out = []
+    for b in range(len(toks) // block_tokens):
+        data = np.asarray(toks[b * block_tokens:(b + 1) * block_tokens],
+                          np.int64).tobytes()
+        h1 = zlib.crc32(data, h1)
+        h2 = zlib.crc32(data, h2)
+        out.append((h1 << 32) | h2)
+    return out

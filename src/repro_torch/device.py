@@ -22,12 +22,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def upload(a, device: torch.device) -> torch.Tensor:
-    """Copy a host array to ``device`` without a host-side sync.
+    """Copy a host array (numpy, or a CPU tensor) to ``device`` without a
+    host-side sync.
 
     On CUDA the array is staged in pinned memory and copied with
     ``non_blocking=True`` (a pageable copy would synchronise the stream).
     On the CPU the result is a copy, so callers may reuse their buffer."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    t = a if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()

@@ -4,8 +4,11 @@
 Plain torch ops only, mirroring the reference's ``_sdpa``: f32 scores,
 masked entries set to ``NEG_INF = -2**30`` (not ``-inf``, so a fully masked
 row softmaxes to uniform weights instead of NaN), softmax, then the value
-product in the cache's dtype. The reference has no attention kernel of its
-own; these are the counterparts of the XLA ops it uses.
+product in the cache's dtype. A prefill longer than ``chunk_threshold``
+tokens takes ``_chunk_attn``: flash-style two-level chunking with an
+online softmax in f32 that never computes a KV block past the causal
+frontier. The reference has no attention kernel of its own; these are the
+counterparts of the XLA ops it uses.
 """
 from __future__ import annotations
 
@@ -68,17 +71,70 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     return out.reshape(B, Q, hq, hd_v)
 
 
+def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
+                q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Causal attention in (q chunk, kv chunk) blocks with a running max
+    and sum per query (the online softmax), all in f32. KV blocks past a
+    q chunk's causal frontier are skipped. Padded query positions are -1
+    (they attend nothing and are sliced off); padded key positions are
+    2**30 (no query reaches them)."""
+    B, S, hq, hd = q.shape
+    hkv, hd_v = k.shape[2], v.shape[-1]
+    g = hq // hkv
+    nq = -(-S // q_chunk)
+    nk = -(-S // kv_chunk)
+    pad_q = nq * q_chunk - S
+    pad_k = nk * kv_chunk - S
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        qpos = torch.cat([qpos, qpos.new_full((pad_q,), -1)])
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        kpos = torch.cat([kpos, kpos.new_full((pad_k,), 2 ** 30)])
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(nq):
+        qs = slice(i * q_chunk, (i + 1) * q_chunk)
+        qi = q[:, qs].reshape(B, q_chunk, hkv, g, hd).float()
+        # the causal KV frontier of this q chunk
+        hi = min(nk, -(-((i + 1) * q_chunk) // kv_chunk))
+        m_run = torch.full((B, hkv, g, q_chunk), NEG_INF, device=q.device)
+        l_run = torch.zeros((B, hkv, g, q_chunk), device=q.device)
+        acc = torch.zeros((B, hkv, g, q_chunk, hd_v), device=q.device)
+        for j in range(hi):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
+                             k[:, ks].float()) * scale
+            s = softcap(s, cfg.attn_logit_softcap)
+            s = torch.where(_mask(qpos[qs], kpos[ks], causal=True), s,
+                            NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, v[:, ks].float())
+            m_run = m_new
+        out_i = acc / l_run[..., None].clamp(min=1e-20)
+        outs.append(out_i.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, hq,
+                                                         hd_v))
+    return torch.cat(outs, dim=1)[:, :S].to(q.dtype)
+
+
 def attention(cfg: ModelConfig, params, h, positions, *,
+              q_chunk: int = 1024, kv_chunk: int = 1024,
               chunk_threshold: int = 2048):
-    """Prefill attention. h (B,S,d), positions (S,). Returns (out, kv)."""
+    """Prefill attention. h (B,S,d), positions (S,). Returns (out, kv).
+    More than ``chunk_threshold`` tokens take ``_chunk_attn``."""
     B, S, _ = h.shape
-    if S > chunk_threshold:
-        raise NotImplementedError(
-            f"prefill of {S} > chunk_threshold={chunk_threshold} tokens needs "
-            "the chunked attention path (ROADMAP queue 1, item 1: _chunk_attn)")
     q, k, v = _qkv(cfg, params, h, positions)
-    mask = _mask(positions, positions, causal=True)[None]
-    out = _sdpa(cfg, q, k, v, mask)
+    if S <= chunk_threshold:
+        mask = _mask(positions, positions, causal=True)[None]
+        out = _sdpa(cfg, q, k, v, mask)
+    else:
+        out = _chunk_attn(cfg, q, k, v, positions, positions,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], {"k": k, "v": v}
 

@@ -12,9 +12,13 @@ The Engram retrieval for every Engram layer is issued before the block
 stack (it depends only on token IDs), and each Engram layer fuses its rows
 into the hidden state through the gated_fuse kernel (K2).
 
+  build_chunk_prefill(cfg, flags)          (params, state, chunk, lens)
+                                              -> (logits, state)
+
 Decode updates the state's KV caches in place (see
 ``attention.decode_attention``); ``positions`` and ``last_tokens`` are new
-tensors each step.
+tensors each step, int32 as in the reference (a prefix snapshot's byte
+count, which the pool link is charged, depends on their width).
 """
 from __future__ import annotations
 
@@ -92,9 +96,9 @@ def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
     return {
         "caches": [init_segment_cache(cfg, seg, batch, max_len, dtype, device)
                    for seg in segment_plan(cfg)],
-        "positions": torch.zeros((batch,), dtype=torch.int64, device=device),
+        "positions": torch.zeros((batch,), dtype=torch.int32, device=device),
         "last_tokens": torch.full((batch, max_order - 1), pad,
-                                  dtype=torch.int64, device=device),
+                                  dtype=torch.int32, device=device),
     }
 
 
@@ -129,8 +133,8 @@ def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):
         # the window fits inside the row
         start = (lengths - no).clamp(min=0, max=max(S - no, 0))
         cols = start[:, None] + torch.arange(no, device=tokens.device)
-        last = tokens.to(torch.int64).gather(1, cols)
-        state = {"caches": caches, "positions": lengths.to(torch.int64),
+        last = tokens.gather(1, cols).to(torch.int32)
+        state = {"caches": caches, "positions": lengths.to(torch.int32),
                  "last_tokens": last}
         return logits, state
 
@@ -144,8 +148,9 @@ def _decode_one(cfg: ModelConfig, flags: RunFlags, params, state, token,
     if cfg.engram_layers() and "engram" in params and rows is None:
         idx = decode_engram_indices(cfg.engram, state["last_tokens"], token)
         rows = _engram_rows_all_layers(cfg, flags, params, idx)
+    # int64 once per step: int32 indices would be widened in every layer
     h, new_caches = forward(cfg, flags, params, {"tokens": token[:, None]},
-                            "decode", positions=positions,
+                            "decode", positions=positions.long(),
                             caches=state["caches"], engram_rows=rows)
     logits = head_logits(params["head"], h[:, 0], cfg.final_logit_softcap)
     new_state = {
@@ -168,3 +173,32 @@ def build_decode_step(cfg: ModelConfig, flags: RunFlags,
             cfg, flags, params, state, token, rows)
     return lambda params, state, token: _decode_one(cfg, flags, params,
                                                     state, token)
+
+
+def build_chunk_prefill(cfg: ModelConfig, flags: RunFlags):
+    """Chunked-prefill step for ragged admission.
+
+    (params, state, chunk (B,C), lens (B,)) -> (logits (B,V), new_state)
+
+    Unrolls C single-token decode steps over a chunk of each row's prompt,
+    from the per-row offset in ``state['positions']``. Rows whose chunk is
+    shorter than C (``lens``) stop advancing at their length
+    (``serving.slots.gate_state``); the logits returned are each row's
+    last valid step's, which for a prompt's final chunk are the prefill
+    logits its first token is sampled from. The caches are written in
+    place."""
+    check_supported(cfg)
+    from ..serving.slots import gate_state
+
+    def chunk_step(params, state, chunk, lens):
+        logits_keep = None
+        st = state
+        for s in range(chunk.shape[1]):
+            valid = lens > s
+            logits, new_st = _decode_one(cfg, flags, params, st, chunk[:, s])
+            st = gate_state(valid, new_st, st)
+            logits_keep = logits if logits_keep is None else \
+                torch.where(valid[:, None], logits, logits_keep)
+        return logits_keep, st
+
+    return chunk_step

@@ -9,11 +9,14 @@ where rows live. The protocol::
     rows   = store.gather(handle)   # materialise the rows
     stats  = store.stats()          # measured counts + stalls
 
-This slice ports ``TierStore`` (one ``TierSpec``) and ``LocalStore``
-(weights on the device, no emulated cost) verbatim, and ``TableFetcher``
-over the engram_gather kernel (K1), with ``fetch_layers`` gathering every
-Engram layer's rows of a wave in one launch. The hot-row cache, tier
-chain and fabric raise (ROADMAP queue 1, items 3 and 6).
+The port has ``TierStore`` (one ``TierSpec``), ``LocalStore`` (weights
+on the device, no emulated cost) and ``CachedStore`` (an LRU hot-row
+cache, ``pool/cache.py``, in front of a ``TierStore``: the measured
+hit/miss split of each wave enters the latency model). The cache changes
+only the cost model: rows are still materialised by ``TableFetcher`` over
+the engram_gather kernel (K1), with ``fetch_layers`` gathering every
+Engram layer's rows of a wave in one launch. Tier chains and fabrics
+raise (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from ..configs.base import EngramConfig
 from ..device import upload
+from .cache import LRUHotRowCache, TinyLFUAdmission, WaveAccess
 from .tiers import TIERS, TierSpec, is_chain
 
 
@@ -233,6 +237,19 @@ class _StoreBase:
         self.note_class("engram", nbytes, occ)
         return wait, [tr]
 
+    def reserve_prefetch(self, n_segments: int):
+        """Book a future wave's occupancy on the shared medium now (a
+        chunk wave books the next chunk's rows). Returns the ``Transfer``,
+        or None when unbound; the engine refunds it at the next wave,
+        where the real keys are charged, or on a mid-prefill cancel."""
+        link = getattr(self, "_link", None)
+        if link is None or self.cursor is None or n_segments <= 0:
+            return None
+        _, tr = link.reserve(self.cursor.now_s,
+                             self.occupancy_s(n_segments),
+                             nbytes=n_segments * segment_bytes(self.ecfg))
+        return tr
+
     def gather(self, handle: PrefetchHandle) -> Any:
         if not handle.gathered:
             if handle.fetch is not None:
@@ -290,6 +307,86 @@ class LocalStore(_StoreBase):
         return 0.0
 
 
+class CachedStore(_StoreBase):
+    """LRU hot-row cache (``cache_tier``) in front of a backing store.
+
+    Hit and miss paths proceed in parallel, so a wave completes at
+    ``max(hit path, miss path)``: the §6 formula evaluated with the
+    measured per-wave split. Clock-bound, the two paths occupy two links:
+    misses the backing tier's fleet-wide link, hits the cache's own link
+    (``cache:<id>``, the cache tier's bandwidth)."""
+
+    def __init__(self, backing: TierStore, cache_tier: TierSpec | str = "DRAM",
+                 cache: Optional[LRUHotRowCache] = None, clock=None):
+        super().__init__(backing.ecfg, backing.tier.name)
+        self.backing = backing
+        self.cache_tier = TIERS[cache_tier] if isinstance(cache_tier, str) \
+            else cache_tier
+        self.cache = cache
+        self._cache_link = clock.link(f"cache:{id(self):x}",
+                                      self.cache_tier.bandwidth_Bps) \
+            if clock is not None else None
+        self._stats.cache_tier = self.cache_tier.name
+        # the cache defines __len__: test identity, not truthiness
+        self._stats.cache_rows = 0 if cache is None else cache.capacity_rows
+
+    def bind_cursor(self, cursor) -> None:
+        super().bind_cursor(cursor)
+        self.backing.bind_cursor(cursor)
+
+    def latency_for_segments(self, n_segments: int) -> float:
+        return self.backing.latency_for_segments(n_segments)
+
+    def occupancy_s(self, n_segments: int) -> float:
+        # pre-reservations assume the miss path (the backing medium)
+        return self.backing.occupancy_s(n_segments)
+
+    def reserve_prefetch(self, n_segments: int):
+        return self.backing.reserve_prefetch(n_segments)
+
+    def _split_latency(self, hits: int, misses: int) -> float:
+        seg = segment_bytes(self.ecfg)
+        t_hit = self.cache_tier.read_latency_s(hits, seg) if hits else 0.0
+        return max(t_hit, self.backing.latency_for_segments(misses))
+
+    def _charged_latency(self, hits: int, misses: int
+                         ) -> tuple[float, float, list]:
+        seg = segment_bytes(self.ecfg)
+        resv = []
+        t_hit = self.cache_tier.read_latency_s(hits, seg) if hits else 0.0
+        w_hit = w_miss = 0.0
+        link = self.backing._link
+        if misses and self.cursor is not None and link is not None:
+            occ = self.backing.occupancy_s(misses)
+            w_miss, tr = link.reserve(self.cursor.now_s, occ,
+                                      nbytes=misses * seg,
+                                      wave=self.cursor.wave_tag(),
+                                      klass="engram")
+            self.note_class("engram", misses * seg, occ)
+            resv.append(tr)
+        miss_path = self.backing.latency_for_segments(misses) + w_miss
+        if hits and self.cursor is not None and self._cache_link is not None:
+            w_hit, tr = self._cache_link.reserve(
+                self.cursor.now_s, self.cache_tier.service_s(hits, seg),
+                nbytes=hits * seg, wave=self.cursor.wave_tag())
+            resv.append(tr)
+        return max(t_hit + w_hit, miss_path), max(w_hit, w_miss), resv
+
+    def ideal_latency_s(self, batch_tokens: int, hit_rate: float) -> float:
+        """Analytic mode (the §6 formula): an assumed ``hit_rate`` instead
+        of the LRU's measured split."""
+        n = segment_count(self.ecfg, batch_tokens)
+        hits = int(round(n * hit_rate))
+        return self._split_latency(hits, n - hits)
+
+    def _classify(self, tokens) -> tuple[int, int, int]:
+        if (isinstance(tokens, Segments) or np.isscalar(tokens)
+                or isinstance(tokens, int) or self.cache is None):
+            return super()._classify(tokens)
+        wave: WaveAccess = self.cache.access_wave(tokens)
+        return wave.n_segments, wave.hits, wave.misses
+
+
 # ---------------------------------------------------------------------------
 # row materialization through the engram_gather kernel (K1)
 # ---------------------------------------------------------------------------
@@ -341,14 +438,22 @@ def fetch_layers(fetchers, gids) -> torch.Tensor:
 
 def make_store(ecfg: EngramConfig, tier: TierSpec | str | None,
                store_cfg=None, clock=None):
-    """The store for a backing tier (``None`` -> ``LocalStore``)."""
+    """The store for a backing tier (``None`` -> ``LocalStore``), honouring
+    the store config's hot-row cache (``cache_rows > 0``: a
+    ``CachedStore`` with ``"lru"`` or ``"tinylfu"`` admission)."""
     scfg = store_cfg if store_cfg is not None else ecfg.store
     if tier is not None and is_chain(tier):
         raise NotImplementedError("tier chains (pool='CXL+SSD'): ROADMAP "
                                   "queue 1, item 6 (tierchain.py)")
-    if scfg is not None and scfg.cache_rows > 0:
-        raise NotImplementedError("the hot-row cache (cache_rows > 0): "
-                                  "ROADMAP queue 1, item 3 (CachedStore)")
     if tier is None:
         return LocalStore(ecfg)
-    return TierStore(ecfg, tier, clock=clock)
+    base = TierStore(ecfg, tier, clock=clock)
+    if scfg is not None and scfg.cache_rows > 0:
+        if scfg.admission not in ("lru", "tinylfu"):
+            raise ValueError(f"unknown cache admission {scfg.admission!r}")
+        adm = TinyLFUAdmission() if scfg.admission == "tinylfu" else None
+        return CachedStore(base, cache_tier=scfg.cache_tier,
+                           cache=LRUHotRowCache(scfg.cache_rows,
+                                                admission=adm),
+                           clock=clock)
+    return base

@@ -1,30 +1,44 @@
 """Continuous-batching serving engine with Engram prefetch (PyTorch port of
 ``repro.serving.engine``).
 
-This slice ports the engine's main path: monolithic batched admission (one
-multi-slot prefill per prompt bucket) and greedy continuous-batched decode
-waves over ``max_batch`` slots, with the pool tier's cost charged through
-the ``PrefetchScheduler`` and the store. With a pool tier
-(``pool="CXL"``...) every decode wave materialises every Engram layer's
-rows in one engram_gather (K1) launch (``fetch_layers``); every forward
-fuses them through the gated_fuse kernel (K2).
+The port has the engine's serving paths short of speculation:
+
+* monolithic batched admission (one multi-slot prefill per prompt bucket);
+* chunked admission (``prefill_chunk``): a request claims a slot as a
+  ``_PrefillJob`` and its prompt enters the KV cache ``prefill_chunk``
+  tokens per ``_chunk_wave`` (C unrolled, gated decode steps), between
+  the running slots' decode waves, which then run gated so the jobs'
+  positions do not advance under them; with a ``PrefixKVCache``
+  (``prefix_cache``), completed chunk boundaries are spilled to the host
+  and later prompts sharing the prefix restore them instead of computing;
+* greedy continuous-batched decode waves over ``max_batch`` slots.
+
+The pool tier's cost is charged through the ``PrefetchScheduler`` and the
+store (a ``CachedStore`` when the config asks for a hot-row cache); prefix
+snapshots are booked as byte transfers on the pool tier's clock link. With
+a pool tier (``pool="CXL"``...) every decode wave, gated or not,
+materialises every Engram layer's rows in one engram_gather (K1) launch
+(``fetch_layers``); chunk waves and prefill groups retrieve by plain
+indexing. Every forward fuses the rows through the gated_fuse kernel (K2).
 
 Single-sync waves, as in the reference: the host reads the device through
 ``_host`` only, once per admission group (first tokens | the group's
-packed prompt keys) and once per steady decode wave (sampled tokens | the
-next wave's packed keys); ``stats.d2h_pulls`` counts those reads. Nothing
-else on a wave synchronises: host arrays go up through pinned,
-non-blocking copies (``device.upload``). ``_host`` suspends PyTorch's CUDA
-sync debug mode for its own read, so a caller can run waves under
+packed prompt keys), once per chunk wave (sampled tokens | the chunk's
+packed keys) and once per steady decode wave (sampled tokens | the next
+wave's packed keys); a prefix spill's snapshot is one more counted read.
+``stats.d2h_pulls`` counts those reads. Nothing else on a wave
+synchronises: host arrays go up through pinned, non-blocking copies
+(``device.upload``). The reads suspend PyTorch's CUDA sync debug mode
+(``_sync_allowed``), so a caller can run waves under
 ``torch.cuda.set_sync_debug_mode`` and see any other sync.
 
 Not ported in this slice (each raises NotImplementedError naming its
-ROADMAP queue 1 item): chunked prefill and the prefix cache, speculation,
-SLO admission/preemption and KV spill, fabrics and tier chains, the
-hot-row cache.
+ROADMAP queue 1 item): speculation, SLO admission/preemption and KV
+spill, fabrics and tier chains, the fleet options of the router.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -35,23 +49,24 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.engram import retrieve
-from ..core.hashing import (decode_engram_indices, decode_engram_keys,
-                            engram_indices, pack_segment_keys)
+from ..core.hashing import (block_engram_indices, decode_engram_indices,
+                            decode_engram_keys, engram_indices,
+                            pack_segment_keys, prefix_chain_keys)
 from ..device import resolve_device, upload
 from ..models.layers import with_f32_head
-from ..models.model import (build_decode_step, build_prefill_step,
-                            init_decode_state, init_params)
+from ..models.model import (build_chunk_prefill, build_decode_step,
+                            build_prefill_step, init_decode_state,
+                            init_params)
 from ..models.transformer import RunFlags, check_supported
 from ..pool.scheduler import PrefetchScheduler
 from ..pool.store import TableFetcher, fetch_layers, make_store
 from ..pool.tiers import pool_tier
 from .clock import VirtualClock
-from .slots import update_slots
+from .slots import (extract_prefix, gate_state, restore_prefix,
+                    select_slots, update_slots)
 
 # Engine options of the reference that later slices port.
 _UNPORTED = {
-    "prefill_chunk": "2 (chunked prefill and the prefix cache)",
-    "prefix_cache": "2 (chunked prefill and the prefix cache)",
     "spec": "4 (speculation)",
     "proposer": "4 (speculation)",
     "slo_policy": "5 (overload and KV spill)",
@@ -85,6 +100,26 @@ class Request:
     stamps: list = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class _PrefillJob:
+    """One request's chunked-prefill progress: a slot is held from
+    admission, and each chunk wave advances ``pos`` by up to
+    ``prefill_chunk`` prompt tokens until the prompt is in the KV cache
+    and the slot goes live. ``restore`` is a pending prefix-cache snapshot
+    (consumed at the job's first chunk wave); ``resv`` holds the clock-link
+    bookings outstanding between waves (the prefix fetch, the next chunk's
+    Engram prefetch), refunded newest-first at the next wave or on a
+    mid-prefill ``cancel()``."""
+    req: Request
+    slot: int
+    pos: int = 0                     # prompt tokens already in the KV cache
+    restore: object = None           # pending prefix snapshot (host tree)
+    restore_bytes: int = 0           # snapshot bytes (the tier-fetch charge)
+    chain: list = dataclasses.field(default_factory=list)  # block chain keys
+    resv: list = dataclasses.field(default_factory=list)   # queued bookings
+    started: bool = False
+
+
 def _rate(num: float, den: float) -> float:
     """Division-safe rate: 0.0 for a zero, NaN or negative denominator."""
     den = float(den)
@@ -107,13 +142,31 @@ class EngineStats:
     requests_cancelled: int = 0
     ttft_s_sum: float = 0.0          # summed submit -> first-token latency
     d2h_pulls: int = 0               # device->host reads through _host()
-    prefill_waves: int = 0           # admission groups
+    prefill_waves: int = 0           # admission groups and chunk waves
     prefill_tokens: int = 0          # useful prompt tokens computed
-    prefill_pad_tokens: int = 0      # executed right-pad positions
+    prefill_pad_tokens: int = 0      # executed right-pad / chunk-tail steps
+    prefill_tokens_restored: int = 0 # prompt tokens restored from the cache
+    prefix_lookup_blocks: int = 0    # whole prompt blocks eligible for reuse
+    prefix_hit_blocks: int = 0       # blocks served by the prefix cache
 
     @property
     def tokens_per_s(self) -> float:
         return _rate(self.generated_tokens, self.wall_s)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Block-granular prefix-cache hit rate over admitted prompts."""
+        return _rate(self.prefix_hit_blocks, self.prefix_lookup_blocks)
+
+    @property
+    def prefill_waves_per_request(self) -> float:
+        return _rate(self.prefill_waves, self.prefills)
+
+    @property
+    def prefill_compute_tokens(self) -> float:
+        """Executed prefill token positions (useful + pad); restored prefix
+        tokens cost a tier fetch, not a forward pass, so are not in it."""
+        return float(self.prefill_tokens + self.prefill_pad_tokens)
 
     @property
     def mean_ttft_s(self) -> float:
@@ -135,8 +188,9 @@ class Engine:
                  max_len: int = 512, prompt_bucket: int = 32,
                  pool: Optional[str] = None, seed: int = 0,
                  emulate_step_s: Optional[float] = None,
-                 emu_prefill_scaled: bool = False, device=None,
-                 **unported):
+                 emu_prefill_scaled: bool = False,
+                 prefill_chunk: Optional[int] = None, prefix_cache=None,
+                 device=None, **unported):
         """``device``: where the model runs — the CUDA device unless the
         caller passes ``device="cpu"``; with no CUDA device and no
         ``device`` this raises. ``params``: a parameter tree on that device
@@ -147,7 +201,14 @@ class Engine:
         ``emu_time_s`` rather than slept), as in the reference. The
         reference's fleet options (``store``, ``clock``, ``name``,
         ``rid_start``, ``step_latency_hint_s``) raise until the router is
-        ported."""
+        ported.
+
+        ``prefill_chunk``: chunked admission (see the module docstring);
+        None keeps monolithic admission. ``prefix_cache``: a
+        ``pool.cache.PrefixKVCache`` whose ``block_tokens`` equal
+        ``prefill_chunk`` (snapshots exist only at chunk boundaries).
+        Speculation, when ported, must refuse ``prefill_chunk``: the
+        verify pass is not gated."""
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -201,6 +262,20 @@ class Engine:
         self._decode_ext_fn = build_decode_step(cfg, flags,
                                                 external_rows=True) \
             if self.has_engram else None
+        # chunked admission (None: monolithic groups)
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        self.prefix_cache = prefix_cache
+        self._prefill_jobs: dict[int, _PrefillJob] = {}
+        if prefix_cache is not None:
+            if self.prefill_chunk is None:
+                raise ValueError("prefix_cache needs prefill_chunk "
+                                 "(snapshots live at chunk boundaries)")
+            if prefix_cache.block_tokens != self.prefill_chunk:
+                raise ValueError(
+                    f"prefix_cache.block_tokens {prefix_cache.block_tokens}"
+                    f" != prefill_chunk {self.prefill_chunk}")
+        if self.prefill_chunk is not None:
+            self._chunk_core = build_chunk_prefill(cfg, flags)
 
         self.state = init_decode_state(cfg, flags, max_batch, max_len,
                                        self.device)
@@ -233,7 +308,8 @@ class Engine:
     @property
     def busy(self) -> bool:
         """Anything queued or mid-flight?"""
-        return bool(self.queue) or any(s is not None for s in self.slots)
+        return (bool(self.queue) or bool(self._prefill_jobs)
+                or any(s is not None for s in self.slots))
 
     def runtime(self) -> "EngramRuntime":
         """The engine's request-lifecycle front-end (serving/runtime.py)."""
@@ -247,13 +323,20 @@ class Engine:
         return self.runtime().drain()
 
     def cancel(self, rid: int) -> bool:
-        """Drop a queued request or free its running slot (the next
+        """Drop a queued request, a prefill job or a running slot (the next
         admission's scatter-write over the slot is the rollback). False if
         the rid already finished or was never submitted."""
         for req in self.queue:
             if req.rid == rid:
                 self.queue.remove(req)
                 self._mark_cancelled(req)
+                return True
+        for job in list(self._prefill_jobs.values()):
+            if job.req.rid == rid:
+                # the partial KV needs no surgery: the next job's
+                # _start_job writes a fresh or restored state over it
+                self._drop_job(job)
+                self._mark_cancelled(job.req)
                 return True
         for slot, req in enumerate(self.slots):
             if req is not None and req.rid == rid:
@@ -262,6 +345,16 @@ class Engine:
                 self._mark_cancelled(req)
                 return True
         return False
+
+    def _drop_job(self, job: _PrefillJob) -> None:
+        """Retire a prefill job: refund its outstanding clock-link bookings
+        newest-first (``Link.refund`` rolls back only a link's tail, and
+        the job booked in issue order) and release the slot."""
+        for tr in job.resv[::-1]:
+            self.clock.refund(tr)
+        job.resv.clear()
+        self._prefill_jobs.pop(job.slot, None)
+        self._free.append(job.slot)
 
     def _mark_cancelled(self, req: Request) -> None:
         req.status = "cancelled"
@@ -286,22 +379,31 @@ class Engine:
 
     # -------------------------------------------------------- host syncing
 
+    @contextlib.contextmanager
+    def _sync_allowed(self):
+        """Suspend PyTorch's CUDA sync debug mode for a counted read, so
+        waves run under that mode flag any other sync."""
+        mode = torch.cuda.get_sync_debug_mode() \
+            if self.device.type == "cuda" else 0
+        if mode == 0:
+            yield
+            return
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
     def _host(self, t: torch.Tensor) -> np.ndarray:
         """The wave's device->host read. Every host materialisation on the
-        serving path goes through here, so ``d2h_pulls`` counts them; it is
-        exempt from PyTorch's CUDA sync debug mode, so waves run under that
-        mode flag any other sync."""
+        serving path goes through here (or, for a prefix spill's snapshot,
+        through ``_sync_allowed`` beside it), so ``d2h_pulls`` counts
+        them."""
         self.stats.d2h_pulls += 1
         if t.device.type != "cuda":
             return t.numpy().copy()
-        mode = torch.cuda.get_sync_debug_mode()
-        if mode == 0:
+        with self._sync_allowed():
             return t.cpu().numpy()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return t.cpu().numpy()
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
 
     # ---------------------------------------------------------- prefill path
 
@@ -339,6 +441,8 @@ class Engine:
 
         Unlike the reference, a group is not padded to a power-of-two row
         count: that bounds JAX recompiles and costs compute here."""
+        if self.prefill_chunk is not None:
+            return self._admit_chunked()
         events = []
         if not (self._free and self.queue):
             return events
@@ -408,6 +512,194 @@ class Engine:
         self._next_keys = None      # decode keys were computed pre-admit
         return events
 
+    # ------------------------------------------------- chunked prefill path
+
+    def _admit_chunked(self) -> list:
+        """Chunked admission: each queued request claims a free slot as a
+        ``_PrefillJob``; no compute happens here. A job's first token is
+        emitted by the chunk wave that finishes its prompt, so this returns
+        no events."""
+        while self._free and self.queue:
+            self._claim_job(self.queue.popleft(), self._free.popleft())
+        return []
+
+    def _claim_job(self, req: Request, slot: int) -> None:
+        """Claim one slot as a ``_PrefillJob``. With a prefix cache, look
+        up the prompt's chained block keys and schedule the deepest cached
+        boundary state for restore; its bytes are booked on the pool link
+        now and stay refundable until the job's first chunk wave."""
+        C = self.prefill_chunk
+        job = _PrefillJob(req=req, slot=slot)
+        if self.prefix_cache is not None:
+            job.chain = prefix_chain_keys(req.prompt, C)
+            # at least one prompt token must remain to compute: snapshots
+            # carry KV state, not the logits of the first token
+            usable = job.chain[:(len(req.prompt) - 1) // C]
+            self.stats.prefix_lookup_blocks += len(usable)
+            if usable:
+                n_hit, snap, nbytes = self.prefix_cache.lookup(usable)
+                if n_hit:
+                    job.restore = snap
+                    job.restore_bytes = int(nbytes)
+                    job.pos = n_hit * C
+                    self.stats.prefix_hit_blocks += n_hit
+                    self.stats.prefill_tokens_restored += n_hit * C
+                    tr = self._reserve_bytes(nbytes)
+                    if tr is not None:
+                        job.resv.append(tr)
+        req.status = "running"
+        self._prefill_jobs[slot] = job
+
+    def _start_job(self, job: _PrefillJob) -> None:
+        """First-wave start: write the restored prefix (KV padded back to
+        ``max_len``) over the job's slot, or, for a fresh prompt, reset
+        only the slot's position and last tokens. The previous occupant's
+        KV needs no clearing: attention masks it past the row's position,
+        and each step writes its own position before it attends there."""
+        if job.restore is not None:
+            update_slots(self.state, restore_prefix(
+                job.restore, self.max_len, self.device), [job.slot])
+            job.restore = None
+        else:
+            # fill_, not item assignment: assigning a Python number to a
+            # CUDA tensor's element copies it from the host and syncs
+            e = self.cfg.engram
+            self.state["positions"][job.slot].fill_(0)
+            self.state["last_tokens"][job.slot].fill_(e.pad_token if e else 0)
+        job.started = True
+
+    def _chunk_wave_fn(self, params, state, tokens, chunk, lens, slots):
+        """One chunk wave over the jobs' host slot ids ``slots``: gather
+        their sub-state, unroll ``prefill_chunk`` gated decode steps over
+        the ragged chunk, write back, and sample each row's last valid
+        logits. Returns the state, the tokens and ONE packed int64 vector
+        [sampled tokens | (pool mode) the chunk's packed keys] for the
+        wave's single host read."""
+        sub = select_slots(state, slots)
+        pk = None
+        if self._pool_mode:
+            e = self.cfg.engram
+            kidx = block_engram_indices(e, sub["last_tokens"], chunk)
+            pk = pack_segment_keys(e, kidx, self._n_eng)   # (n, C, L, T)
+        logits, new_sub = self._chunk_core(params, sub, chunk, lens)
+        state = update_slots(state, new_sub, slots)
+        tok = torch.argmax(logits, dim=-1)
+        tokens = update_slots(tokens, tok, slots)
+        packed = tok if pk is None else torch.cat([tok, pk.reshape(-1)])
+        return state, tokens, packed
+
+    def _chunk_wave(self) -> list:
+        """Advance every prefill job by one chunk, with ONE host read. Jobs
+        that consume their last prompt token emit their first token and go
+        live. Completed chunk boundaries are spilled into the prefix cache
+        (a counted snapshot read plus a write booked on the pool link).
+        Returns ``(request, emitted_tokens, finished, index)`` tuples.
+
+        Unlike the reference, the jobs are not padded to a power-of-two
+        row count (as in ``_admit``), so ``prefill_pad_tokens`` counts only
+        the chunks' ragged tails."""
+        if not self._prefill_jobs:
+            return []
+        jobs = [self._prefill_jobs[s] for s in sorted(self._prefill_jobs)]
+        C = self.prefill_chunk
+        t0 = time.perf_counter()
+        self.cursor.next_wave()
+        # settle the inter-wave bookings newest-first (they were issued in
+        # job order); the wave re-charges through the normal path below
+        for job in jobs[::-1]:
+            for tr in job.resv[::-1]:
+                self.clock.refund(tr)
+            job.resv.clear()
+        for job in jobs:
+            if not job.started:
+                if job.restore is not None and job.restore_bytes:
+                    # the prefix hit's fetch, re-priced at this wave's
+                    # position: the snapshot must be on the device before
+                    # the chunk computes, so its completion is a stall
+                    tr = self._reserve_bytes(job.restore_bytes)
+                    if tr is not None and tr.end_s > self.cursor.now_s:
+                        stall = tr.end_s - self.cursor.now_s
+                        self.stats.stall_s += stall
+                        self.stats.emu_time_s += stall
+                        self.cursor.advance(stall)
+                self._start_job(job)
+        n = len(jobs)
+        buf = self._prompt_view(n, C)
+        lens = np.zeros((n,), np.int64)
+        for r, job in enumerate(jobs):
+            take = min(C, len(job.req.prompt) - job.pos)
+            buf[r, :take] = job.req.prompt[job.pos:job.pos + take]
+            lens[r] = take
+        self.state, self.tokens, packed = self._chunk_wave_fn(
+            self.params, self.state, self.tokens, upload(buf, self.device),
+            upload(lens, self.device), [j.slot for j in jobs])
+        packed = self._host(packed)            # ONE read per chunk wave
+        toks = packed[:n]
+        useful = int(lens.sum())
+        self.stats.prefill_waves += 1
+        self.stats.prefill_tokens += useful
+        self.stats.prefill_pad_tokens += n * C - useful
+        emu_s = None
+        if self.emulate_step_s is not None:
+            emu_s = self._prefill_step_s(n * C)
+            self.stats.emu_time_s += emu_s
+        if self._pool_mode:
+            pk = packed[n:].reshape(n, C, self._n_eng, -1)
+            charge = [[] for _ in range(self._n_eng)]
+            for r in range(n):
+                live = pk[r, :lens[r]]         # drop ragged-tail positions
+                for j in range(self._n_eng):
+                    charge[j].append(live[:, j, :].reshape(-1))
+            self._charge_wave([np.concatenate(c) for c in charge],
+                              step_s=emu_s)
+        t_now = time.perf_counter()
+        self.cursor.advance(emu_s if emu_s is not None else t_now - t0)
+        self._step_times.append(time.perf_counter() - t0)
+        events = []
+        t_v = self.cursor.now_s
+        for r, job in enumerate(jobs):
+            job.pos += int(lens[r])
+            req = job.req
+            # spill a completed block boundary: the state at job.pos is the
+            # boundary state (a finishing full block lands on one too)
+            bi = job.pos // C - 1
+            if (self.prefix_cache is not None and job.pos % C == 0
+                    and 0 <= bi < len(job.chain)
+                    and job.chain[bi] not in self.prefix_cache):
+                with self._sync_allowed():
+                    snap, nbytes = extract_prefix(self.state, job.slot,
+                                                  job.pos)
+                self.stats.d2h_pulls += 1      # the spill's host snapshot
+                if self.prefix_cache.insert(job.chain[bi], snap, job.pos,
+                                            nbytes):
+                    self._reserve_bytes(nbytes)   # write-behind spill
+            if job.pos >= len(req.prompt):
+                tok = int(toks[r])
+                req.out.append(tok)
+                req.first_token_s = t_now
+                req.first_token_v = t_v
+                self.slots[job.slot] = req
+                self._tokens_host[job.slot] = tok
+                self._prefill_jobs.pop(job.slot)
+                self.stats.prefills += 1
+                self.stats.generated_tokens += 1
+                self.stats.ttft_s_sum += t_now - req.submitted_s
+                self.stats.ttft_v_sum += t_v - req.submitted_v
+                events.append((req, [tok], self._finish_if_done(job.slot),
+                               len(req.out) - 1))
+                # the prefetched decode keys predate this slot going live
+                self._next_keys = None
+            elif self._pool_mode:
+                # book the next chunk's Engram prefetch now: in flight
+                # between waves, refunded and re-priced at the next wave
+                # or refunded by a mid-prefill cancel
+                nxt = min(C, len(req.prompt) - job.pos)
+                tr = self.store.reserve_prefetch(
+                    nxt * self.cfg.engram.n_tables * self._n_eng)
+                if tr is not None:
+                    job.resv.append(tr)
+        return events
+
     # ----------------------------------------------------------- decode path
 
     def _prefetch_fn(self, params, last_tokens, token):
@@ -474,12 +766,19 @@ class Engine:
                 self.params, self.state["last_tokens"], self.tokens)
             rows = self.store.gather(
                 self.store.prefetch(len(active), fetch=fetch))
+        old_state = self.state
         if self._decode_ext_fn is not None:
             logits, self.state = self._decode_ext_fn(
                 self.params, self.state, self.tokens, rows)
         else:
             logits, self.state = self._decode_fn(self.params, self.state,
                                                  self.tokens)
+        if self._prefill_jobs:
+            # prefill jobs in flight: their positions must not advance
+            live = np.zeros((B,), np.bool_)
+            live[np.asarray(active)] = True
+            self.state = gate_state(upload(live, self.device), self.state,
+                                    old_state)
         new_tok = torch.argmax(logits, dim=-1)
         self.tokens = new_tok
         if self._pool_mode:
@@ -534,6 +833,30 @@ class Engine:
             return self.emulate_step_s
         return self.emulate_step_s * max(1.0,
                                          executed_tokens / self.max_batch)
+
+    def _pool_link(self):
+        """The pool tier's clock link (prefix snapshots travel over the
+        medium the Engram rows do); None when clock-unbound."""
+        if self.store is None:
+            return None
+        link = getattr(self.store, "_link", None)
+        if link is None:
+            backing = getattr(self.store, "backing", None)
+            if backing is not None:
+                link = getattr(backing, "_link", None)
+        return link
+
+    def _reserve_bytes(self, nbytes: int):
+        """Book a prefix-snapshot transfer (fetch or spill) of ``nbytes`` on
+        the pool link at the tier's bandwidth, from this replica's timeline
+        position. Returns the ``Transfer`` (None when clock-unbound)."""
+        link = self._pool_link()
+        if link is None or not nbytes or not link.bandwidth_Bps:
+            return None
+        _, tr = link.reserve(self.cursor.now_s,
+                             float(nbytes) / link.bandwidth_Bps,
+                             nbytes=int(nbytes))
+        return tr
 
     def _charge_wave(self, keys_per_layer: list, fetch=None, step_s=None):
         """Issue one retrieval wave through the store and charge its stall:

@@ -17,10 +17,11 @@ is that serving surface:
     rt.cancel(h)                                  #    needed, yields in order
     stats = rt.drain()                            # run whatever is left
 
-`step()` is one admission pass plus one decode wave, each emitted token
-routed to its request's handle. `Engine.run()` is a thin `drain()` over
-this. The chunk-prefill and speculative waves of the reference's `step()`
-belong to later slices of the port (ROADMAP queue 1, items 2 and 4).
+`step()` is one admission pass, one chunk-prefill wave (with
+``prefill_chunk`` set) and one decode wave, each emitted token routed to
+its request's handle. `Engine.run()` is a thin `drain()` over this. The
+speculative wave of the reference's `step()` belongs to a later slice of
+the port (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -157,6 +158,7 @@ class EngramRuntime:
 
     def step(self) -> list[TokenEvent]:
         """One serving wave: admit queued requests into free slots, then
+        (chunked mode) one chunk-prefill wave over the prefill jobs, then
         one decode pass over the live batch. Returns every token emitted
         this step as per-request events, in emission order, each stamped
         with the virtual time of the wave that emitted it."""
@@ -166,6 +168,10 @@ class EngramRuntime:
         raw = eng._admit()
         if raw:
             waves.append((raw, eng.cursor.now_s))
+        if eng.prefill_chunk is not None:
+            raw = eng._chunk_wave()
+            if raw:
+                waves.append((raw, eng.cursor.now_s))
         raw = eng._decode_wave()
         if raw:
             waves.append((raw, eng.cursor.now_s))

@@ -1,18 +1,40 @@
 """Slot-batched decode-state surgery for continuous batching (PyTorch port
-of ``repro.serving.slots``: ``update_slots`` and ``select_slots``).
+of ``repro.serving.slots``: ``update_slots``, ``select_slots``,
+``gate_state``, ``extract_prefix`` and ``restore_prefix``).
 
 The port's decode state is a nested dict/list of tensors whose batch axis
-is always axis 0 (per-layer caches, no stacked layer axes), so no per-leaf
-axis bookkeeping is needed. Slot ids are host integers: the reference lets
-pad rows scatter to the out-of-bounds slot ``B`` and relies on JAX dropping
-the write; here those rows are dropped on the host before the scatter.
+is always axis 0 (per-layer caches, no stacked layer axes), and whose KV
+leaves (``k``/``v``, shape (B, S, H, D)) have their sequence axis at 1, so
+no per-leaf axis bookkeeping is needed. Slot ids are host integers: the
+reference lets pad rows scatter to the out-of-bounds slot ``B`` and relies
+on JAX dropping the write; here those rows are dropped on the host before
+the scatter.
+
+``gate_state`` is chunked prefill's per-row gate: a chunk wave unrolls C
+decode steps over rows with ragged valid lengths, and a row past its
+length must not advance. Only ``positions`` and ``last_tokens`` are gated.
+KV leaves keep the new buffers, as in the reference: an invalid row's
+garbage write lands at its un-advanced ``positions[b]``, and the row's
+next real step writes that same index before it attends there, so the
+garbage is never read. (The port's decode writes K/V in place, so a
+``torch.where`` over the caches would only copy every cache per step.)
+
+``extract_prefix`` / ``restore_prefix`` are block-granular KV restore at a
+prefill offset: one slot's state goes to the host with its KV sliced to
+the first ``length`` positions (the prefix-cache snapshot), and comes back
+padded out to decode capacity, ready for ``update_slots`` into a free
+slot.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..device import upload
 from ..models.params import tree_leaves, tree_map
+
+# KV-cache leaves: positional, masked by ``positions`` (sequence axis 1)
+KV_KEYS = frozenset({"k", "v"})
 
 
 def _zip_leaves(a, b):
@@ -49,3 +71,58 @@ def select_slots(state, slots):
     idx = np.minimum(np.asarray(slots, np.int64), first.shape[0] - 1)
     idx = upload(idx, first.device)
     return tree_map(lambda leaf: leaf.index_select(0, idx), state)
+
+
+def _map_named(fn, tree, name=None):
+    """``tree_map`` that also passes each leaf's nearest dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_named(fn, v, name) for v in tree]
+    return fn(name, tree)
+
+
+def gate_state(valid, new_state, old_state):
+    """Per-row gate for one unrolled step: rows with ``valid (B,)`` true
+    keep ``new_state``'s ``positions``/``last_tokens``, the others keep
+    ``old_state``'s. The caches are ``new_state``'s (written in place; see
+    the module docstring)."""
+    out = dict(new_state)
+    for key in ("positions", "last_tokens"):
+        new = new_state[key]
+        gate = valid.view((-1,) + (1,) * (new.ndim - 1))
+        out[key] = torch.where(gate, new, old_state[key])
+    return out
+
+
+def extract_prefix(state, slot: int, length: int):
+    """Host snapshot of slot ``slot`` at prefill offset ``length``: a
+    batch-1 tree of CPU tensors (not numpy, which has no bfloat16), KV
+    leaves sliced to ``[:length]``.
+    Returns ``(snapshot, nbytes)``; ``nbytes`` is what a prefix-cache spill
+    or fetch moves over the pool link, counted leaf by leaf as the
+    reference counts it (``positions``/``last_tokens`` are int32 in both).
+    Reads the device once per leaf: the caller accounts for the sync."""
+    def one(name, leaf):
+        sub = leaf[slot:slot + 1]
+        if name in KV_KEYS:
+            sub = sub[:, :length]
+        return sub.to("cpu", copy=True)    # never a view of the state
+
+    snap = _map_named(one, state)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(snap))
+    return snap, nbytes
+
+
+def restore_prefix(snapshot, max_len: int, device: torch.device):
+    """Device tree from an ``extract_prefix`` snapshot, uploaded with
+    ``device.upload``; KV leaves are padded with zeros back to ``max_len``
+    positions (masked by ``positions`` until overwritten)."""
+    def one(name, leaf):
+        t = upload(leaf, device)
+        if name in KV_KEYS and t.shape[1] < max_len:
+            t = torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, max_len - t.shape[1]))
+        return t
+
+    return _map_named(one, snapshot)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the chunked
+serving path, on the card.
 
 Marked ``cuda``; each test skips on a machine without a CUDA device (the
 kernels have no CPU mode). This file imports nothing of JAX, so it runs on
@@ -128,3 +129,65 @@ def test_empty_inputs_launch_nothing():
                             torch.zeros(64, 128, device=dev))
     assert out.shape == (0, 128)
     assert (gather_rows.launches, engram_gated_fuse.launches) == (g0, f0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2100, 2112])
+def test_gated_fuse_kernel_long_prompt(T):
+    """K2 at a long prompt's prefill shape (2100 tokens, and the 2112 of
+    its 32-token bucket) at engram-27b's width, bf16: within one bf16 ulp
+    of the plain version and bit-identical across two calls."""
+    dev = _card()
+    d, F = 5120, 2560
+    rng = np.random.RandomState(T)
+    ops = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in (
+        rng.randn(T, d), rng.randn(T, F), rng.randn(d, d) / np.sqrt(d),
+        rng.randn(F, d) / np.sqrt(F))]
+    before = engram_gated_fuse.launches
+    first = engram_gated_fuse(*ops)
+    second = engram_gated_fuse(*ops)
+    torch.cuda.synchronize()
+    assert engram_gated_fuse.launches == before + 2
+    torch.testing.assert_close(first.float(), gated_fuse_ref(*ops).float(),
+                               **BF16_TOL)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_chunked_engine_with_prefix_cache_card_equals_cpu():
+    """Reduced engram-27b (f32), pool CXL, chunked admission with a prefix
+    cache, at the emulated operating point (stalls independent of host
+    step times): the card (kernels) emits the CPU's (plain versions)
+    streams, with the same prefix hits, StoreStats and PrefixCacheStats."""
+    import dataclasses
+
+    from repro_torch.configs import engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.pool.cache import PrefixKVCache
+    from repro_torch.serving import Engine
+    dev = _card()
+    cfg = engram_27b.reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(7)
+    head = [int(t) for t in rng.randint(1, cfg.vocab_size, size=16)]
+    prompts = [head + [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                                   size=n)]
+               for n in (3, 10, 6)]
+    seen = []
+    for device, p in (("cpu", params),
+                      (dev, tree_map(lambda t: t.to(dev), params))):
+        eng = Engine(cfg, params=p, pool="CXL", max_batch=2, max_len=64,
+                     prompt_bucket=8, prefill_chunk=8,
+                     prefix_cache=PrefixKVCache(64 << 20, 8),
+                     emulate_step_s=5e-5, device=device)
+        first = eng.submit(prompts[0], max_new=6)
+        eng.run()
+        rest = [eng.submit(q, max_new=6) for q in prompts[1:]]
+        eng.run()
+        seen.append(([eng.done[r].out for r in [first] + rest],
+                     eng.stats.prefix_hit_blocks,
+                     dataclasses.asdict(eng.store.stats()),
+                     dataclasses.asdict(eng.prefix_cache.stats())))
+    assert seen[0] == seen[1]
+    assert seen[1][1] > 0

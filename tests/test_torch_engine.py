@@ -222,16 +222,17 @@ def test_engine_defaults_to_the_card(setup):
 def test_unported_options_raise(setup):
     cfg, _, _, params = setup
     kw = dict(params=params, device="cpu")
-    for bad in (dict(spec=SpecConfig()), dict(prefill_chunk=4),
-                dict(slo_policy=object()), dict(fabric_nodes=2)):
+    for bad in (dict(spec=SpecConfig()), dict(slo_policy=object()),
+                dict(fabric_nodes=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, **bad, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, pool="CXL+SSD", **kw)
+    # ported since: chunked prefill and the hot-row cache
+    assert Engine(cfg, prefill_chunk=4, **kw).prefill_chunk == 4
     cached = dataclasses.replace(cfg, engram=dataclasses.replace(
         cfg.engram, store=StoreConfig(cache_rows=64)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cached, pool="CXL", **kw)
+    assert Engine(cached, pool="CXL", **kw).store.stats().cache_rows == 64
     with pytest.raises(TypeError):
         Engine(cfg, no_such_option=1, **kw)
     # the reference's fleet surface waits for the router
@@ -256,6 +257,7 @@ def test_port_imports_nothing_of_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "assert 'repro_torch.pool.cache' in sys.modules\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

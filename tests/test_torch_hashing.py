@@ -145,3 +145,40 @@ def test_tokens_near_int32_max_bit_equal():
     want = ref.host_engram_indices(ref_get_config("engram-27b").engram,
                                    toks.astype(np.int32))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES))
+@pytest.mark.parametrize("m", [1, 5, 16])
+def test_block_engram_indices_bit_equal(geom, m):
+    """A chunk's indices from the rolled history and the chunk's tokens,
+    as a chunk-prefill wave packs its keys."""
+    pe, re_, hi = GEOMETRIES[geom]
+    last = _tokens(5 + m, (3, max(pe.orders) - 1), hi)
+    block = _tokens(6 + m, (3, m), hi)
+    want = np.asarray(ref.block_engram_indices(
+        re_, jnp.asarray(last, jnp.int32), jnp.asarray(block, jnp.int32)))
+    got = port.block_engram_indices(pe, torch.from_numpy(last),
+                                    torch.from_numpy(block)).numpy()
+    assert got.shape == (3, m, pe.n_tables)
+    np.testing.assert_array_equal(got, want)
+    # int32 history (the decode state's width) hashes the same
+    np.testing.assert_array_equal(port.block_engram_indices(
+        pe, torch.from_numpy(last.astype(np.int32)),
+        torch.from_numpy(block)).numpy(), want)
+
+
+@pytest.mark.parametrize("block", [1, 4, 8])
+def test_prefix_chain_keys_equal(block):
+    """Chained block keys: equal to the reference's for whole blocks,
+    none for the trailing partial block, and shared exactly as far as two
+    prompts share whole blocks."""
+    a = [int(t) for t in _tokens(7, (21,), 129_279)]
+    b = a[:2 * block] + [t + 1 for t in a[2 * block:]]
+    for p in (a, b, [], a[:block - 1]):
+        assert port.prefix_chain_keys(p, block) == \
+            ref.prefix_chain_keys(p, block)
+    ka, kb = port.prefix_chain_keys(a, block), port.prefix_chain_keys(b, block)
+    assert len(ka) == 21 // block
+    assert ka[:2] == kb[:2] and all(x != y for x, y in zip(ka[2:], kb[2:]))
+    with pytest.raises(ValueError):
+        port.prefix_chain_keys(a, 0)

@@ -170,8 +170,13 @@ def test_prefill_attention(bridged):
     got, kv = port_attn.attention(cfg, pm, _t(x), _t(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
     np.testing.assert_allclose(kv["k"].numpy(), np.asarray(wkv["k"]), **F32)
-    with pytest.raises(NotImplementedError):
-        port_attn.attention(cfg, pm, _t(x), _t(pos), chunk_threshold=4)
+    # past chunk_threshold: the chunked path (ragged 4-token chunks)
+    want, _ = ref_attn.attention(rcfg, rm, jnp.asarray(x), jnp.asarray(pos),
+                                 "global", chunk_threshold=4, q_chunk=4,
+                                 kv_chunk=4)
+    got, _ = port_attn.attention(cfg, pm, _t(x), _t(pos), chunk_threshold=4,
+                                 q_chunk=4, kv_chunk=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
 def test_decode_attention_per_slot_positions(bridged):
