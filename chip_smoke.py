@@ -11,9 +11,10 @@ result lines are printed):
               ``build/kernels/`` (one nvcc per source, in parallel).
   3. K1       engram_gather against its plain version, bit-equal, at the
               engram-27b table shape (16 x 2,265,088 x 160 bf16): one
-              table, and the decode wave's one launch over both Engram
-              layers' tables; and on small tables whose rows are not
-              16-byte aligned; timed beside index_select.
+              table, the decode wave's one launch over both Engram
+              layers' tables (2 x 128 rows) and the verify wave's (2 x
+              512 rows); and on small tables whose rows are not 16-byte
+              aligned; timed beside index_select.
   4. K2       gated_fuse against its plain version at d = 5120, F = 2560
               in bf16 (T = 8, 256 and 2112: decode, an 8 x 32 prefill
               group, a 2100-token prompt; every timed call with its own
@@ -26,10 +27,13 @@ result lines are printed):
               later prompts restoring a shared head), and a 2100-token
               prompt through monolithic admission (chunked attention in
               every layer), at the emulated operating point: identical
-              streams, StoreStats and PrefixCacheStats.
+              streams, StoreStats and PrefixCacheStats; and speculative
+              decoding (n-gram proposer, pipelined proposals) on card and
+              CPU: identical streams, equal to the non-speculative
+              engine's, with equal StoreStats, counters and clock.
   7. serve    engram-27b at full width and full depth (36 layers, 22.9 B
               parameters, seeded random bf16 weights drawn on the card,
-              shared by phases 7 to 9) behind ``Engine(pool="CXL",
+              shared by phases 7 to 10) behind ``Engine(pool="CXL",
               max_batch=8, max_len=512)``: after a warm-up at the same
               shapes, 8 requests with 16 new tokens each, twice: kernel
               launch counts (K1 once per decode wave), one device->host
@@ -40,9 +44,19 @@ result lines are printed):
               cache: 8 prompts of 40 to 64 tokens sharing a 32-token
               head, 8 new tokens each, run twice; prefix and hot-row hits
               on the second run, launch and read budgets per step.
+ 10. spec     speculative decoding (k = 3 drafts, m = 4 unrolled verify
+              steps) on phase 7's engine shapes and prompts: (a) a
+              ScriptedProposer over phase 7's streams with pipelined
+              proposals, 16 new tokens, after a warm-up, then a profile;
+              (b) the n-gram proposer and (c) a one-layer draft model, 8
+              new tokens each. Each run must emit phase 7's tokens
+              exactly, with K1 once per verify wave, K2 twice per unrolled
+              step and prefill group, one read per fully pipelined wave
+              and two per other wave (plus one per admission group, and
+              in (c) one per draft proposal), and no other sync.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 9); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 10); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -172,30 +186,33 @@ def check_k1(cfg, dev) -> dict:
               f"with launch: kernel {call_ms(gather_rows, args):.5f}, plain "
               f"{call_ms(gather_rows_ref, args):.5f}, index_select "
               f"{call_ms(index_select, args):.5f}")
-    # the decode wave's own launch: every Engram layer's 128 rows at once,
-    # against one index_select per layer (the library route: L calls)
-    n = 16 * 8
-    gids = cold((L, n))
-    out = gather_rows_multi(flats, gids[0])
-    ref = gather_rows_multi_ref(flats, gids[0])
-    check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
-          f"K1 multi-table not bit-equal at {L} x {n}")
-    args = [(flats, g) for g in gids]
+    # a wave's own launch, every Engram layer's rows at once, against one
+    # index_select per layer (the library route: L calls): a decode wave
+    # (8 slots x 16 tables) and a speculative verify wave (8 slots x m = 4
+    # block positions x 16 tables)
     per_layer = lambda ts, g: [torch.index_select(t, 0, r)  # noqa: E731
                                for t, r in zip(ts, g)]
-    ms = device_ms(gather_rows_multi, [(flats, g) for g in cold((L, n))])
-    plain = device_ms(gather_rows_multi_ref,
-                      [(flats, g) for g in cold((L, n))])
-    lib = device_ms(per_layer, [(flats, g) for g in cold((L, n))])
-    b_ms, b_by = bound(L * (2 * n * row_bytes + 8 * n), 0)
-    result["wave"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    print(f"K1 gather_rows_multi {L} tables x {n} rows (a decode wave, one "
-          f"launch): bit-equal; device ms: kernel {ms:.5f}, plain "
-          f"{plain:.5f}, {L} index_selects {lib:.5f}, byte bound "
-          f"{b_ms:.6f}; per call with launch: kernel "
-          f"{call_ms(gather_rows_multi, args):.5f}, {L} index_selects "
-          f"{call_ms(per_layer, args):.5f}")
+    for key, n, what in (("wave", 16 * 8, "a decode wave"),
+                         ("spec", 16 * 8 * 4, "a verify wave, B=8 m=4")):
+        gids = cold((L, n))
+        out = gather_rows_multi(flats, gids[0])
+        ref = gather_rows_multi_ref(flats, gids[0])
+        check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
+              f"K1 multi-table not bit-equal at {L} x {n}")
+        args = [(flats, g) for g in gids]
+        ms = device_ms(gather_rows_multi, [(flats, g) for g in cold((L, n))])
+        plain = device_ms(gather_rows_multi_ref,
+                          [(flats, g) for g in cold((L, n))])
+        lib = device_ms(per_layer, [(flats, g) for g in cold((L, n))])
+        b_ms, b_by = bound(L * (2 * n * row_bytes + 8 * n), 0)
+        result[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        print(f"K1 gather_rows_multi {L} tables x {n} rows ({what}, one "
+              f"launch): bit-equal; device ms: kernel {ms:.5f}, plain "
+              f"{plain:.5f}, {L} index_selects {lib:.5f}, byte bound "
+              f"{b_ms:.6f}; per call with launch: kernel "
+              f"{call_ms(gather_rows_multi, args):.5f}, {L} index_selects "
+              f"{call_ms(per_layer, args):.5f}")
     idx = torch.randint(0, V, (8, 1, T), generator=gen, device=dev)
     check(torch.equal(engram_gather(tables[0], idx).view(torch.int16),
                       engram_gather_ref(tables[0], idx).view(torch.int16)),
@@ -389,12 +406,65 @@ def check_agreement_chunked(dev) -> None:
           f"CPU")
 
 
+def check_agreement_spec(dev) -> None:
+    """Speculative decoding (n-gram proposer, pipelined proposals) on the
+    reduced config, pool CXL at the emulated operating point, on the card
+    and on the CPU: identical streams, equal to the card's non-speculative
+    engine's, with equal StoreStats, speculation counters and clock."""
+    import numpy as np
+    from repro_torch.configs import SpecConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Engine
+    cfg = engram_27b.reduced()
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    rng = np.random.RandomState(2)
+    phrase = list(rng.randint(1, cfg.vocab_size, size=6))
+    prompts = [list(rng.randint(1, cfg.vocab_size, size=n)) + phrase
+               for n in (2, 5, 9)] * 2        # repeats: the n-gram learns
+    kw = dict(pool="CXL", emulate_step_s=5e-5, max_batch=3, max_len=64,
+              prompt_bucket=8)
+    seen = []
+    for device, params, sp in (("cpu", params_cpu, SpecConfig(pipeline=True)),
+                               (dev, params_dev, SpecConfig(pipeline=True)),
+                               (dev, params_dev, None)):
+        eng = Engine(cfg, params=params, device=device, spec=sp, **kw)
+        rids = [eng.submit(p, max_new=12) for p in prompts]
+        eng.run()
+        st = eng.stats
+        seen.append(dict(
+            streams=[eng.done[r].out for r in rids],
+            store=dataclasses.asdict(eng.store.stats()),
+            spec=(st.spec_waves, st.proposed_tokens, st.accepted_tokens,
+                  st.pipelined_hits, st.pipelined_misses, st.d2h_pulls),
+            clock=eng.clock.stats()))
+    cpu, card, plain = seen
+    for key in cpu:
+        check(cpu[key] == card[key],
+              f"spec agreement: {key} differs: cpu {cpu[key]} vs card "
+              f"{card[key]}")
+    check(card["streams"] == plain["streams"],
+          f"spec agreement: speculative streams {card['streams']} differ "
+          f"from the non-speculative {plain['streams']}")
+    waves, proposed, accepted, hits, misses, reads = card["spec"]
+    check(accepted > 0 and hits > 0, "spec agreement: no draft accepted or "
+          "no pipelined prediction survived")
+    print(f"agree spec: reduced engram-27b (f32, pool=CXL, emulated step "
+          f"5e-5 s), n-gram proposer with pipelined proposals over "
+          f"{len(prompts)} requests: {waves} verify waves, {accepted}/"
+          f"{proposed} drafts accepted, {hits} pipelined hits, {misses} "
+          f"misses, {reads} reads; streams (equal to the non-speculative "
+          f"engine's), StoreStats, counters and clock identical on card and "
+          f"CPU")
+
+
 # ---------------------------------------------------------------------------
-# phases 7-9: the serving paths at full width
+# phases 7-10: the serving paths at full width
 # ---------------------------------------------------------------------------
 
 def draw_params(cfg, dev):
-    """Full-width weights on the card, drawn once for phases 7 to 9."""
+    """Full-width weights on the card, drawn once for phases 7 to 10."""
     import torch
     from repro_torch.models.model import init_params
     from repro_torch.models.params import tree_leaves
@@ -449,32 +519,38 @@ def drive(eng, rt, on_step=None) -> tuple[list, float]:
     return pulls, time.perf_counter() - t_run
 
 
-def serve_full(cfg, params, dev, smi: str, reps: int = 2) -> dict:
+def serve_prompts(cfg) -> list:
+    """Phases 7 and 10's 8 prompts, 5 to 32 tokens (one 8 x 32 group)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [list(rng.randint(1, cfg.vocab_size, size=n))
+            for n in (5, 9, 12, 16, 20, 24, 28, 32)]
+
+
+def serve_full(cfg, params, dev, smi: str, reps: int = 2) -> tuple:
     """Serve 8 requests on full-width engram-27b, ``reps`` times after a
     warm-up at the same shapes; returns each kernel's launch count over
-    the last run."""
-    import numpy as np
+    the last run and that run's token streams."""
     import torch
     from repro_torch.serving import Engine
 
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
                  prompt_bucket=32, device=dev)
-    rng = np.random.RandomState(0)
-    prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
-               for n in (5, 9, 12, 16, 20, 24, 28, 32)]
+    prompts = serve_prompts(cfg)
     eng.warmup(prompts)              # the measured 8 x 32 prefill group
     rt = eng.runtime()
     for rep in range(reps):
-        launches = serve_once(cfg, eng, rt, prompts, dev, smi, rep)
+        launches, streams = serve_once(cfg, eng, rt, prompts, dev, smi, rep)
     profile_waves(eng, rt, prompts)
-    return launches
+    return launches, streams
 
 
-def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> dict:
+def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> tuple:
     """One counted run of the main path: every request to completion with
     the kernels' launch counters and the engine's stats reset just before
-    it; checks the counts, the reads per wave and the outputs."""
+    it; checks the counts, the reads per wave and the outputs. Returns the
+    launches and the token streams."""
     import torch
     eng.reset_stats()
     n_steps0 = len(eng._step_times)
@@ -517,15 +593,16 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> dict:
           f"{st.mean_ttft_s * 1e3:.2f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, run "
           f"{run_s:.2f} s")
-    return launches
+    return launches, [h.tokens for h in handles]
 
 
 def profile_waves(eng, rt, prompts, max_new: int = 6,
                   label: str = "profile") -> None:
-    """Where a steady decode wave's time goes, from a short extra run after
-    the counted one: wall time per wave, device time per wave (CUPTI, all
-    kernels summed) and the kernels that take most of it. The first step
-    (admission, and in chunked mode the chunk waves) is not profiled."""
+    """Where a steady decode (or verify) wave's time goes, from a short
+    extra run after the counted one: wall time per wave, device time per
+    wave (CUPTI, all kernels summed) and the kernels that take most of it.
+    The first step (admission, and in chunked mode the chunk waves) is not
+    profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
@@ -546,7 +623,8 @@ def profile_waves(eng, rt, prompts, max_new: int = 6,
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
     n_ops = sum(e.count for e in ev)
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"{label}: {n} steady decode waves under the profiler: wall "
+    check(n > 0, f"{label}: no wave left to profile")
+    print(f"{label}: {n} steady waves under the profiler: wall "
           f"{wall_ms / n:.3f} ms/wave, device busy {dev_ms / n:.3f} ms/wave "
           f"({100 * dev_ms / wall_ms:.1f} % of wall), {n_ops / n:.0f} "
           f"device kernels/copies per wave")
@@ -718,6 +796,119 @@ def serve_chunked(cfg, params, dev, smi: str, C: int = 16) -> dict:
     return total
 
 
+def serve_spec(cfg, params, dev, smi: str, prompts, streams) -> dict:
+    """Speculative decoding at full width, phase 7's engine shapes and
+    prompts, three ways: (a) a ScriptedProposer over phase 7's streams,
+    pipelined, 16 new tokens, after a warm-up; (b) the n-gram proposer and
+    (c) a one-layer draft model, 8 new tokens each. Every run must emit
+    phase 7's tokens exactly, launch K1 once per verify wave and K2 twice
+    per unrolled step and prefill group, and read the device once per
+    wave whose every live slot's pipelined prediction survived, twice per
+    other wave, once per admission group (and in (c) once per draft
+    proposal, counted by the proposer), with no other sync. Returns the
+    kernels' launches summed over the three runs."""
+    import torch
+    from repro_torch.configs import SpecConfig
+    from repro_torch.serving import Engine
+    from repro_torch.spec import ScriptedProposer
+
+    script = ScriptedProposer([p + s for p, s in zip(prompts, streams)])
+    runs = (("a", SpecConfig(max_draft=3, pipeline=True), script, 16),
+            ("b", SpecConfig(max_draft=3), None, 8),
+            ("c", SpecConfig(max_draft=3, proposer="draft", draft_layers=1),
+             None, 8))
+    total = {"engram_gather": 0, "gated_fuse": 0}
+    for name, sp, proposer, max_new in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params=params, pool="CXL", max_batch=8,
+                     max_len=512, prompt_bucket=32, device=dev, spec=sp,
+                     proposer=proposer)
+        m = sp.max_draft + 1
+        if name == "a":
+            eng.warmup(prompts)
+        rt = eng.runtime()
+        eng.reset_stats()
+        eng.store.reset_stats()
+        n_steps0 = len(eng._step_times)
+        waves = []                   # per verify wave: live, hits, reads
+
+        def counted(fn=eng._spec_wave):
+            live = sum(s is not None for s in eng.slots)
+            hits = eng.stats.pipelined_hits
+            reads = getattr(eng.proposer, "reads", 0)
+            out = fn()
+            if live:
+                waves.append((live, eng.stats.pipelined_hits - hits,
+                              getattr(eng.proposer, "reads", 0) - reads))
+            return out
+
+        eng._spec_wave = counted
+        marks = []
+        reset_launches()
+        handles = [rt.submit(p, max_new=max_new) for p in prompts]
+        pulls, run_s = drive(eng, rt, on_step=lambda: marks.append(
+            eng.stats.prefill_waves))
+        launches = read_launches()
+        marks.append(eng.stats.prefill_waves)
+        st = eng.stats
+        got = [h.tokens for h in handles]
+        want = [s[:max_new] for s in streams]
+        check(got == want, f"spec run {name}: tokens {got} differ from the "
+              f"non-speculative serve run's {want}")
+        check(launches["engram_gather"] == st.spec_waves == len(waves),
+              f"spec run {name}: K1 launches {launches['engram_gather']} != "
+              f"one per {st.spec_waves} verify waves")
+        check(launches["gated_fuse"]
+              == 2 * (m * st.spec_waves + st.prefill_waves),
+              f"spec run {name}: K2 launches {launches['gated_fuse']} != 2 x "
+              f"({m} x {st.spec_waves} verify waves + {st.prefill_waves} "
+              f"prefill groups)")
+        groups = [b - a for a, b in zip(marks, marks[1:])]
+        want_reads = [g + (1 if hits == live else 2)
+                      for g, (live, hits, _) in zip(groups, waves)]
+        check(pulls == want_reads, f"spec run {name}: reads per step "
+              f"{pulls}, want {want_reads}")
+        if name == "c":
+            proposals = [live - hits for live, hits, _ in waves]
+            check([r for _, _, r in waves] == proposals,
+                  f"spec run c: draft reads per wave "
+                  f"{[r for _, _, r in waves]}, want one per proposal "
+                  f"{proposals}")
+        peak = torch.cuda.max_memory_allocated()
+        dec_tokens = st.generated_tokens - st.prefills
+        dec_s = sum(eng._step_times[n_steps0:])
+        proposer_reads = getattr(eng.proposer, "reads", None)
+        kind = sp.proposer if proposer is None else "scripted"
+        print(f"spec run {name} ({kind}, k={sp.max_draft}, pipeline="
+              f"{sp.pipeline}, {max_new} new tokens): {st.spec_waves} verify "
+              f"waves, {dec_tokens / st.spec_waves:.3f} tokens per wave "
+              f"({dec_tokens / sum(w[0] for w in waves):.3f} per live slot), "
+              f"acceptance "
+              f"{st.acceptance_rate:.4f}, pipeline hit rate "
+              f"{st.pipeline_hit_rate:.4f}, spec_window_steps "
+              f"{eng.store.stats().spec_window_steps:.4f}; K1 "
+              f"{launches['engram_gather']}, K2 {launches['gated_fuse']} "
+              f"launches; reads per step {pulls}"
+              + (f", draft reads {proposer_reads}"
+                 if proposer_reads is not None else "")
+              + "; tokens equal to the serve run's; no other sync")
+        print(f"spec run {name} [{smi}]: decode {dec_tokens / dec_s:.2f} "
+              f"tok/s ({dec_tokens} tokens in {dec_s * 1e3:.1f} ms of verify "
+              f"waves, {dec_s * 1e3 / st.spec_waves:.1f} ms per wave), mean "
+              f"TTFT {st.mean_ttft_s * 1e3:.2f} ms, run {run_s:.2f} s, peak "
+              f"memory {peak / 1e9:.2f} GB")
+        for k in total:
+            total[k] += launches[k]
+        if name == "a":
+            del eng._spec_wave            # the method again, uncounted
+            profile_waves(eng, rt, prompts, max_new=13, label="spec profile")
+        # ``counted`` holds the engine through its default argument
+        del eng, rt, handles, counted
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -755,13 +946,15 @@ def main() -> int:
     k2 = check_k2(cfg, dev)
     check_agreement(dev)
     check_agreement_chunked(dev)
+    check_agreement_spec(dev)
     params = draw_params(cfg, dev)
-    launches = {"engram_gather": 0, "gated_fuse": 0}
-    for phase in (serve_full, serve_long_prompt, serve_chunked):
+    launches, streams = serve_full(cfg, params, dev, smi)
+    for phase in (serve_long_prompt, serve_chunked,
+                  lambda *a: serve_spec(*a, serve_prompts(cfg), streams)):
+        gc.collect()             # the last phase's engine (a cycle with its
+        torch.cuda.empty_cache()  # runtime) before the next one's caches
         for k, n in phase(cfg, params, dev, smi).items():
             launches[k] += n
-        gc.collect()             # the phase's engine (a cycle with its
-        torch.cuda.empty_cache()  # runtime) before the next one's caches
 
     kernels = [
         dict(name="engram_gather", route="cuda",
@@ -775,9 +968,10 @@ def main() -> int:
     ]
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
-          "(decode); launches summed over the serve, long-prompt and "
-          "chunked runs; also measured: "
-          + json.dumps({"engram_gather_N128_one_table": k1[16 * 8],
+          "(decode, and each unrolled verify step); launches summed over "
+          "the serve, long-prompt, chunked and spec runs; also measured: "
+          + json.dumps({"engram_gather_2x512_verify_wave": k1["spec"],
+                        "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],
                         "gated_fuse_T256": k2[256],
                         "gated_fuse_T2112": k2[2112]}))

@@ -146,6 +146,94 @@ def decode_engram_keys(ecfg: EngramConfig, last_tokens: torch.Tensor,
     return pack_segment_keys(ecfg, idx, n_layer_slots)
 
 
+def block_engram_keys(ecfg: EngramConfig, last_tokens: torch.Tensor,
+                      block: torch.Tensor, n_layer_slots: int) -> torch.Tensor:
+    """Speculated-block indices, packed: (B, m, L, T) int64 segment keys
+    covering the whole proposed window ``block`` (B, m) = [pending token,
+    drafts...]."""
+    idx = block_engram_indices(ecfg, last_tokens, block)
+    return pack_segment_keys(ecfg, idx, n_layer_slots)
+
+
+# ---------------------------------------------------------------------------
+# host (numpy) twin, bit-equal to the device path
+# ---------------------------------------------------------------------------
+#
+# The pipelined speculative wave predicts wave N+1's block on the host
+# during wave N's verify. When every live slot's prediction survives, the
+# engine skips wave N+1's device key read, which it can do only if it packs
+# the block's keys on the host from token IDs alone. numpy's uint32
+# arithmetic wraps as the reference's does.
+
+_M1_U32 = np.uint32(_M1)
+_M2_U32 = np.uint32(_M2)
+
+# the host path runs once per live slot per speculative wave: a fresh
+# RandomState per call would put constant work on the single-sync path
+_HOST_CONSTS: dict = {}
+
+
+def _host_head_constants(ecfg: EngramConfig) -> np.ndarray:
+    key = (ecfg.seed, ecfg.n_tables, tuple(ecfg.orders))
+    c = _HOST_CONSTS.get(key)
+    if c is None:
+        c = _HOST_CONSTS[key] = head_constants(ecfg)
+    return c
+
+
+def host_engram_indices(ecfg: EngramConfig, tokens: np.ndarray) -> np.ndarray:
+    """numpy mirror of ``engram_indices``: tokens (B,S) -> (B,S,T) int32."""
+    tokens = np.asarray(tokens)
+    consts = _host_head_constants(ecfg)                    # (T, max_order) u32
+
+    def mix(x):
+        x = x ^ (x >> np.uint32(16))
+        x = x * _M1_U32
+        x = x ^ (x >> np.uint32(15))
+        x = x * _M2_U32
+        return x ^ (x >> np.uint32(16))
+
+    outs = []
+    for oi, order in enumerate(ecfg.orders):
+        cols = []
+        for j in range(order - 1, -1, -1):                 # oldest ... newest
+            if j == 0:
+                cols.append(tokens)
+            else:
+                cols.append(np.pad(tokens[:, :-j], ((0, 0), (j, 0)),
+                                   constant_values=ecfg.pad_token))
+        win = np.stack(cols, axis=-1).astype(np.uint32)
+        for h in range(ecfg.n_heads):
+            t = oi * ecfg.n_heads + h
+            seed_t = np.uint32((0x9E3779B9 * (t + 1)) & _MASK32)
+            acc = np.full(win.shape[:-1], seed_t, np.uint32)
+            for j in range(order):
+                acc = mix(acc ^ (win[..., j] * consts[t, j]))
+            outs.append(acc % np.uint32(ecfg.table_vocab))
+    return np.stack(outs, axis=-1).astype(np.int32)
+
+
+def host_block_keys(ecfg: EngramConfig, stream, block,
+                    n_layer_slots: int) -> np.ndarray:
+    """numpy mirror of ``block_engram_keys`` for ONE slot: ``stream`` is the
+    slot's token history *excluding* the block, ``block`` the m = [pending,
+    drafts...] window. Returns packed (m, L, T) int64 keys, bit-equal to the
+    device path (which sees the same trailing ``max_order - 1`` tokens
+    through the state's ``last_tokens``)."""
+    o = max(ecfg.orders)
+    ctx = [int(t) for t in stream][-(o - 1):] if o > 1 else []
+    if len(ctx) < o - 1:                      # early stream: pad like state
+        ctx = [ecfg.pad_token] * (o - 1 - len(ctx)) + ctx
+    block = [int(t) for t in block]
+    toks = np.asarray([ctx + block], np.int32)            # (1, o-1+m)
+    idx = host_engram_indices(ecfg, toks)[0, -len(block):, :]   # (m, T)
+    T = ecfg.n_tables
+    tid = (np.arange(n_layer_slots, dtype=np.int64)[:, None] * T
+           + np.arange(T, dtype=np.int64)[None, :])             # (L, T)
+    return (idx.astype(np.int64)[:, None, :]
+            + tid[None, :, :] * ecfg.table_vocab)               # (m, L, T)
+
+
 def update_last_tokens(last_tokens: torch.Tensor,
                        new_token: torch.Tensor) -> torch.Tensor:
     """Roll the (B, max_order-1) history window."""

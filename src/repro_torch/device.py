@@ -6,6 +6,8 @@ without one raises instead of quietly running on the host.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -33,3 +35,19 @@ def upload(a, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.clone()
+
+
+@contextlib.contextmanager
+def sync_allowed(device: torch.device):
+    """Suspend PyTorch's CUDA sync debug mode around a deliberate, counted
+    device->host read, so code run under ``torch.cuda.set_sync_debug_mode``
+    flags every other sync."""
+    mode = torch.cuda.get_sync_debug_mode() if device.type == "cuda" else 0
+    if mode == 0:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)

@@ -14,6 +14,9 @@ into the hidden state through the gated_fuse kernel (K2).
 
   build_chunk_prefill(cfg, flags)          (params, state, chunk, lens)
                                               -> (logits, state)
+  build_multitoken_decode(cfg, flags, external_rows)
+                                            (params, state, block[, rows])
+                                              -> (logits, state, snapshots)
 
 Decode updates the state's KV caches in place (see
 ``attention.decode_attention``); ``positions`` and ``last_tokens`` are new
@@ -173,6 +176,44 @@ def build_decode_step(cfg: ModelConfig, flags: RunFlags,
             cfg, flags, params, state, token, rows)
     return lambda params, state, token: _decode_one(cfg, flags, params,
                                                     state, token)
+
+
+def build_multitoken_decode(cfg: ModelConfig, flags: RunFlags,
+                            external_rows: bool = False):
+    """Multi-token verify step for speculative decoding.
+
+    (params, state, block (B,m) [, rows]) ->
+        (logits (B,m,V), final_state, snapshots)
+
+    Unrolls m single-token decode steps over the block: position s attends
+    the block's earlier positions through the in-place KV writes, exactly
+    as sequential decode would, so accepted tokens are bit-identical to
+    greedy decode. A ``snapshot_recurrent`` of the state is recorded before
+    the first step and after every step, for per-slot rollback
+    (``serving.slots.rollback_state``).
+
+    ``external_rows=True``: per-layer rows for the WHOLE block,
+    (B, m, orders*emb) each (the engine's speculated-window prefetch);
+    step s takes ``r[:, s:s+1]``."""
+    check_supported(cfg)
+    from ..serving.slots import snapshot_recurrent
+
+    def multitoken_step(params, state, block, rows=None):
+        snaps = [snapshot_recurrent(state)]
+        logits_all = []
+        st = state
+        for s in range(block.shape[1]):
+            rows_s = None if rows is None else [r[:, s:s + 1] for r in rows]
+            logits, st = _decode_one(cfg, flags, params, st, block[:, s],
+                                     rows_s)
+            logits_all.append(logits)
+            snaps.append(snapshot_recurrent(st))
+        return torch.stack(logits_all, dim=1), st, snaps
+
+    if external_rows:
+        return lambda params, state, block, rows: multitoken_step(
+            params, state, block, rows)
+    return lambda params, state, block: multitoken_step(params, state, block)
 
 
 def build_chunk_prefill(cfg: ModelConfig, flags: RunFlags):

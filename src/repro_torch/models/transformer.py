@@ -42,9 +42,6 @@ def check_supported(cfg: ModelConfig) -> None:
             or cfg.scale_embeddings):
         raise NotImplementedError(f"qk/post norms, tied or scaled "
                                   f"embeddings: {other}")
-    if cfg.spec is not None and cfg.spec.enabled:
-        raise NotImplementedError("speculative decoding: ROADMAP queue 1, "
-                                  "item 4 (speculation)")
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:

@@ -141,6 +141,17 @@ class StoreStats:
     def stall_s_per_wave(self) -> float:
         return self.stall_s / self.waves if self.waves else 0.0
 
+    @property
+    def spec_window_steps(self) -> float:
+        """Prefetch window depth in emitted-token decode steps, as the
+        cost model prices it from the step estimate: the lead time of the
+        deepest *accepted* position between prefetch issue and
+        consumption, averaged over speculative waves. Driven by
+        verified acceptance: all-rejected waves collapse it below one
+        step."""
+        return self.spec_depth_sum / self.spec_waves if self.spec_waves \
+            else 0.0
+
 
 # ---------------------------------------------------------------------------
 # backends
@@ -263,6 +274,26 @@ class _StoreBase:
         s.waves += 1
         s.stall_s += stall_s
         s.hidden_waves += int(hidden)
+
+    def note_spec_wave(self, stall_s: float, hidden: bool, tokens: int,
+                       depth_steps: float, accepted_segments: int,
+                       wasted_segments: int, per_slot=None) -> None:
+        """Account one verified speculative wave: ``tokens`` were emitted,
+        its deepest accepted position had ``depth_steps`` of measured
+        lookahead, and the prefetched segments split into used and
+        mis-speculated (fetched for a rejected draft). ``per_slot``:
+        optional ``{slot: (accepted_segments, wasted_segments)}``."""
+        self.note_wave(stall_s, hidden)
+        s = self._stats
+        s.spec_waves += 1
+        s.spec_tokens += int(tokens)
+        s.spec_depth_sum += float(depth_steps)
+        s.accepted_segments += int(accepted_segments)
+        s.wasted_segments += int(wasted_segments)
+        if per_slot:
+            for slot, (acc, waste) in per_slot.items():
+                s.slot_accepted[slot] = s.slot_accepted.get(slot, 0) + int(acc)
+                s.slot_wasted[slot] = s.slot_wasted.get(slot, 0) + int(waste)
 
     def stats(self) -> StoreStats:
         return self._stats

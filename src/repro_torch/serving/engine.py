@@ -1,7 +1,7 @@
 """Continuous-batching serving engine with Engram prefetch (PyTorch port of
 ``repro.serving.engine``).
 
-The port has the engine's serving paths short of speculation:
+The port has these of the reference engine's serving paths:
 
 * monolithic batched admission (one multi-slot prefill per prompt bucket);
 * chunked admission (``prefill_chunk``): a request claims a slot as a
@@ -11,34 +11,51 @@ The port has the engine's serving paths short of speculation:
   positions do not advance under them; with a ``PrefixKVCache``
   (``prefix_cache``), completed chunk boundaries are spilled to the host
   and later prompts sharing the prefix restore them instead of computing;
-* greedy continuous-batched decode waves over ``max_batch`` slots.
+* greedy continuous-batched decode waves over ``max_batch`` slots;
+* speculation (``spec``, a ``SpecConfig``): each wave a proposer drafts k
+  tokens per live slot, the Engram prefetch covers the whole speculated
+  window (in pool mode one K1 launch over every (slot, position, table)
+  row of every Engram layer), a batched verifier scores the block in one
+  pass of m = k + 1 unrolled decode steps, and rejected tails are rolled
+  back per slot (``slots.rollback_state``). With ``SpecConfig.pipeline``
+  the proposer drafts wave N+1's block while wave N's verify runs on the
+  device (the host is not blocked until the verdict is read), packs its
+  keys on the host and books its prefetch on the pool's clock link, so
+  the cost model prices a surviving prediction's fetch as issued a whole
+  verify pass early. The block's K1 gather itself still runs at the start
+  of the wave that verifies it.
 
 The pool tier's cost is charged through the ``PrefetchScheduler`` and the
 store (a ``CachedStore`` when the config asks for a hot-row cache); prefix
 snapshots are booked as byte transfers on the pool tier's clock link. With
 a pool tier (``pool="CXL"``...) every decode wave, gated or not,
 materialises every Engram layer's rows in one engram_gather (K1) launch
-(``fetch_layers``); chunk waves and prefill groups retrieve by plain
-indexing. Every forward fuses the rows through the gated_fuse kernel (K2).
+(``fetch_layers``), as does every speculative wave for its whole block;
+chunk waves and prefill groups retrieve by plain indexing. Every forward
+fuses the rows through the gated_fuse kernel (K2).
 
 Single-sync waves, as in the reference: the host reads the device through
 ``_host`` only, once per admission group (first tokens | the group's
 packed prompt keys), once per chunk wave (sampled tokens | the chunk's
-packed keys) and once per steady decode wave (sampled tokens | the next
-wave's packed keys); a prefix spill's snapshot is one more counted read.
-``stats.d2h_pulls`` counts those reads. Nothing else on a wave
-synchronises: host arrays go up through pinned, non-blocking copies
-(``device.upload``). The reads suspend PyTorch's CUDA sync debug mode
-(``_sync_allowed``), so a caller can run waves under
+packed keys), once per steady decode wave (sampled tokens | the next
+wave's packed keys) and twice per speculative wave (the packed (B, m, L,
+T) block keys, then the fused (B, m+1) verdict [preds | n_accept]); a
+speculative wave whose every live slot's pipelined prediction survived
+packed its keys on the host (``hashing.host_block_keys``, bit-equal) and
+reads only the verdict. A prefix spill's snapshot is one more counted
+read. ``stats.d2h_pulls`` counts those reads. Nothing else on a wave
+synchronises (a draft-model proposer's one read per proposal is counted
+in its own ``reads``): host arrays go up through pinned, non-blocking
+copies (``device.upload``). The reads suspend PyTorch's CUDA sync debug
+mode (``device.sync_allowed``), so a caller can run waves under
 ``torch.cuda.set_sync_debug_mode`` and see any other sync.
 
 Not ported in this slice (each raises NotImplementedError naming its
-ROADMAP queue 1 item): speculation, SLO admission/preemption and KV
-spill, fabrics and tier chains, the fleet options of the router.
+ROADMAP queue 1 item): SLO admission/preemption and KV spill, fabrics and
+tier chains, the fleet options of the router.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -47,12 +64,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, SpecConfig
 from ..core.engram import retrieve
-from ..core.hashing import (block_engram_indices, decode_engram_indices,
-                            decode_engram_keys, engram_indices,
+from ..core.hashing import (block_engram_indices, block_engram_keys,
+                            decode_engram_indices, decode_engram_keys,
+                            engram_indices, host_block_keys,
                             pack_segment_keys, prefix_chain_keys)
-from ..device import resolve_device, upload
+from ..device import resolve_device, sync_allowed, upload
 from ..models.layers import with_f32_head
 from ..models.model import (build_chunk_prefill, build_decode_step,
                             build_prefill_step, init_decode_state,
@@ -67,8 +85,6 @@ from .slots import (extract_prefix, gate_state, restore_prefix,
 
 # Engine options of the reference that later slices port.
 _UNPORTED = {
-    "spec": "4 (speculation)",
-    "proposer": "4 (speculation)",
     "slo_policy": "5 (overload and KV spill)",
     "kv_pool": "5 (overload and KV spill)",
     "arbiter": "5 (overload and KV spill)",
@@ -148,10 +164,33 @@ class EngineStats:
     prefill_tokens_restored: int = 0 # prompt tokens restored from the cache
     prefix_lookup_blocks: int = 0    # whole prompt blocks eligible for reuse
     prefix_hit_blocks: int = 0       # blocks served by the prefix cache
+    spec_waves: int = 0              # verify waves run
+    proposed_tokens: int = 0         # drafts proposed (k per live slot-wave)
+    accepted_tokens: int = 0         # drafts that survived verification
+    pipelined_hits: int = 0          # slot-waves served by a pipelined block
+    pipelined_misses: int = 0        # predictions invalidated by verification
+    # proposer quality per workload class: {klass: {proposed, accepted}};
+    # the port has no request classes yet, so every slot is "uniform"
+    spec_by_class: dict = dataclasses.field(default_factory=dict)
 
     @property
     def tokens_per_s(self) -> float:
         return _rate(self.generated_tokens, self.wall_s)
+
+    @property
+    def acceptance_rate(self) -> float:
+        return _rate(self.accepted_tokens, self.proposed_tokens)
+
+    @property
+    def pipeline_hit_rate(self) -> float:
+        """How often the proposer's during-verify draft for wave N+1
+        survived wave N's verification (``SpecConfig.pipeline``)."""
+        return _rate(self.pipelined_hits,
+                     self.pipelined_hits + self.pipelined_misses)
+
+    @property
+    def tokens_per_step(self) -> float:
+        return _rate(self.generated_tokens, self.decode_steps)
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -190,6 +229,7 @@ class Engine:
                  emulate_step_s: Optional[float] = None,
                  emu_prefill_scaled: bool = False,
                  prefill_chunk: Optional[int] = None, prefix_cache=None,
+                 spec: Optional[SpecConfig] = None, proposer=None,
                  device=None, **unported):
         """``device``: where the model runs — the CUDA device unless the
         caller passes ``device="cpu"``; with no CUDA device and no
@@ -207,8 +247,11 @@ class Engine:
         None keeps monolithic admission. ``prefix_cache``: a
         ``pool.cache.PrefixKVCache`` whose ``block_tokens`` equal
         ``prefill_chunk`` (snapshots exist only at chunk boundaries).
-        Speculation, when ported, must refuse ``prefill_chunk``: the
-        verify pass is not gated."""
+
+        ``spec``: speculative decoding (default ``cfg.spec``; see the
+        module docstring); it refuses ``prefill_chunk``, since the verify
+        pass is not gated. ``proposer``: a draft proposer to use instead of
+        the one ``spec.proposer`` names (tests and benches)."""
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -277,6 +320,27 @@ class Engine:
         if self.prefill_chunk is not None:
             self._chunk_core = build_chunk_prefill(cfg, flags)
 
+        spec_cfg = spec if spec is not None else cfg.spec
+        self.spec = spec_cfg if (spec_cfg is not None and spec_cfg.enabled) \
+            else None
+        self.proposer = None
+        # slot -> (base_len, expected_tail, next_drafts, host_keys, resv):
+        # the pipelined prediction for the slot's next wave, (pool mode)
+        # its host-packed keys and the clock-link booking of its prefetch
+        self._pipelined: dict[int, tuple] = {}
+        if self.spec is not None:
+            if self.prefill_chunk is not None:
+                raise ValueError("chunked prefill does not compose with "
+                                 "speculative decoding (the verify pass is "
+                                 "not gated)")
+            from ..spec import build_verifier, make_proposer
+            self.proposer = proposer if proposer is not None else \
+                make_proposer(cfg, self.spec, flags=flags, seed=seed,
+                              device=self.device)
+            # with Engram the wave hands the verifier the block's rows
+            self._verify = self._fuse_verdict(build_verifier(
+                cfg, flags, external_rows=self.has_engram))
+
         self.state = init_decode_state(cfg, flags, max_batch, max_len,
                                        self.device)
         self.slots: list[Optional[Request]] = [None] * max_batch
@@ -342,9 +406,20 @@ class Engine:
             if req is not None and req.rid == rid:
                 self.slots[slot] = None
                 self._free.append(slot)
+                self._drop_pipelined(slot)
+                if self.proposer is not None:
+                    self.proposer.end(slot)
                 self._mark_cancelled(req)
                 return True
         return False
+
+    def _drop_pipelined(self, slot: int) -> None:
+        """Discard a slot's pipelined prediction and refund the clock-link
+        booking of its prefetch: a finished or cancelled request's
+        transfer no longer delays anyone."""
+        pipe = self._pipelined.pop(slot, None)
+        if pipe is not None and pipe[4] is not None:
+            self.clock.refund(pipe[4])
 
     def _drop_job(self, job: _PrefillJob) -> None:
         """Retire a prefill job: refund its outstanding clock-link bookings
@@ -379,30 +454,15 @@ class Engine:
 
     # -------------------------------------------------------- host syncing
 
-    @contextlib.contextmanager
-    def _sync_allowed(self):
-        """Suspend PyTorch's CUDA sync debug mode for a counted read, so
-        waves run under that mode flag any other sync."""
-        mode = torch.cuda.get_sync_debug_mode() \
-            if self.device.type == "cuda" else 0
-        if mode == 0:
-            yield
-            return
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-
     def _host(self, t: torch.Tensor) -> np.ndarray:
         """The wave's device->host read. Every host materialisation on the
         serving path goes through here (or, for a prefix spill's snapshot,
-        through ``_sync_allowed`` beside it), so ``d2h_pulls`` counts
+        through ``device.sync_allowed`` beside it), so ``d2h_pulls`` counts
         them."""
         self.stats.d2h_pulls += 1
         if t.device.type != "cuda":
             return t.numpy().copy()
-        with self._sync_allowed():
+        with sync_allowed(self.device):
             return t.cpu().numpy()
 
     # ---------------------------------------------------------- prefill path
@@ -496,6 +556,8 @@ class Engine:
                 self.stats.prefills += 1
                 self.stats.generated_tokens += 1
                 self.stats.ttft_s_sum += t_now - req.submitted_s
+                if self.proposer is not None:
+                    self.proposer.begin(slot, req.prompt + req.out)
                 events.append((req, [tok], self._finish_if_done(slot),
                                len(req.out) - 1))
         if self._pool_mode:
@@ -666,7 +728,7 @@ class Engine:
             if (self.prefix_cache is not None and job.pos % C == 0
                     and 0 <= bi < len(job.chain)
                     and job.chain[bi] not in self.prefix_cache):
-                with self._sync_allowed():
+                with sync_allowed(self.device):
                     snap, nbytes = extract_prefix(self.state, job.slot,
                                                   job.pos)
                 self.stats.d2h_pulls += 1      # the spill's host snapshot
@@ -804,6 +866,213 @@ class Engine:
                            len(req.out) - 1))
         return events
 
+    # ------------------------------------------------------ speculate path
+
+    def _block_keys(self, last_tokens, block):
+        """The block's packed (B, m, L, T) segment keys on the device."""
+        return block_engram_keys(self.cfg.engram, last_tokens, block,
+                                 self._n_eng)
+
+    def _block_prefetch_fn(self, params, last_tokens, block):
+        """pool=None block retrieval (LocalStore): every Engram layer's rows
+        for the whole block, plain gather."""
+        e = self.cfg.engram
+        idx = block_engram_indices(e, last_tokens, block)
+        return [retrieve(e, layer["tables"], idx, self.flags.engram_strategy)
+                for layer in params["engram"]["layers"]]
+
+    @staticmethod
+    def _fuse_verdict(verify):
+        """Wrap a verifier so that its host-bound outputs, preds (B, m) and
+        n_accept (B,), come back as ONE (B, m+1) int64 verdict tensor: the
+        speculative wave's single post-verify read."""
+        def fused(params, state, block, rows=None):
+            preds, n_accept, next_tok, new_state = (
+                verify(params, state, block, rows) if rows is not None
+                else verify(params, state, block))
+            verdict = torch.cat([preds, n_accept[:, None]], dim=1)
+            return verdict, next_tok, new_state
+        return fused
+
+    def _propose_block(self, active, k: int) -> tuple:
+        """The wave's (B, m) block on the host: pending tokens from the host
+        mirror (no device read), drafts from surviving pipelined
+        predictions where there are any, else fresh proposals. Returns the
+        block, the hit set and the surviving host-packed keys
+        ``{slot: (m, L, T)}``."""
+        block = np.zeros((self.max_batch, k + 1), np.int64)
+        block[:, 0] = self._tokens_host
+        hits = set()
+        pipe_keys: dict[int, np.ndarray] = {}
+        pipes = {i: self._pipelined.pop(i, None) for i in active}
+        # settle the queued prefetch bookings NEWEST-FIRST: Link.refund
+        # rolls back only a link's tail and the bookings were made in slot
+        # order, so LIFO unwinds them all (ascending order would leak every
+        # booking but the last). The wave re-charges through the normal
+        # path either way.
+        for pipe in [p for p in pipes.values() if p is not None][::-1]:
+            if pipe[4] is not None:
+                self.clock.refund(pipe[4])
+        for i in active:
+            req = self.slots[i]
+            stream = req.prompt + req.out
+            drafts = None
+            pipe = pipes[i]
+            if pipe is not None:
+                base_len, expected_tail, next_drafts, pkeys, _ = pipe
+                if (len(stream) == base_len + len(expected_tail)
+                        and stream[base_len:] == expected_tail):
+                    drafts = next_drafts
+                    hits.add(i)
+                    if pkeys is not None:
+                        pipe_keys[i] = pkeys
+                    self.stats.pipelined_hits += 1
+                else:
+                    self.stats.pipelined_misses += 1
+            if drafts is None:
+                drafts = self.proposer.propose(i, stream, k)
+            block[i, 1:] = drafts
+        return block, hits, pipe_keys
+
+    def _pipeline_proposals(self, active, block: np.ndarray, k: int) -> None:
+        """Draft wave N+1's blocks while wave N's verify runs on the
+        device. The optimistic context assumes full acceptance; the
+        prediction is used next wave only if the emitted tail (accepted
+        drafts plus the bonus token) matches it exactly.
+
+        Pool mode also packs the predicted block's keys on the host
+        (``host_block_keys``, bit-equal to the device path) and books its
+        prefetch on the pool's clock link now. If every live slot's
+        prediction survives, the next wave reads no keys from the device;
+        the booking is refunded when the prediction is consumed or its
+        request ends."""
+        e = self.cfg.engram
+        o = max(e.orders) if self.has_engram else 1
+        for i in active:
+            req = self.slots[i]
+            stream = req.prompt + req.out
+            drafts = [int(t) for t in block[i, 1:]]
+            ahead = [int(t) for t in
+                     self.proposer.propose(i, stream + drafts, k + 1)]
+            pkeys = resv = None
+            if self._pool_mode and len(stream) + len(drafts) >= o - 1:
+                pkeys = host_block_keys(e, stream + drafts, ahead,
+                                        self._n_eng)
+                resv = self.store.reserve_prefetch(int(np.unique(pkeys).size))
+            # surviving tail = this wave's drafts + the predicted bonus
+            self._pipelined[i] = (len(stream), drafts + [ahead[0]],
+                                  ahead[1:], pkeys, resv)
+
+    def _spec_wave(self) -> list:
+        """One speculative wave: propose k drafts per live slot, prefetch
+        the whole block's Engram window (pool mode: one K1 launch), verify
+        in one batched pass, roll back rejected tails, charge stalls for
+        surviving positions only. Two device->host reads (the packed block
+        keys, the fused verdict), one when every live slot's pipelined
+        prediction survived. Returns ``(request, emitted_tokens, finished,
+        index)`` tuples."""
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return []
+        t0 = time.perf_counter()
+        self.cursor.next_wave()
+        k = self.spec.max_draft
+        m = k + 1
+        B = self.max_batch
+
+        block, pipe_hits, pipe_keys = self._propose_block(active, k)
+        block_t = upload(block, self.device)
+
+        # the verify pass costs about one decode step (memory-bound) plus a
+        # small per-extra-token compute term
+        step_s = self._step_estimate_s()
+        verify_s = step_s * (1.0 + self.spec.verify_overhead * (m - 1))
+        if self.emulate_step_s is not None:
+            self.stats.emu_time_s += verify_s
+
+        spec_report = None
+        rows = None
+        if self._pool_mode:
+            if all(i in pipe_keys for i in active):
+                # every live slot's block was predicted last wave and its
+                # keys packed on the host: no key read this wave
+                keys = np.zeros((B, m, self._n_eng,
+                                 self.cfg.engram.n_tables), np.int64)
+                for i in active:
+                    keys[i] = pipe_keys[i]
+            else:
+                keys = self._host(self._block_keys(self.state["last_tokens"],
+                                                   block_t))   # (B,m,L,T)
+            act = np.asarray(active)
+            ka = keys[act]                                     # (A,m,L,T)
+            keys_by_pos = [[ka[:, s, j, :].reshape(-1)
+                            for j in range(self._n_eng)] for s in range(m)]
+            # a fully pipelined block was booked a verify pass early (the
+            # cost model's credit; the gather below runs now); one
+            # straggler drags the fused fetch back to wave start
+            early = verify_s if all(i in pipe_hits for i in active) else 0.0
+            spec_report = self.scheduler.speculative_wave(
+                keys_by_pos, verify_s,
+                slot_keys=ka.reshape(len(active), m, -1), slot_ids=active,
+                early_issue_s=early)
+            rows = self._miss_fetches(keys)()      # ONE K1 launch
+        elif self.has_engram:
+            fetch = lambda: self._block_prefetch_fn(           # noqa: E731
+                self.params, self.state["last_tokens"], block_t)
+            rows = self.store.gather(
+                self.store.prefetch(len(active) * m, fetch=fetch))
+
+        verdict, self.tokens, self.state = self._verify(
+            self.params, self.state, block_t, rows)
+
+        if self.spec.pipeline:
+            # wave N+1's proposals, drafted while the verify runs
+            self._pipeline_proposals(active, block, k)
+
+        verdict = self._host(verdict)                  # (B, m+1)
+        preds = verdict[:, :m]
+        n_acc = verdict[:, m]
+        # host mirror of next_tok: preds[b, n_accept[b]] by construction
+        self._tokens_host[:] = preds[np.arange(B), n_acc]
+        if spec_report is not None:
+            acc_active = n_acc[np.asarray(active)]
+            stall = self.scheduler.charge_spec(
+                spec_report, int(acc_active.max()) + 1,
+                tokens_emitted=int((acc_active + 1).sum()),
+                n_keep_by_slot={i: int(n_acc[i]) + 1 for i in active})
+            self.stats.stall_s += stall
+            if self.emulate_step_s is None:
+                if stall > 0:
+                    time.sleep(stall)
+            else:
+                self.stats.emu_time_s += stall
+                self.cursor.advance(stall)
+
+        dt = time.perf_counter() - t0
+        self._step_times.append(dt)
+        self.cursor.advance(verify_s if self.emulate_step_s is not None
+                            else dt)
+        self.stats.decode_steps += 1
+        self.stats.spec_waves += 1
+        events = []
+        for i in active:
+            req = self.slots[i]
+            a = int(n_acc[i])
+            emit = [int(t) for t in preds[i, :a + 1][:req.max_new
+                                                     - len(req.out)]]
+            req.out.extend(emit)
+            self.stats.generated_tokens += len(emit)
+            self.stats.proposed_tokens += k
+            self.stats.accepted_tokens += a
+            by = self.stats.spec_by_class.setdefault(
+                "uniform", {"proposed": 0, "accepted": 0})
+            by["proposed"] += k
+            by["accepted"] += a
+            self.proposer.observe(i, req.prompt + req.out)
+            events.append((req, emit, self._finish_if_done(i),
+                           len(req.out) - len(emit)))
+        return events
+
     def _finish_if_done(self, slot: int) -> bool:
         req = self.slots[slot]
         if req is not None and len(req.out) >= req.max_new:
@@ -813,7 +1082,10 @@ class Engine:
             self.done[req.rid] = req
             self.slots[slot] = None
             self._free.append(slot)
+            self._drop_pipelined(slot)
             self.stats.requests_completed += 1
+            if self.proposer is not None:
+                self.proposer.end(slot)
             return True
         return False
 

@@ -18,10 +18,9 @@ is that serving surface:
     stats = rt.drain()                            # run whatever is left
 
 `step()` is one admission pass, one chunk-prefill wave (with
-``prefill_chunk`` set) and one decode wave, each emitted token routed to
-its request's handle. `Engine.run()` is a thin `drain()` over this. The
-speculative wave of the reference's `step()` belongs to a later slice of
-the port (ROADMAP queue 1, item 4).
+``prefill_chunk`` set) and one decode wave (a speculative verify wave
+with ``spec`` set), each emitted token routed to its request's handle.
+`Engine.run()` is a thin `drain()` over this.
 """
 from __future__ import annotations
 
@@ -159,9 +158,10 @@ class EngramRuntime:
     def step(self) -> list[TokenEvent]:
         """One serving wave: admit queued requests into free slots, then
         (chunked mode) one chunk-prefill wave over the prefill jobs, then
-        one decode pass over the live batch. Returns every token emitted
-        this step as per-request events, in emission order, each stamped
-        with the virtual time of the wave that emitted it."""
+        one decode (or speculative verify) pass over the live batch.
+        Returns every token emitted this step as per-request events, in
+        emission order, each stamped with the virtual time of the wave
+        that emitted it."""
         eng = self.engine
         t0 = time.perf_counter()
         waves = []
@@ -172,7 +172,8 @@ class EngramRuntime:
             raw = eng._chunk_wave()
             if raw:
                 waves.append((raw, eng.cursor.now_s))
-        raw = eng._decode_wave()
+        raw = eng._spec_wave() if eng.spec is not None \
+            else eng._decode_wave()
         if raw:
             waves.append((raw, eng.cursor.now_s))
         eng.stats.wall_s += time.perf_counter() - t0

@@ -1,6 +1,7 @@
 """Slot-batched decode-state surgery for continuous batching (PyTorch port
 of ``repro.serving.slots``: ``update_slots``, ``select_slots``,
-``gate_state``, ``extract_prefix`` and ``restore_prefix``).
+``gate_state``, ``snapshot_recurrent``, ``rollback_state``,
+``extract_prefix`` and ``restore_prefix``).
 
 The port's decode state is a nested dict/list of tensors whose batch axis
 is always axis 0 (per-layer caches, no stacked layer axes), and whose KV
@@ -18,6 +19,15 @@ garbage write lands at its un-advanced ``positions[b]``, and the row's
 next real step writes that same index before it attends there, so the
 garbage is never read. (The port's decode writes K/V in place, so a
 ``torch.where`` over the caches would only copy every cache per step.)
+
+``snapshot_recurrent`` / ``rollback_state`` truncate rejected speculation
+per slot: the verify pass records the state's non-KV leaves after every
+unrolled step, and each slot is re-selected at its kept step count by
+device-side indexing (no host read). KV leaves keep the final buffers: rows
+past a slot's rewound ``positions`` are masked and later overwritten in
+place. The dense GQA state has only ``positions`` and ``last_tokens``
+besides KV; both functions walk the leaf names, so recurrent leaves fit
+without a rewrite.
 
 ``extract_prefix`` / ``restore_prefix`` are block-granular KV restore at a
 prefill offset: one slot's state goes to the host with its KV sliced to
@@ -80,6 +90,47 @@ def _map_named(fn, tree, name=None):
     if isinstance(tree, (list, tuple)):
         return [_map_named(fn, v, name) for v in tree]
     return fn(name, tree)
+
+
+def _map_named_zip(fn, tree, others, name=None):
+    """``_map_named`` over ``tree`` and same-shaped ``others`` together:
+    ``fn(name, leaf, [matching leaf of each other])``."""
+    if isinstance(tree, dict):
+        return {k: _map_named_zip(fn, v, [o[k] for o in others], k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_named_zip(fn, v, [o[i] for o in others], name)
+                for i, v in enumerate(tree)]
+    return fn(name, tree, others)
+
+
+def snapshot_recurrent(state):
+    """Per-step snapshot for speculative rollback: every leaf but the KV
+    caches (which become None), by reference: the decode step makes new
+    ``positions``/``last_tokens`` tensors, so no copy is needed."""
+    return _map_named(lambda name, leaf: None if name in KV_KEYS else leaf,
+                      state)
+
+
+def rollback_state(final_state, snapshots, n_keep: torch.Tensor):
+    """Truncate rejected speculation per slot.
+
+    ``final_state``: the state after the whole m-step verify pass.
+    ``snapshots``: m+1 ``snapshot_recurrent`` trees; ``snapshots[s]`` is the
+    state after s verify steps (s = 0 before the verify).
+    ``n_keep (B,)``: a device tensor of verify steps to keep per slot, in
+    [0, m]. Non-KV leaves are re-selected at ``snapshots[n_keep[b]]`` for
+    every slot b by indexing on the device; KV leaves keep the final
+    buffers."""
+    sel = n_keep.long()
+    rows = torch.arange(sel.shape[0], device=sel.device)
+
+    def one(name, leaf, snap_leaves):
+        if name in KV_KEYS:
+            return leaf
+        return torch.stack(snap_leaves)[sel, rows]      # batch axis 0
+
+    return _map_named_zip(one, final_state, snapshots)
 
 
 def gate_state(valid, new_state, old_state):

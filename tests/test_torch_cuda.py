@@ -191,3 +191,47 @@ def test_chunked_engine_with_prefix_cache_card_equals_cpu():
                      dataclasses.asdict(eng.prefix_cache.stats())))
     assert seen[0] == seen[1]
     assert seen[1][1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_spec_engine_card_equals_cpu(pipeline):
+    """Reduced engram-27b (f32), pool CXL at the emulated operating point,
+    speculative decoding with the n-gram proposer on repeated prompts: the
+    card (one K1 launch per verify wave) emits the CPU's streams, which are
+    the non-speculative engine's, with the same speculation counters and
+    StoreStats."""
+    import dataclasses
+
+    from repro_torch.configs import SpecConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Engine
+    dev = _card()
+    cfg = engram_27b.reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params)
+    rng = np.random.RandomState(8)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
+               for n in (4, 9, 6)] * 2
+    seen = []
+    for device, p, sp in (("cpu", params, SpecConfig(pipeline=pipeline)),
+                          (dev, params_dev, SpecConfig(pipeline=pipeline)),
+                          (dev, params_dev, None)):
+        eng = Engine(cfg, params=p, pool="CXL", max_batch=3, max_len=64,
+                     prompt_bucket=8, emulate_step_s=5e-5, spec=sp,
+                     device=device)
+        before = gather_rows.launches
+        rids = [eng.submit(q, max_new=10) for q in prompts]
+        eng.run()
+        st = eng.stats
+        seen.append(([eng.done[r].out for r in rids],
+                     (st.spec_waves, st.accepted_tokens, st.pipelined_hits,
+                      st.d2h_pulls),
+                     dataclasses.asdict(eng.store.stats()),
+                     gather_rows.launches - before))
+    cpu, card, plain = seen
+    assert card[:3] == cpu[:3]
+    assert card[0] == plain[0]
+    assert card[1][1] > 0                     # some drafts accepted
+    assert cpu[3] == 0 and card[3] == card[1][0]   # K1 once per verify wave

@@ -222,14 +222,15 @@ def test_engine_defaults_to_the_card(setup):
 def test_unported_options_raise(setup):
     cfg, _, _, params = setup
     kw = dict(params=params, device="cpu")
-    for bad in (dict(spec=SpecConfig()), dict(slo_policy=object()),
+    for bad in (dict(idle_spill_tokens=64), dict(slo_policy=object()),
                 dict(fabric_nodes=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, **bad, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, pool="CXL+SSD", **kw)
-    # ported since: chunked prefill and the hot-row cache
+    # ported since: chunked prefill, the hot-row cache and speculation
     assert Engine(cfg, prefill_chunk=4, **kw).prefill_chunk == 4
+    assert Engine(cfg, spec=SpecConfig(), **kw).spec == SpecConfig()
     cached = dataclasses.replace(cfg, engram=dataclasses.replace(
         cfg.engram, store=StoreConfig(cache_rows=64)))
     assert Engine(cached, pool="CXL", **kw).store.stats().cache_rows == 64
@@ -258,6 +259,8 @@ def test_port_imports_nothing_of_jax():
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.pool.cache' in sys.modules\n"
+        "assert 'repro_torch.spec.proposer' in sys.modules\n"
+        "assert 'repro_torch.spec.verifier' in sys.modules\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
