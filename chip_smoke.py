@@ -30,7 +30,14 @@ result lines are printed):
               streams, StoreStats and PrefixCacheStats; and speculative
               decoding (n-gram proposer, pipelined proposals) on card and
               CPU: identical streams, equal to the non-speculative
-              engine's, with equal StoreStats, counters and clock.
+              engine's, with equal StoreStats, counters and clock; and
+              overload (a TinyLFU hot-row cache, ``OverloadPolicy()``,
+              ``PoolArbiter(kv_cache_share=0.25)``, 4 batch requests and
+              2 interactive ones that preempt) and the storage tiers (a
+              ``CXL+SSD`` chain, a 2-node fabric losing node 1) on card
+              and CPU: identical streams (equal to the runs without the
+              policy or the tiers), counters, KVPoolStats, StoreStats,
+              fabric stats and clock.
   7. serve    engram-27b at full width and full depth (36 layers, 22.9 B
               parameters, seeded random bf16 weights drawn on the card,
               shared by phases 7 to 10) behind ``Engine(pool="CXL",
@@ -54,9 +61,25 @@ result lines are printed):
               step and prefill group, one read per fully pipelined wave
               and two per other wave (plus one per admission group, and
               in (c) one per draft proposal), and no other sync.
+ 11. overload ``OverloadPolicy()``, ``PoolArbiter(kv_cache_share=0.25)``
+              and phase 9's hot-row cache at the emulated operating
+              point: (a) phase 7's prompts as batch requests, 16 new
+              tokens, and after decode wave 4 two interactive requests
+              that preempt two of them (their KV parked on the host and
+              restored later); (b) idle spill (``idle_spill_tokens=4``),
+              12 requests into 8 slots. Phase 7's tokens exactly, K1 once
+              per decode wave, one read per preemption on top of the
+              reference's budget, no other sync; each spill's and
+              restore's time (CUDA events) beside its CXL booking.
+ 12. tiers    phase 7's prompts, 8 new tokens, emulated point: (a) a
+              ``CXL+SSD`` chain; (b) a 4-node fabric, node 1 degraded 4x
+              after decode wave 2, node 2 killed after wave 4. Phase 7's
+              tokens, K1 once per decode wave, one read per steady wave;
+              the chain's front + warm + cold rows add up to each wave's
+              segments; the fabric's rescue window.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 10); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 12); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -457,6 +480,158 @@ def check_agreement_spec(dev) -> None:
           f"misses, {reads} reads; streams (equal to the non-speculative "
           f"engine's), StoreStats, counters and clock identical on card and "
           f"CPU")
+
+
+def link_ledgers(clock) -> dict:
+    """A clock's stats with per-object link names (``cache:<id>``,
+    ``chainfront:<id>``) cut to their kind, so two engines compare."""
+    st = clock.stats()
+    links = sorted((dict(v, name=n.split(":")[0]) for n, v in
+                    st["links"].items()), key=lambda d: d["name"])
+    return dict(st, links=links)
+
+
+def check_agreement_overload(dev) -> None:
+    """Overload on the reduced config at the emulated operating point, on
+    the card and on the CPU: a TinyLFU hot-row cache, ``OverloadPolicy()``
+    and ``PoolArbiter(kv_cache_share=0.25)``; 4 batch requests, then 2
+    interactive ones after the third decode wave. The streams (equal to a
+    run without the policy), the overload counters, KVPoolStats,
+    StoreStats, the cache's evictions and the clock must be identical."""
+    import numpy as np
+    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.pool import PoolArbiter
+    from repro_torch.serving import Engine, OverloadPolicy
+    cfg = engram_27b.reduced()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=2048, admission="tinylfu")))
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    rng = np.random.RandomState(5)
+    prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
+               for n in (6, 11, 4, 9, 7, 5)]
+    seen = []
+    for device, params, policy in (("cpu", params_cpu, True),
+                                   (dev, params_dev, True),
+                                   (dev, params_dev, False)):
+        kw = dict(slo_policy=OverloadPolicy(),
+                  arbiter=PoolArbiter(kv_cache_share=0.25)) if policy else {}
+        eng = Engine(ccfg, params=params, pool="CXL", max_batch=4,
+                     max_len=64, prompt_bucket=8, emulate_step_s=5e-5,
+                     device=device, **kw)
+        rt = eng.runtime()
+        hs = [rt.submit(p, max_new=12, slo="batch") for p in prompts[:4]]
+        while eng.stats.decode_steps < 3:
+            rt.step()
+        hs += [rt.submit(p, max_new=6, slo="interactive")
+               for p in prompts[4:]]
+        rt.drain()
+        st = eng.stats
+        seen.append(dict(
+            streams=[h.tokens for h in hs],
+            overload=(st.preemptions, st.resumes, st.kv_spill_bytes,
+                      st.kv_restore_bytes, st.kv_spill_pages,
+                      st.idle_spills, st.d2h_pulls, st.ttft_v_sum),
+            kv_pool=dataclasses.asdict(eng.kv_pool.stats()) if policy
+            else None,
+            store=dataclasses.asdict(eng.store.stats()),
+            cache=(eng.store.cache.evictions, eng.store.cache.total_hits,
+                   eng.store.cache.total_misses),
+            clock=link_ledgers(eng.clock)))
+    cpu, card, plain = seen
+    for key in cpu:
+        check(cpu[key] == card[key],
+              f"overload agreement: {key} differs: cpu {cpu[key]} vs card "
+              f"{card[key]}")
+    check(card["streams"] == plain["streams"],
+          f"overload agreement: streams {card['streams']} differ from the "
+          f"run without the policy {plain['streams']}")
+    pre, res, spill, restore = card["overload"][:4]
+    check(pre == res == 2 and spill == restore > 0,
+          f"overload agreement: {pre} preemptions, {res} resumes, "
+          f"{spill} B spilled, {restore} B restored")
+    check(card["store"]["class_bytes"]["kv"] == spill + restore,
+          "overload agreement: class_bytes['kv'] != spill + restore bytes")
+    print(f"agree overload: reduced engram-27b (f32, pool=CXL, emulated "
+          f"step 5e-5 s, TinyLFU cache of 2048 rows, OverloadPolicy, "
+          f"PoolArbiter(kv_cache_share=0.25)), 4 batch + 2 interactive "
+          f"requests into 4 slots: {pre} preemptions, {res} resumes, "
+          f"{spill} B spilled and restored, cache evictions "
+          f"{card['cache'][0]}; streams (equal to the run without the "
+          f"policy), overload counters, KVPoolStats, StoreStats, cache and "
+          f"clock identical on card and CPU")
+
+
+def check_agreement_tiers(dev) -> None:
+    """The storage tiers on the reduced config at the emulated operating
+    point, on the card and on the CPU: a ``CXL+SSD`` chain (front 64 rows,
+    warm 512 rows, sketch half-life 2e-4 s) and a two-node fabric whose
+    node 1 is killed after decode wave 2. StoreStats, the fabric's stats
+    and the clock must be identical, and the streams equal to the card's
+    run without tiers."""
+    import numpy as np
+    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Engine
+    cfg = engram_27b.reduced()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=64, warm_rows=512,
+                                      aging_half_life_s=2e-4)))
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    rng = np.random.RandomState(6)
+    prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
+               for n in (5, 12, 8, 3)]
+    kw = dict(max_batch=2, max_len=64, prompt_bucket=8, emulate_step_s=5e-5)
+
+    def serve(device, params, c, pool, **extra):
+        eng = Engine(c, params=params, pool=pool, device=device, **kw,
+                     **extra)
+        rt = eng.runtime()
+        hs = [rt.submit(p, max_new=8) for p in prompts]
+        while eng.busy:
+            if eng.fabric is not None and eng.stats.decode_steps == 2 \
+                    and eng.fabric.nodes[1].alive:
+                eng.fabric.kill(1)
+            rt.step()
+        return eng, [h.tokens for h in hs]
+
+    _, plain = serve(dev, params_dev, cfg, "CXL")
+    seen = []
+    for device, params in (("cpu", params_cpu), (dev, params_dev)):
+        chain, s_chain = serve(device, params, ccfg, "CXL+SSD")
+        fab, s_fab = serve(device, params, cfg, "CXL", fabric_nodes=2)
+        seen.append(dict(
+            streams=(s_chain, s_fab),
+            chain=dataclasses.asdict(chain.store.stats()),
+            chain_clock=link_ledgers(chain.clock),
+            fabric=dataclasses.asdict(fab.store.stats()),
+            fabric_stats=fab.fabric.stats(),
+            fabric_clock=link_ledgers(fab.clock)))
+    cpu, card = seen
+    for key in cpu:
+        check(cpu[key] == card[key],
+              f"tiers agreement: {key} differs: cpu {cpu[key]} vs card "
+              f"{card[key]}")
+    check(card["streams"] == (plain, plain),
+          f"tiers agreement: streams {card['streams']} differ from the "
+          f"run without tiers {plain}")
+    ch = card["chain"]
+    check(ch["hits"] > 0 and ch["warm_hits"] > 0 and ch["cold_misses"] > 0,
+          f"tiers agreement: the chain's front/warm/cold split {ch['hits']}"
+          f"/{ch['warm_hits']}/{ch['cold_misses']} misses a level")
+    check(bool(card["fabric_stats"]["rescues"]),
+          "tiers agreement: the killed node's shards were not rescued")
+    print(f"agree tiers: reduced engram-27b (f32, emulated step 5e-5 s): "
+          f"CXL+SSD chain front/warm/cold {ch['hits']}/{ch['warm_hits']}/"
+          f"{ch['cold_misses']} segments, {ch['promotions']} promotions, "
+          f"{ch['demotions']} demotions; 2-node fabric with node 1 killed "
+          f"after wave 2 ({len(card['fabric_stats']['rescues'])} shard "
+          f"rescued); StoreStats, fabric stats and clock identical on card "
+          f"and CPU, streams equal to the run without tiers")
 
 
 # ---------------------------------------------------------------------------
@@ -909,6 +1084,350 @@ def serve_spec(cfg, params, dev, smi: str, prompts, streams) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: overload and the storage tiers at full width
+# ---------------------------------------------------------------------------
+
+class KVTimer:
+    """CUDA events around each preemption's snapshot (device->host) and
+    each restore's upload and scatter (``restore_prefix`` to the
+    ``update_slots`` that writes it), recorded without a sync and read
+    after the run; beside each restore, the host time spent inside
+    ``restore_prefix`` (pinning, copy and pad enqueues)."""
+
+    def __init__(self, eng):
+        import torch
+        from repro_torch.serving import engine as engine_mod
+        self.mod, self.spills, self.restores = engine_mod, [], []
+        self._orig = (eng.preempt, engine_mod.restore_prefix,
+                      engine_mod.update_slots)
+        preempt, restore_prefix, update_slots = self._orig
+        ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+        pending = []
+
+        def timed_preempt(slot):
+            req = eng.slots[slot]
+            a, b = ev(), ev()
+            a.record()
+            ok = preempt(slot)
+            b.record()
+            if ok:
+                self.spills.append((a, b, eng._spilled[req.rid].nbytes))
+            return ok
+
+        def timed_restore(snapshot, max_len, device):
+            a = ev()
+            a.record()
+            t0 = time.perf_counter()
+            out = restore_prefix(snapshot, max_len, device)
+            pending.append((a, sum(t.numel() * t.element_size() for t in
+                                   _leaves(snapshot)),
+                            time.perf_counter() - t0))
+            return out
+
+        def timed_update(state, new_state, slots):
+            out = update_slots(state, new_state, slots)
+            if pending:
+                a, nbytes, host_s = pending.pop()
+                b = ev()
+                b.record()
+                self.restores.append((a, b, nbytes, host_s))
+            return out
+
+        self.eng = eng
+        eng.preempt = timed_preempt
+        engine_mod.restore_prefix = timed_restore
+        engine_mod.update_slots = timed_update
+
+    def close(self) -> tuple[list, list]:
+        """Undo the wrapping; (ms, bytes) per spill and (ms, bytes, host
+        ms in ``restore_prefix``) per restore."""
+        del self.eng.preempt
+        self.mod.restore_prefix, self.mod.update_slots = self._orig[1:]
+        return ([(a.elapsed_time(b), n) for a, b, n in self.spills],
+                [(a.elapsed_time(b), n, 1e3 * h)
+                 for a, b, n, h in self.restores])
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def ttft_by_class(handles) -> str:
+    """Mean TTFT per SLO class: host clock (submit to first token) and
+    virtual clock."""
+    out = []
+    for klass in sorted({h.request.slo for h in handles}):
+        rs = [h.request for h in handles if h.request.slo == klass]
+        wall = sum(r.first_token_s - r.submitted_s for r in rs) / len(rs)
+        virt = sum(r.first_token_v - r.submitted_v for r in rs) / len(rs)
+        out.append(f"{klass} {wall * 1e3:.2f} ms (virtual "
+                   f"{virt * 1e3:.4f} ms, {len(rs)} requests)")
+    return ", ".join(out)
+
+
+def serve_overload(cfg, params, dev, smi: str, prompts, streams,
+                   emulate_step_s: float = 5e-5) -> dict:
+    """Overload at full width: ``OverloadPolicy()``, ``PoolArbiter(
+    kv_cache_share=0.25)``, phase 9's TinyLFU hot-row cache of 2**20 rows,
+    at the emulated operating point (the KV transfers are booked on the
+    CXL link). (a) Phase 7's 8 prompts as batch requests of 16 new tokens;
+    after the 4th decode wave 2 interactive requests (prompts 0 and 1, 8
+    new tokens) preempt 2 of them. (b) Idle spill, no policy: 12 requests
+    of 16 new tokens (the 8 prompts, then prompts 0 to 3) into 8 slots.
+    Every stream must be phase 7's (its first 8 tokens for an interactive
+    request); (a) must preempt and resume twice, spill and restore the
+    same bytes, launch K1 once per decode wave, read once per preemption
+    on top of the reference's budget and sync nowhere else. Returns the
+    kernels' launches summed over both runs."""
+    import torch
+    from repro_torch.configs import StoreConfig
+    from repro_torch.pool import PoolArbiter
+    from repro_torch.pool.tiers import TIERS
+    from repro_torch.serving import Engine, OverloadPolicy
+
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=1 << 20,
+                                      admission="tinylfu")))
+    total = {"engram_gather": 0, "gated_fuse": 0}
+    cxl_Bps = TIERS["CXL"].bandwidth_Bps
+    for run in ("a", "b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(slo_policy=OverloadPolicy(),
+                  arbiter=PoolArbiter(kv_cache_share=0.25)) if run == "a" \
+            else dict(idle_spill_tokens=4)
+        eng = Engine(ccfg, params=params, pool="CXL", max_batch=8,
+                     max_len=512, prompt_bucket=32, device=dev,
+                     emulate_step_s=emulate_step_s, **kw)
+        eng.warmup(prompts)          # phase 7's 8 x 32 prefill group
+        eng.store.reset_stats()
+        rt = eng.runtime()
+        timer = KVTimer(eng)
+        marks = []
+        handles = []
+
+        def on_step():
+            st = eng.stats
+            marks.append((st.d2h_pulls, st.preemptions, st.resumes,
+                          st.prefill_waves, st.decode_steps))
+            if run == "a" and st.decode_steps == 4 and len(handles) == 8:
+                handles.extend(rt.submit(p, max_new=8, slo="interactive")
+                               for p in prompts[:2])
+
+        reset_launches()
+        if run == "a":
+            handles += [rt.submit(p, max_new=16, slo="batch")
+                        for p in prompts]
+        else:
+            handles += [rt.submit(p, max_new=16)
+                        for p in prompts + prompts[:4]]
+        pulls, run_s = drive(eng, rt, on_step=on_step)
+        launches = read_launches()
+        st = eng.stats
+        on_step()
+        spills, restores = timer.close()
+        want = [streams[i] for i in range(len(prompts))]
+        if run == "a":
+            want += [s[:8] for s in streams[:2]]
+        else:
+            want += streams[:4]
+        got = [h.tokens for h in handles]
+        check(got == want, f"overload run {run}: streams {got} differ from "
+              f"phase 7's {want}")
+        check(launches["engram_gather"] == st.decode_steps,
+              f"overload run {run}: K1 launches {launches['engram_gather']} "
+              f"!= one per {st.decode_steps} decode waves")
+        check(launches["gated_fuse"] == 2 * (st.prefill_waves
+                                             + st.decode_steps),
+              f"overload run {run}: K2 launches {launches['gated_fuse']} != "
+              f"2 x ({st.prefill_waves} prefill groups + {st.decode_steps} "
+              f"waves)")
+        # per step: one read per decode wave and admission group, one per
+        # preemption (the snapshot), one for the keys of a decode wave
+        # after an admission or a restore (the reference's budget)
+        deltas = [[y - x for x, y in zip(a, b)]
+                  for a, b in zip(marks, marks[1:])]
+        want_reads = [dec + pre + groups
+                      + int(dec > 0 and (groups > 0 or res > 0))
+                      for _, pre, res, groups, dec in deltas]
+        check(pulls == want_reads, f"overload run {run}: reads per step "
+              f"{pulls}, want {want_reads}")
+        check(st.kv_spill_bytes == st.kv_restore_bytes
+              == sum(n for _, n in spills)
+              == sum(n for _, n, _ in restores),
+              f"overload run {run}: spilled {st.kv_spill_bytes} B, restored "
+              f"{st.kv_restore_bytes} B, snapshots {spills} / {restores}")
+        check(eng.store.stats().class_bytes.get("kv", 0)
+              == st.kv_spill_bytes + st.kv_restore_bytes,
+              f"overload run {run}: class_bytes['kv'] "
+              f"{eng.store.stats().class_bytes.get('kv', 0)} != spill + "
+              f"restore bytes")
+        if run == "a":
+            check(st.preemptions == st.resumes == 2
+                  and eng.kv_pool.stats().refused == 0,
+                  f"overload run a: {st.preemptions} preemptions, "
+                  f"{st.resumes} resumes, {eng.kv_pool.stats().refused} "
+                  f"refused")
+        else:
+            check(st.idle_spills >= 1 and st.resumes == st.idle_spills,
+                  f"overload run b: {st.idle_spills} idle spills, "
+                  f"{st.resumes} resumes")
+        peak = torch.cuda.max_memory_allocated()
+        cache = eng.store.cache
+        what = (f"OverloadPolicy + PoolArbiter(0.25), {len(handles)} "
+                f"requests into 8 slots: {st.preemptions} preemptions"
+                if run == "a" else
+                f"idle_spill_tokens=4, {len(handles)} requests into 8 slots:"
+                f" {st.idle_spills} idle spills")
+        print(f"overload run {run}: {what}, "
+              f"{st.resumes} resumes, {st.kv_spill_bytes} B spilled and "
+              f"restored in {st.kv_spill_pages} pages, {st.decode_steps} "
+              f"decode waves; K1 {launches['engram_gather']}, K2 "
+              f"{launches['gated_fuse']} launches; reads per step {pulls}; "
+              f"hot-row cache evictions {cache.evictions}, hit rate "
+              f"{eng.store.stats().hit_rate:.4f}; streams equal to phase "
+              f"7's; no other sync")
+        for i, (ms, n) in enumerate(spills):
+            print(f"overload run {run} [{smi}]: spill {i + 1}: {n} B "
+                  f"device->host in {ms:.3f} ms ({n / ms / 1e6:.3f} GB/s); "
+                  f"booked on the CXL link {n / cxl_Bps * 1e3:.4f} ms")
+        for i, (ms, n, host_ms) in enumerate(restores):
+            print(f"overload run {run} [{smi}]: restore {i + 1}: {n} B "
+                  f"host->device + scatter in {ms:.3f} ms "
+                  f"({n / ms / 1e6:.3f} GB/s; {host_ms:.3f} ms of host "
+                  f"time in restore_prefix); booked on the CXL link "
+                  f"{n / cxl_Bps * 1e3:.4f} ms")
+        print(f"overload run {run} [{smi}]: mean TTFT {ttft_by_class(handles)}"
+              f"; run {run_s:.2f} s, peak memory {peak / 1e9:.2f} GB")
+        for k in total:
+            total[k] += launches[k]
+        del eng, rt, handles, timer, on_step
+    return total
+
+
+def serve_tiers(cfg, params, dev, smi: str, prompts, streams,
+                emulate_step_s: float = 5e-5) -> dict:
+    """The storage tiers at full width, phase 7's prompts, 8 new tokens,
+    at the emulated operating point: (a) a ``CXL+SSD`` chain (front 2**16
+    rows, warm 2**18 rows, sketch half-life 1e-4 s); (b) a 4-node fabric,
+    node 1 degraded 4x after decode wave 2 and node 2 killed after wave 4.
+    Both must emit phase 7's first 8 tokens, launch K1 once per decode
+    wave and read once per steady wave; every chain wave's front, warm and
+    cold rows must add up to its segments, and the fabric's stats must
+    hold the rescue window. Returns the kernels' launches over both."""
+    import torch
+    from repro_torch.configs import StoreConfig
+    from repro_torch.serving import Engine
+
+    total = {"engram_gather": 0, "gated_fuse": 0}
+    for run in ("a", "b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run == "a":
+            c = dataclasses.replace(cfg, engram=dataclasses.replace(
+                cfg.engram, store=StoreConfig(cache_rows=1 << 16,
+                                              warm_rows=1 << 18,
+                                              aging_half_life_s=1e-4)))
+            eng = Engine(c, params=params, pool="CXL+SSD", max_batch=8,
+                         max_len=512, prompt_bucket=32, device=dev,
+                         emulate_step_s=emulate_step_s)
+        else:
+            eng = Engine(cfg, params=params, pool="CXL", fabric_nodes=4,
+                         max_batch=8, max_len=512, prompt_bucket=32,
+                         device=dev, emulate_step_s=emulate_step_s)
+        rt = eng.runtime()
+        routes = []
+        prefetch = eng.store.prefetch
+
+        def routed(tokens, fetch=None):
+            h = prefetch(tokens, fetch=fetch)
+            routes.append((h.n_segments, h.shards))
+            return h
+
+        eng.store.prefetch = routed
+        events = []
+
+        def on_step():
+            fab, n = eng.fabric, eng.stats.decode_steps
+            if fab is None or events.count(n):
+                return
+            if n == 2:
+                fab.degrade(1, 4.0)
+                events.append(n)
+            elif n == 4:
+                fab.kill(2)
+                events.append(n)
+
+        reset_launches()
+        handles = [rt.submit(p, max_new=8) for p in prompts]
+        pulls, run_s = drive(eng, rt, on_step=on_step)
+        launches = read_launches()
+        del eng.store.prefetch
+        st, ss = eng.stats, eng.store.stats()
+        got = [h.tokens for h in handles]
+        want = [s_[:8] for s_ in streams]
+        check(got == want, f"tiers run {run}: streams {got} differ from "
+              f"phase 7's {want}")
+        check(launches["engram_gather"] == st.decode_steps,
+              f"tiers run {run}: K1 launches {launches['engram_gather']} != "
+              f"one per {st.decode_steps} decode waves")
+        check(launches["gated_fuse"] == 2 * (st.prefill_waves
+                                             + st.decode_steps),
+              f"tiers run {run}: K2 launches {launches['gated_fuse']}")
+        check(pulls == [3] + [1] * (st.decode_steps - 1),
+              f"tiers run {run}: reads per step {pulls}")
+        if run == "a":
+            check(all(sum(r[:3]) == n for n, r in routes),
+                  f"tiers run a: a wave's front + warm + cold rows differ "
+                  f"from its segments: {routes}")
+            seg = ss.hits + ss.warm_hits + ss.cold_misses
+            check(seg == ss.segments and ss.cold_misses > 0,
+                  f"tiers run a: front {ss.hits} + warm {ss.warm_hits} + "
+                  f"cold {ss.cold_misses} != {ss.segments} segments")
+            print(f"tiers run a (CXL+SSD chain, front 2**16, warm 2**18 "
+                  f"rows, half-life 1e-4 s): {st.decode_steps} decode waves, "
+                  f"{len(routes)} charged fetches; hit fractions front "
+                  f"{ss.hits / seg:.4f}, warm {ss.warm_hits / seg:.4f}, "
+                  f"cold {ss.cold_misses / seg:.4f} of {seg} segments; "
+                  f"{ss.promotions} promotions, {ss.demotions} demotions; "
+                  f"K1 {launches['engram_gather']}, K2 "
+                  f"{launches['gated_fuse']}; reads per step {pulls}; "
+                  f"streams equal to phase 7's")
+        else:
+            fs = eng.fabric.stats()
+            check(events == [2, 4] and fs["rescues"] and not fs["alive"][2]
+                  and fs["degrade"][1] == 4.0,
+                  f"tiers run b: fabric events {fs['events']}")
+            t_kill = fs["rescues"][0]["t_kill"]
+            done = max(r["done_s"] for r in fs["rescues"])
+            check(done > t_kill, f"tiers run b: no rescue window "
+                  f"({t_kill} to {done})")
+            nodes = {n.split(":")[1]: (v["reservations"], v["bytes"],
+                                       v["busy_s"], v["wait_s"])
+                     for n, v in fs["links"].items()}
+            print(f"tiers run b (4-node fabric, node 1 degraded 4x after "
+                  f"wave 2, node 2 killed after wave 4): {st.decode_steps} "
+                  f"decode waves; shards moved {fs['events'][-1]['moved']} "
+                  f"to {[r['dst'] for r in fs['rescues']]}, rescue window "
+                  f"{t_kill:.6f} to {done:.6f} s (virtual); per link "
+                  f"(reservations, bytes, busy s, wait s) {nodes}; K1 "
+                  f"{launches['engram_gather']}, K2 "
+                  f"{launches['gated_fuse']}; reads per step {pulls}; "
+                  f"streams equal to phase 7's")
+        print(f"tiers run {run} [{smi}]: stall per wave "
+              f"{ss.stall_s_per_wave * 1e6:.3f} us (virtual, {ss.waves} "
+              f"charged waves), emulated "
+              f"{st.generated_tokens / st.emu_time_s:.1f} tokens/s; "
+              f"run {run_s:.2f} s")
+        for k in total:
+            total[k] += launches[k]
+        del eng, rt, handles, routed, on_step
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -947,10 +1466,15 @@ def main() -> int:
     check_agreement(dev)
     check_agreement_chunked(dev)
     check_agreement_spec(dev)
+    check_agreement_overload(dev)
+    check_agreement_tiers(dev)
     params = draw_params(cfg, dev)
     launches, streams = serve_full(cfg, params, dev, smi)
+    prompts = serve_prompts(cfg)
     for phase in (serve_long_prompt, serve_chunked,
-                  lambda *a: serve_spec(*a, serve_prompts(cfg), streams)):
+                  lambda *a: serve_spec(*a, prompts, streams),
+                  lambda *a: serve_overload(*a, prompts, streams),
+                  lambda *a: serve_tiers(*a, prompts, streams)):
         gc.collect()             # the last phase's engine (a cycle with its
         torch.cuda.empty_cache()  # runtime) before the next one's caches
         for k, n in phase(cfg, params, dev, smi).items():
@@ -969,7 +1493,8 @@ def main() -> int:
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
           "(decode, and each unrolled verify step); launches summed over "
-          "the serve, long-prompt, chunked and spec runs; also measured: "
+          "the serve, long-prompt, chunked, spec, overload and tiers runs; also "
+          "measured: "
           + json.dumps({"engram_gather_2x512_verify_wave": k1["spec"],
                         "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],

@@ -7,7 +7,9 @@ with each wave's real key stream, so the hit rate entering the store's
 latency model is observed, not assumed. A wave counts *unique* keys: a
 duplicate of an in-wave miss rides the same fetch and is neither a hit
 nor another miss. ``TinyLFUAdmission`` (a ``FrequencySketch``) keeps a
-one-shot scan from flushing the hot set.
+one-shot scan from flushing the hot set. ``occupy`` lands preempted KV
+pages in the cache as capacity pressure, outside the hit/miss counts;
+the sketch's virtual-clock ``decay`` ages the tier chain's placement.
 
 ``PrefixKVCache`` is chunked prefill's reuse layer: a byte-budget LRU of
 chunk-boundary slot snapshots (``serving.slots.extract_prefix``) keyed by
@@ -45,20 +47,42 @@ class WaveAccess:
 class FrequencySketch:
     """Count-min sketch with saturating counters and periodic halving (the
     TinyLFU aging scheme): how often a key was seen, without per-key
-    state. The reference's sizes; its virtual-clock ``decay`` belongs to
-    the tier chain (ROADMAP queue 1, item 6) and comes with it."""
+    state, at the reference's default sizes.
+
+    ``decay_half_life_s``: virtual-clock aging (the tier chain's promotion
+    sketch): ``decay(now_s)`` halves every count once per whole half-life
+    of clock time since the last decay, so a workload shift re-ranks the
+    hot set. None keeps the op-count halving only (which stays on either
+    way, as saturation protection)."""
 
     WIDTH = 1 << 15                 # columns per row (a power of two)
     DEPTH = 4
     MAX_COUNT = 15
     SAMPLE_LIMIT = 16 * WIDTH       # observations between halvings
 
-    def __init__(self):
+    def __init__(self, decay_half_life_s: float | None = None):
         self._table = np.zeros((self.DEPTH, self.WIDTH), np.uint8)
         self._seeds = np.asarray(
             [0x9E3779B97F4A7C15 * (i + 1) & 0xFFFFFFFFFFFFFFFF
              for i in range(self.DEPTH)], np.uint64)
         self._ops = 0
+        self.decay_half_life_s = decay_half_life_s
+        self._last_decay_s = 0.0
+
+    def decay(self, now_s: float) -> int:
+        """Age the counts up to clock time ``now_s``: one halving per whole
+        half-life elapsed since the last decay. Returns the halvings
+        applied (0 with aging off). Deterministic in ``now_s``."""
+        hl = self.decay_half_life_s
+        if hl is None or hl <= 0.0:
+            return 0
+        steps = 0
+        while now_s - self._last_decay_s >= hl:
+            self._table >>= 1
+            self._ops //= 2
+            self._last_decay_s += hl
+            steps += 1
+        return steps
 
     def _slots(self, keys: np.ndarray) -> np.ndarray:
         """(depth, n) table columns for each key."""
@@ -163,6 +187,24 @@ class LRUHotRowCache:
         self.total_misses += misses
         self.waves += 1
         return WaveAccess(hits=hits, misses=misses)
+
+    def occupy(self, keys) -> int:
+        """Insert ``keys`` for capacity pressure without hit/miss
+        accounting (landed KV pages, ``pool/kvpool.py``): they compete with
+        Engram rows for capacity but are not Engram traffic, so they must
+        not move the hit rate. Evictions are counted. Returns the rows
+        evicted."""
+        uniq = np.unique(np.asarray(keys, dtype=np.int64))
+        rows = self._rows
+        evicted = 0
+        for k in uniq.tolist():
+            rows[k] = None
+            rows.move_to_end(k)
+            if len(rows) > self.capacity_rows:
+                rows.popitem(last=False)
+                self.evictions += 1
+                evicted += 1
+        return evicted
 
     @property
     def hit_rate(self) -> float:

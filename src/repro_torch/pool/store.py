@@ -10,13 +10,15 @@ where rows live. The protocol::
     stats  = store.stats()          # measured counts + stalls
 
 The port has ``TierStore`` (one ``TierSpec``), ``LocalStore`` (weights
-on the device, no emulated cost) and ``CachedStore`` (an LRU hot-row
-cache, ``pool/cache.py``, in front of a ``TierStore``: the measured
-hit/miss split of each wave enters the latency model). The cache changes
-only the cost model: rows are still materialised by ``TableFetcher`` over
-the engram_gather kernel (K1), with ``fetch_layers`` gathering every
-Engram layer's rows of a wave in one launch. Tier chains and fabrics
-raise (ROADMAP queue 1, item 6).
+on the device, no emulated cost), ``CachedStore`` (an LRU hot-row cache,
+``pool/cache.py``, in front of a ``TierStore`` or a ``FabricStore``: the
+measured hit/miss split of each wave enters the latency model), the
+three-level ``TierChain`` (``pool/tierchain.py``, ``pool="CXL+SSD"``) and
+``FabricStore`` (``pool/fabric.py``, the pool sharded over M nodes). All
+of them change only the cost model: rows are still materialised by
+``TableFetcher`` over the engram_gather kernel (K1), with
+``fetch_layers`` gathering every Engram layer's rows of a wave in one
+launch.
 """
 from __future__ import annotations
 
@@ -339,7 +341,8 @@ class LocalStore(_StoreBase):
 
 
 class CachedStore(_StoreBase):
-    """LRU hot-row cache (``cache_tier``) in front of a backing store.
+    """LRU hot-row cache (``cache_tier``) in front of a backing store (a
+    ``TierStore``, or a ``FabricStore`` whose fabric charges the misses).
 
     Hit and miss paths proceed in parallel, so a wave completes at
     ``max(hit path, miss path)``: the §6 formula evaluated with the
@@ -347,7 +350,7 @@ class CachedStore(_StoreBase):
     misses the backing tier's fleet-wide link, hits the cache's own link
     (``cache:<id>``, the cache tier's bandwidth)."""
 
-    def __init__(self, backing: TierStore, cache_tier: TierSpec | str = "DRAM",
+    def __init__(self, backing, cache_tier: TierSpec | str = "DRAM",
                  cache: Optional[LRUHotRowCache] = None, clock=None):
         super().__init__(backing.ecfg, backing.tier.name)
         self.backing = backing
@@ -386,16 +389,23 @@ class CachedStore(_StoreBase):
         resv = []
         t_hit = self.cache_tier.read_latency_s(hits, seg) if hits else 0.0
         w_hit = w_miss = 0.0
-        link = self.backing._link
-        if misses and self.cursor is not None and link is not None:
-            occ = self.backing.occupancy_s(misses)
-            w_miss, tr = link.reserve(self.cursor.now_s, occ,
-                                      nbytes=misses * seg,
-                                      wave=self.cursor.wave_tag(),
-                                      klass="engram")
-            self.note_class("engram", misses * seg, occ)
-            resv.append(tr)
-        miss_path = self.backing.latency_for_segments(misses) + w_miss
+        charge_misses = getattr(self.backing, "charge_misses", None)
+        if charge_misses is not None:
+            # fabric-backed: the miss wave fans out per shard (node links
+            # and switch), charged by the fabric itself
+            miss_path, w_miss, trs = charge_misses(misses)
+            resv.extend(trs)
+        else:
+            link = self.backing._link
+            if misses and self.cursor is not None and link is not None:
+                occ = self.backing.occupancy_s(misses)
+                w_miss, tr = link.reserve(self.cursor.now_s, occ,
+                                          nbytes=misses * seg,
+                                          wave=self.cursor.wave_tag(),
+                                          klass="engram")
+                self.note_class("engram", misses * seg, occ)
+                resv.append(tr)
+            miss_path = self.backing.latency_for_segments(misses) + w_miss
         if hits and self.cursor is not None and self._cache_link is not None:
             w_hit, tr = self._cache_link.reserve(
                 self.cursor.now_s, self.cache_tier.service_s(hits, seg),
@@ -468,17 +478,26 @@ def fetch_layers(fetchers, gids) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def make_store(ecfg: EngramConfig, tier: TierSpec | str | None,
-               store_cfg=None, clock=None):
-    """The store for a backing tier (``None`` -> ``LocalStore``), honouring
-    the store config's hot-row cache (``cache_rows > 0``: a
-    ``CachedStore`` with ``"lru"`` or ``"tinylfu"`` admission)."""
+               store_cfg=None, clock=None, fabric=None):
+    """The store for a backing tier (``None`` and no fabric ->
+    ``LocalStore``), honouring the store config: a chain spec
+    (``"CXL+SSD"``) builds a ``TierChain`` (its warm level sharded over
+    ``fabric`` when one is given); otherwise ``fabric`` (a ``PoolFabric``)
+    backs the store instead of a single-link ``TierStore``, and
+    ``cache_rows > 0`` puts a ``CachedStore`` with ``"lru"`` or
+    ``"tinylfu"`` admission in front."""
     scfg = store_cfg if store_cfg is not None else ecfg.store
     if tier is not None and is_chain(tier):
-        raise NotImplementedError("tier chains (pool='CXL+SSD'): ROADMAP "
-                                  "queue 1, item 6 (tierchain.py)")
-    if tier is None:
+        from .tierchain import TierChain
+        return TierChain(ecfg, tier, store_cfg=scfg, clock=clock,
+                         fabric=fabric)
+    if tier is None and fabric is None:
         return LocalStore(ecfg)
-    base = TierStore(ecfg, tier, clock=clock)
+    if fabric is not None:
+        from .fabric import FabricStore
+        base = FabricStore(ecfg, fabric)
+    else:
+        base = TierStore(ecfg, tier, clock=clock)
     if scfg is not None and scfg.cache_rows > 0:
         if scfg.admission not in ("lru", "tinylfu"):
             raise ValueError(f"unknown cache admission {scfg.admission!r}")

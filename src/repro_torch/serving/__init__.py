@@ -1,5 +1,7 @@
 from .engine import Engine, EngineStats, Request
 from .runtime import EngramRuntime, RequestHandle, TokenEvent
+from .slo import DEFAULT_SLOS, OverloadPolicy, SLOSpec
 
-__all__ = ["Engine", "EngineStats", "EngramRuntime", "Request",
-           "RequestHandle", "TokenEvent"]
+__all__ = ["DEFAULT_SLOS", "Engine", "EngineStats", "EngramRuntime",
+           "OverloadPolicy", "Request", "RequestHandle", "SLOSpec",
+           "TokenEvent"]

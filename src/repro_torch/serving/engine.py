@@ -42,17 +42,36 @@ wave's packed keys) and twice per speculative wave (the packed (B, m, L,
 T) block keys, then the fused (B, m+1) verdict [preds | n_accept]); a
 speculative wave whose every live slot's pipelined prediction survived
 packed its keys on the host (``hashing.host_block_keys``, bit-equal) and
-reads only the verdict. A prefix spill's snapshot is one more counted
-read. ``stats.d2h_pulls`` counts those reads. Nothing else on a wave
+reads only the verdict. A prefix spill's snapshot and a preemption's KV
+snapshot are one more counted read each, and the first decode wave after
+a restore reads its keys separately, as after an admission.
+``stats.d2h_pulls`` counts those reads. Nothing else on a wave
 synchronises (a draft-model proposer's one read per proposal is counted
 in its own ``reads``): host arrays go up through pinned, non-blocking
 copies (``device.upload``). The reads suspend PyTorch's CUDA sync debug
 mode (``device.sync_allowed``), so a caller can run waves under
 ``torch.cuda.set_sync_debug_mode`` and see any other sync.
 
-Not ported in this slice (each raises NotImplementedError naming its
-ROADMAP queue 1 item): SLO admission/preemption and KV spill, fabrics and
-tier chains, the fleet options of the router.
+Overload (``slo_policy``, an ``OverloadPolicy``): admission runs
+priority-first and deadline-ordered over the SLO classes, and a queued
+request may preempt a strictly lower-priority running slot. The victim's
+KV is copied to the host (``slots.extract_prefix``), parked in a
+``KVPagePool`` and booked on the pool link; a later admission pass claims
+a free slot for it and books the fetch, and the pass after that uploads
+the snapshot (``slots.restore_prefix``), writes it into the slot and
+resumes decode, bit-identically: a slot's decode row depends neither on
+the other rows nor on its index. ``idle_spill_tokens`` parks long-running
+slots the same way when the queue outgrows the free slots, with no SLO
+policy. A ``PoolArbiter`` meters that KV traffic against the Engram rows
+on the link and in the hot-row cache.
+
+Storage: ``pool="CXL+SSD"`` serves over a ``TierChain`` and
+``fabric``/``fabric_nodes`` over a ``PoolFabric``; both change only what
+a wave costs on the clock, not how its rows are gathered.
+
+Not ported in this slice: the router's fleet options (``store``,
+``clock``, ``name``, ``rid_start``, ``step_latency_hint_s``) raise
+NotImplementedError naming ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -76,21 +95,18 @@ from ..models.model import (build_chunk_prefill, build_decode_step,
                             build_prefill_step, init_decode_state,
                             init_params)
 from ..models.transformer import RunFlags, check_supported
+from ..pool.kvpool import KVPagePool, PoolArbiter
 from ..pool.scheduler import PrefetchScheduler
-from ..pool.store import TableFetcher, fetch_layers, make_store
+from ..pool.store import (TableFetcher, fetch_layers, make_store,
+                          segment_bytes)
 from ..pool.tiers import pool_tier
 from .clock import VirtualClock
+from .slo import OverloadPolicy
 from .slots import (extract_prefix, gate_state, restore_prefix,
                     select_slots, update_slots)
 
-# Engine options of the reference that later slices port.
+# Engine options of the reference that a later slice ports.
 _UNPORTED = {
-    "slo_policy": "5 (overload and KV spill)",
-    "kv_pool": "5 (overload and KV spill)",
-    "arbiter": "5 (overload and KV spill)",
-    "idle_spill_tokens": "5 (overload and KV spill)",
-    "fabric": "6 (tierchain.py and fabric.py)",
-    "fabric_nodes": "6 (tierchain.py and fabric.py)",
     "store": "7 (router, api and workload)",
     "clock": "7 (router, api and workload)",
     "name": "7 (router, api and workload)",
@@ -108,7 +124,14 @@ class Request:
     submitted_s: float = 0.0
     first_token_s: float = 0.0
     done_s: float = 0.0
-    status: str = "queued"     # queued | running | done | cancelled
+    status: str = "queued"     # queued | running | preempted | done |
+    #                            cancelled | deferred | shed
+    klass: str = "uniform"           # workload traffic class
+    slo: str = "batch"               # SLO class (serving/slo.py)
+    preemptions: int = 0             # times this request was preempted
+    # decoded-token count at the last idle spill: a restored slot must
+    # decode another ``idle_spill_tokens`` past it before it may park again
+    spill_mark: int = 0
     # virtual-clock lifecycle stamps (serving/clock.py)
     submitted_v: float = 0.0
     first_token_v: float = 0.0
@@ -134,6 +157,26 @@ class _PrefillJob:
     chain: list = dataclasses.field(default_factory=list)  # block chain keys
     resv: list = dataclasses.field(default_factory=list)   # queued bookings
     started: bool = False
+
+
+@dataclasses.dataclass
+class _SpilledReq:
+    """One preempted request's engine-side record (the snapshot is parked
+    in the ``KVPagePool`` too). ``phase="spilled"``: the request holds no
+    slot and its spill's write-behind bookings sit in ``resv`` (refunded
+    newest-first on cancel); a restore claims a free slot
+    (``phase="restoring"``, the fetch booked into ``resv``) and the next
+    admission pass completes it: refund and re-price at that wave's
+    position, write the snapshot into the slot, go live."""
+    req: Request
+    nbytes: int                      # snapshot bytes (the spill transfer)
+    pages: tuple                     # kv_page_keys over the decoded stream
+    n_tokens: int                    # KV positions the snapshot carries
+    last_token: int                  # the next decode input
+    snapshot: object = None          # extract_prefix tree of CPU tensors
+    slot: int = -1                   # claimed slot (phase "restoring")
+    phase: str = "spilled"           # spilled | restoring
+    resv: list = dataclasses.field(default_factory=list)   # queued bookings
 
 
 def _rate(num: float, den: float) -> float:
@@ -169,9 +212,14 @@ class EngineStats:
     accepted_tokens: int = 0         # drafts that survived verification
     pipelined_hits: int = 0          # slot-waves served by a pipelined block
     pipelined_misses: int = 0        # predictions invalidated by verification
-    # proposer quality per workload class: {klass: {proposed, accepted}};
-    # the port has no request classes yet, so every slot is "uniform"
+    # proposer quality per workload class: {klass: {proposed, accepted}}
     spec_by_class: dict = dataclasses.field(default_factory=dict)
+    preemptions: int = 0             # running slots preempted under pressure
+    resumes: int = 0                 # preempted requests restored + resumed
+    kv_spill_bytes: int = 0          # KV bytes paged out to the pool tier
+    kv_restore_bytes: int = 0        # KV bytes fetched back on resume
+    kv_spill_pages: int = 0          # fixed-size pages spilled
+    idle_spills: int = 0             # long-context spills (no preemption)
 
     @property
     def tokens_per_s(self) -> float:
@@ -230,6 +278,11 @@ class Engine:
                  emu_prefill_scaled: bool = False,
                  prefill_chunk: Optional[int] = None, prefix_cache=None,
                  spec: Optional[SpecConfig] = None, proposer=None,
+                 fabric=None, fabric_nodes: Optional[int] = None,
+                 slo_policy: Optional[OverloadPolicy] = None,
+                 kv_pool: Optional[KVPagePool] = None,
+                 arbiter: Optional[PoolArbiter] = None,
+                 idle_spill_tokens: Optional[int] = None,
                  device=None, **unported):
         """``device``: where the model runs — the CUDA device unless the
         caller passes ``device="cpu"``; with no CUDA device and no
@@ -251,7 +304,22 @@ class Engine:
         ``spec``: speculative decoding (default ``cfg.spec``; see the
         module docstring); it refuses ``prefill_chunk``, since the verify
         pass is not gated. ``proposer``: a draft proposer to use instead of
-        the one ``spec.proposer`` names (tests and benches)."""
+        the one ``spec.proposer`` names (tests and benches).
+
+        ``fabric``/``fabric_nodes``: back the pool with a sharded
+        ``pool.fabric.PoolFabric``, a built one or a node count for the
+        engine to build on its clock (needs a pool tier; a chain spec
+        shards its warm level).
+
+        ``slo_policy``: an ``OverloadPolicy`` (see the module docstring);
+        with ``policy.preempt`` the KV of preempted slots parks in
+        ``kv_pool`` (default: a ``KVPagePool`` of the policy's budget).
+        ``idle_spill_tokens``: park a running slot once it has decoded
+        this many tokens since admission or its last spill, whenever the
+        queue outgrows the free slots (default pool 1 GiB, 8-token pages).
+        Neither composes with ``spec``, and idle spill needs monolithic
+        admission. ``arbiter``: a ``PoolArbiter`` that books KV transfers
+        page by page and caps their hot-row cache occupancy."""
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -284,11 +352,20 @@ class Engine:
         self.store = None
         self.scheduler = None
         self._fetchers = None
+        self.fabric = fabric
         if self.has_engram:
             # link contention only at the emulated operating point (see the
             # reference engine: real-mode cursors mirror host wall time)
             link_clock = self.clock if emulate_step_s is not None else None
-            self.store = make_store(cfg.engram, pool, clock=link_clock)
+            if fabric is None and fabric_nodes:
+                if pool is None:
+                    raise ValueError("fabric_nodes needs a pooled tier")
+                from ..pool.fabric import PoolFabric
+                # a chain spec shards its warm level over the fabric
+                self.fabric = PoolFabric(cfg.engram, int(fabric_nodes),
+                                         tier=self.pool, clock=link_clock)
+            self.store = make_store(cfg.engram, pool, clock=link_clock,
+                                    fabric=self.fabric)
             self.store.bind_cursor(self.cursor)
             self.scheduler = PrefetchScheduler(self.store, cfg.engram,
                                                layers=cfg.engram_layers(),
@@ -358,21 +435,60 @@ class Engine:
         self._next_keys: Optional[np.ndarray] = None  # (B,1,L,T) prefetched
         self._prompt_buf = np.zeros((max_batch, prompt_bucket), np.int64)
 
+        # overload: SLO admission and preemption (serving/slo.py)
+        self.slo_policy = slo_policy
+        self.arbiter = arbiter
+        self.kv_pool = kv_pool
+        if slo_policy is not None and slo_policy.preempt:
+            if self.spec is not None:
+                raise ValueError("preemption does not compose with "
+                                 "speculative decoding (a preempted slot's "
+                                 "pipelined drafts have no rollback)")
+            if self.kv_pool is None:
+                self.kv_pool = KVPagePool(slo_policy.spill_pool_bytes,
+                                          slo_policy.spill_page_tokens)
+        # long-context idle spill (no preemption)
+        self.idle_spill_tokens = int(idle_spill_tokens) \
+            if idle_spill_tokens else None
+        if self.idle_spill_tokens is not None:
+            if self.spec is not None:
+                raise ValueError("idle spill does not compose with "
+                                 "speculative decoding (a parked slot's "
+                                 "pipelined drafts have no rollback)")
+            if self.prefill_chunk is not None:
+                raise ValueError("idle spill rides the monolithic admission "
+                                 "wave")
+            if self.kv_pool is None:
+                self.kv_pool = KVPagePool(1 << 30, 8)
+        # rid -> _SpilledReq: preempted requests parked in the KV pool
+        self._spilled: dict[int, _SpilledReq] = {}
+
     # ------------------------------------------------------------ public API
 
-    def submit(self, prompt: list, max_new: int = 16) -> int:
-        """Queue a request; returns its id."""
+    def submit(self, prompt: list, max_new: int = 16,
+               arrival_s: Optional[float] = None,
+               klass: str = "uniform", slo: str = "batch") -> int:
+        """Queue a request; returns its id. ``arrival_s``: its arrival on
+        the virtual clock (an idle replica fast-forwards to it, a busy one
+        queues it from then). ``klass``: its workload class; ``slo``: its
+        SLO class, which drives admission and preemption under an
+        ``OverloadPolicy``."""
         self._rid += 1
+        if arrival_s is not None:
+            self.cursor.advance_to(arrival_s)
         req = Request(self._rid, list(prompt), max_new,
                       submitted_s=time.perf_counter(),
-                      submitted_v=self.cursor.now_s)
+                      klass=klass or "uniform", slo=slo or "batch",
+                      submitted_v=arrival_s if arrival_s is not None
+                      else self.cursor.now_s)
         self.queue.append(req)
         return self._rid
 
     @property
     def busy(self) -> bool:
-        """Anything queued or mid-flight?"""
+        """Anything queued, mid-flight or parked?"""
         return (bool(self.queue) or bool(self._prefill_jobs)
+                or bool(self._spilled)
                 or any(s is not None for s in self.slots))
 
     def runtime(self) -> "EngramRuntime":
@@ -387,9 +503,10 @@ class Engine:
         return self.runtime().drain()
 
     def cancel(self, rid: int) -> bool:
-        """Drop a queued request, a prefill job or a running slot (the next
-        admission's scatter-write over the slot is the rollback). False if
-        the rid already finished or was never submitted."""
+        """Drop a queued request, a prefill job, a running slot (the next
+        admission's scatter-write over the slot is the rollback) or a
+        parked request, mid-spill or mid-restore. False if the rid already
+        finished or was never submitted."""
         for req in self.queue:
             if req.rid == rid:
                 self.queue.remove(req)
@@ -411,6 +528,20 @@ class Engine:
                     self.proposer.end(slot)
                 self._mark_cancelled(req)
                 return True
+        entry = self._spilled.get(rid)
+        if entry is not None:
+            # mid-spill: refund the write-behind spill bookings; mid-restore:
+            # refund the fetch and release the claimed slot. Newest-first
+            # either way (Link.refund rolls back only a link's tail)
+            for tr in entry.resv[::-1]:
+                self.clock.refund(tr)
+            entry.resv.clear()
+            if entry.phase == "restoring":
+                self._free.append(entry.slot)
+            self.kv_pool.free(rid)
+            del self._spilled[rid]
+            self._mark_cancelled(entry.req)
+            return True
         return False
 
     def _drop_pipelined(self, slot: int) -> None:
@@ -504,11 +635,38 @@ class Engine:
         if self.prefill_chunk is not None:
             return self._admit_chunked()
         events = []
-        if not (self._free and self.queue):
-            return events
         fills = []
-        while self._free and self.queue:
-            fills.append((self._free.popleft(), self.queue.popleft()))
+        if self.slo_policy is not None:
+            # restores complete and preemption may free slots even with an
+            # empty queue, so this runs every pass
+            for req in self._overload_admit():
+                self.queue.remove(req)
+                fills.append((self._free.popleft(), req))
+            if not fills:
+                return events
+        elif self.idle_spill_tokens is not None:
+            # complete last pass's restores, park eligible long-running
+            # slots when the queue outgrows the free slots, fill fresh
+            # admits first, and let parked requests claim only the slots
+            # left (else park and resume would ping-pong one slot)
+            self._complete_restores()
+            self._idle_spill_for_queue()
+            while self._free and self.queue:
+                fills.append((self._free.popleft(), self.queue.popleft()))
+            parked = sorted((e for e in self._spilled.values()
+                             if e.phase == "spilled"),
+                            key=lambda e: e.req.rid)
+            for entry in parked:
+                if not self._free:
+                    break
+                self._begin_restore(entry, self._free.popleft())
+            if not fills:
+                return events
+        else:
+            if not (self._free and self.queue):
+                return events
+            while self._free and self.queue:
+                fills.append((self._free.popleft(), self.queue.popleft()))
         groups: dict[int, list] = {}
         for slot, req in fills:
             S = _bucket(len(req.prompt), self.prompt_bucket)
@@ -580,7 +738,13 @@ class Engine:
         """Chunked admission: each queued request claims a free slot as a
         ``_PrefillJob``; no compute happens here. A job's first token is
         emitted by the chunk wave that finishes its prompt, so this returns
-        no events."""
+        no events. Under an ``OverloadPolicy`` the jobs are the requests
+        ``_overload_admit`` chose."""
+        if self.slo_policy is not None:
+            for req in self._overload_admit():
+                self.queue.remove(req)
+                self._claim_job(req, self._free.popleft())
+            return []
         while self._free and self.queue:
             self._claim_job(self.queue.popleft(), self._free.popleft())
         return []
@@ -1065,7 +1229,7 @@ class Engine:
             self.stats.proposed_tokens += k
             self.stats.accepted_tokens += a
             by = self.stats.spec_by_class.setdefault(
-                "uniform", {"proposed": 0, "accepted": 0})
+                req.klass or "uniform", {"proposed": 0, "accepted": 0})
             by["proposed"] += k
             by["accepted"] += a
             self.proposer.observe(i, req.prompt + req.out)
@@ -1088,6 +1252,245 @@ class Engine:
                 self.proposer.end(slot)
             return True
         return False
+
+    # ------------------------------------- preemption + KV spill (slo.py)
+
+    def preempt(self, slot: int) -> bool:
+        """Preempt a running slot: copy its KV at the decoded position to
+        the host (``slots.extract_prefix``, the spill's one counted read),
+        park the snapshot in the KV pool, book the spill write-behind on
+        the pool link (refunded newest-first by a mid-spill ``cancel``)
+        and free the slot. Returns False, and leaves the victim running,
+        when the pool refuses the spill at capacity (backpressure)."""
+        req = self.slots[slot]
+        if (req is None or req.status != "running"
+                or self.kv_pool is None or not req.out):
+            return False
+        # KV-valid length: the prompt plus one position per decode wave,
+        # except the newest token (out[-1]), the next wave's input
+        pos = len(req.prompt) + len(req.out) - 1
+        with sync_allowed(self.device):
+            snap, nbytes = extract_prefix(self.state, slot, pos)
+        self.stats.d2h_pulls += 1          # the spill's host snapshot
+        stream = (req.prompt + req.out)[:pos]
+        pages = self.kv_pool.spill(req.rid, stream, snap, pos, int(nbytes))
+        if pages is None:
+            return False
+        entry = _SpilledReq(req=req, nbytes=int(nbytes), pages=pages,
+                            n_tokens=pos, last_token=int(req.out[-1]),
+                            snapshot=snap)
+        entry.resv = self._book_kv(entry.nbytes, len(pages), req.rid)
+        self._occupy_kv_cache(entry.nbytes, pages)
+        self._note_kv(entry.nbytes)
+        self.slots[slot] = None
+        self._free.append(slot)
+        self._drop_pipelined(slot)
+        if self.proposer is not None:
+            self.proposer.end(slot)
+        req.status = "preempted"
+        req.preemptions += 1
+        self._spilled[req.rid] = entry
+        self.stats.preemptions += 1
+        self.stats.kv_spill_bytes += entry.nbytes
+        self.stats.kv_spill_pages += len(pages)
+        return True
+
+    def _book_kv(self, nbytes: int, n_pages: int, rid: int) -> list:
+        """Book one KV spill or restore transfer on the pool link: with a
+        page-granular arbiter one reservation per page under the shared
+        ``"kv"`` flow owner (Engram waves fair-share past the spill),
+        else one untagged booking (serial FIFO). Returns the transfers
+        (refundable newest-first); [] when clock-unbound."""
+        link = self._pool_link()
+        if link is None or not nbytes or not link.bandwidth_Bps:
+            return []
+        resv = []
+        if self.arbiter is not None and self.arbiter.paged_link and n_pages:
+            base, rem = divmod(int(nbytes), n_pages)
+            for p in range(n_pages):
+                nb = base + (rem if p == n_pages - 1 else 0)
+                if nb <= 0:
+                    continue
+                _, tr = link.reserve(self.cursor.now_s,
+                                     float(nb) / link.bandwidth_Bps,
+                                     nbytes=nb, wave=("kv", rid, p),
+                                     klass="kv")
+                resv.append(tr)
+        else:
+            _, tr = link.reserve(self.cursor.now_s,
+                                 float(nbytes) / link.bandwidth_Bps,
+                                 nbytes=int(nbytes), klass="kv")
+            resv.append(tr)
+        return resv
+
+    def _note_kv(self, nbytes: int) -> None:
+        """Charge one logical KV transfer (a spill, or a completed restore)
+        to the store's per-class ledger, so ``class_bytes["kv"] ==
+        kv_spill_bytes + kv_restore_bytes`` (claim-time bookings are on
+        the link only)."""
+        if self.store is None:
+            return
+        link = self._pool_link()
+        busy = (float(nbytes) / link.bandwidth_Bps
+                if link is not None and link.bandwidth_Bps else 0.0)
+        self.store.note_class("kv", int(nbytes), busy)
+
+    def _occupy_kv_cache(self, nbytes: int, pages: tuple) -> None:
+        """Landed KV pages pressure the hot-row cache: without an arbiter
+        they may take its whole capacity, with one at most
+        ``kv_cache_share`` of it. Their synthetic keys carry bit 62, so
+        they never collide with packed segment keys."""
+        cache = getattr(self.store, "cache", None)
+        if cache is None or not pages:
+            return
+        rows = max(1, int(nbytes) // max(1, segment_bytes(self.cfg.engram)))
+        cap = int(cache.capacity_rows)
+        if self.arbiter is not None:
+            rows = self.arbiter.cache_occupancy_rows(rows, cap)
+        else:
+            rows = min(rows, cap)
+        if rows <= 0:
+            return
+        base = (int(pages[0]) & 0x3FFFFFFF) << 30
+        keys = (np.arange(rows, dtype=np.int64) + base) | np.int64(1 << 62)
+        cache.occupy(keys)
+
+    def _overload_admit(self) -> list:
+        """SLO admission: complete last pass's restores, preempt strictly
+        lower-priority running slots for the queue, then fill the free
+        slots priority-first and deadline-ordered from the parked and the
+        queued requests (a resume outranks a fresh admit of the same
+        priority: it holds pooled capacity and has paid its prefill).
+        Returns the queued requests to admit (still in ``self.queue``)."""
+        pol = self.slo_policy
+        self._complete_restores()
+        if pol.preempt and self.kv_pool is not None:
+            self._preempt_for_queue()
+        cands = []
+        for req in self.queue:
+            cands.append((-pol.priority(req.slo), 1, pol.deadline_v(req),
+                          req.rid, req))
+        for e in self._spilled.values():
+            if e.phase == "spilled":
+                cands.append((-pol.priority(e.req.slo), 0,
+                              pol.deadline_v(e.req), e.req.rid, e))
+        cands.sort(key=lambda c: c[:4])
+        chosen = []
+        budget = len(self._free)
+        for c in cands:
+            if budget <= 0:
+                break
+            if isinstance(c[4], _SpilledReq):
+                self._begin_restore(c[4], self._free.popleft())
+            else:
+                chosen.append(c[4])
+            budget -= 1
+        return chosen
+
+    def _idle_spill_for_queue(self) -> None:
+        """Long-context spill without priority preemption: when the queue
+        outgrows the free slots, park running slots that have decoded
+        ``idle_spill_tokens`` since admission or their last spill, longest
+        resident context first, sparing near-done requests.
+        ``spill_mark`` ratchets at each park."""
+        need = len(self.queue) - len(self._free)
+        if need <= 0:
+            return
+        cands = []
+        for slot, req in enumerate(self.slots):
+            if req is None or req.status != "running":
+                continue
+            if len(req.out) - req.spill_mark < self.idle_spill_tokens:
+                continue
+            if req.max_new - len(req.out) <= 1:      # about to finish
+                continue
+            cands.append((-(len(req.prompt) + len(req.out)), slot, req))
+        cands.sort()
+        for _, slot, req in cands[:need]:
+            mark = len(req.out)
+            if self.preempt(slot):                   # may refuse (pool full)
+                req.spill_mark = mark
+                self.stats.idle_spills += 1
+
+    def _preempt_for_queue(self) -> None:
+        """Free slots for queued requests that strictly outrank a running
+        victim: lowest priority first, then most remaining decode work,
+        then the lowest slot. A freed slot is earmarked for the request
+        that forced it, so the spare count is unchanged by a success."""
+        pol = self.slo_policy
+        waiting = sorted(self.queue,
+                         key=lambda r: (-pol.priority(r.slo),
+                                        pol.deadline_v(r), r.rid))
+        spare = len(self._free)
+        for req in waiting:
+            if spare > 0:
+                spare -= 1
+                continue
+            prio = pol.priority(req.slo)
+            victim, vkey = -1, None
+            for slot, run in enumerate(self.slots):
+                if run is None or run.status != "running":
+                    continue
+                vprio = pol.priority(run.slo)
+                if vprio >= prio:
+                    continue
+                key = (vprio, -(run.max_new - len(run.out)), slot)
+                if vkey is None or key < vkey:
+                    victim, vkey = slot, key
+            if victim < 0 or not self.preempt(victim):
+                break               # no eligible victim / pool refused
+
+    def _begin_restore(self, entry: _SpilledReq, slot: int) -> None:
+        """Restore phase 1: claim the free slot and book the KV fetch (the
+        spill's bookings are committed: only the fetch stays refundable).
+        The next admission pass completes it."""
+        entry.slot = slot
+        entry.phase = "restoring"
+        entry.resv = self._book_kv(entry.nbytes, len(entry.pages),
+                                   entry.req.rid)
+
+    def _complete_restores(self) -> None:
+        """Restore phase 2, for each slot claimed last pass: refund the
+        claim-time fetch newest-first and re-price it at this wave's
+        position, stall to its completion, upload the snapshot and write
+        it into the slot (``restore_prefix`` + ``update_slots``, no host
+        sync), set the slot's next input token and resume decode."""
+        entries = [e for e in self._spilled.values()
+                   if e.phase == "restoring"]
+        if not entries:
+            return
+        entries.sort(key=lambda e: e.req.rid)
+        for entry in entries[::-1]:
+            for tr in entry.resv[::-1]:
+                self.clock.refund(tr)
+            entry.resv.clear()
+        for entry in entries:
+            resv = self._book_kv(entry.nbytes, len(entry.pages),
+                                 entry.req.rid)
+            end = max((tr.end_s for tr in resv), default=self.cursor.now_s)
+            if end > self.cursor.now_s:
+                stall = end - self.cursor.now_s
+                self.stats.stall_s += stall
+                if self.emulate_step_s is not None:
+                    self.stats.emu_time_s += stall
+                self.cursor.advance(stall)
+            req = entry.req
+            update_slots(self.state, restore_prefix(
+                entry.snapshot, self.max_len, self.device), [entry.slot])
+            # fill_, not item assignment (which copies from the host, a sync)
+            self.tokens[entry.slot].fill_(entry.last_token)
+            self._tokens_host[entry.slot] = entry.last_token
+            self.slots[entry.slot] = req
+            req.status = "running"
+            if self.proposer is not None:
+                self.proposer.begin(entry.slot, req.prompt + req.out)
+            self._note_kv(entry.nbytes)
+            self.kv_pool.free(req.rid, restored=True)
+            del self._spilled[req.rid]
+            self.stats.resumes += 1
+            self.stats.kv_restore_bytes += entry.nbytes
+        # the prefetched decode keys predate the restored slots going live
+        self._next_keys = None
 
     # ------------------------------------------------------- pool emulation
 

@@ -137,13 +137,22 @@ class EngramRuntime:
 
     # ----------------------------------------------------------- lifecycle
 
-    def submit(self, prompt, max_new: int = 16) -> RequestHandle:
+    def submit(self, prompt, max_new: int = 16,
+               arrival_s=None, klass: str = "uniform",
+               slo: str = "batch") -> RequestHandle:
         """Queue a request; returns its lifecycle handle. Accepts a token
-        list or a pre-built `Request` (rid is (re)assigned either way)."""
+        list or a pre-built `Request` (rid is (re)assigned either way; its
+        own ``klass`` and ``slo`` are kept). ``arrival_s``/``klass``/``slo``:
+        virtual arrival time, workload class and SLO class (see
+        `Engine.submit`)."""
         if isinstance(prompt, Request):
-            rid = self.engine.submit(prompt.prompt, prompt.max_new)
+            rid = self.engine.submit(prompt.prompt, prompt.max_new,
+                                     arrival_s=arrival_s, klass=prompt.klass,
+                                     slo=prompt.slo)
         else:
-            rid = self.engine.submit(list(prompt), max_new)
+            rid = self.engine.submit(list(prompt), max_new,
+                                     arrival_s=arrival_s, klass=klass,
+                                     slo=slo)
         req = self.engine.queue[-1]
         assert req.rid == rid
         h = RequestHandle(self, req)

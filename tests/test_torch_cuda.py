@@ -235,3 +235,129 @@ def test_spec_engine_card_equals_cpu(pipeline):
     assert card[0] == plain[0]
     assert card[1][1] > 0                     # some drafts accepted
     assert cpu[3] == 0 and card[3] == card[1][0]   # K1 once per verify wave
+
+
+def _links(clock):
+    """Clock ledgers with per-object link names (``cache:<id>``) cut."""
+    st = clock.stats()
+    links = sorted((dict(v, name=n.split(":")[0]) for n, v in
+                    st["links"].items()), key=lambda d: d["name"])
+    return dict(st, links=links)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["preempt", "idle_spill"])
+def test_overload_engine_card_equals_cpu(mode):
+    """Reduced engram-27b (f32), pool CXL at the emulated operating point
+    with a TinyLFU hot-row cache: preemption under an OverloadPolicy and a
+    PoolArbiter (4 batch requests, 2 interactive ones after decode wave
+    3), and idle spill (6 requests into 3 slots). The card parks the KV
+    of a running slot on the host and restores it, perhaps into another
+    slot, and emits the CPU's streams, which are the runs' without
+    overload options, with the same counters, KVPoolStats, StoreStats,
+    cache and clock; K1 launches once per decode wave."""
+    import dataclasses
+
+    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.pool import PoolArbiter
+    from repro_torch.serving import Engine, OverloadPolicy
+    dev = _card()
+    cfg = engram_27b.reduced()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=2048, admission="tinylfu")))
+    params = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params)
+    rng = np.random.RandomState(9)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
+               for n in (6, 11, 4, 9, 7, 5)]
+    if mode == "preempt":
+        kw = dict(max_batch=4, slo_policy=OverloadPolicy(),
+                  arbiter=PoolArbiter(kv_cache_share=0.25))
+    else:
+        kw = dict(max_batch=3, idle_spill_tokens=3)
+    seen = []
+    for device, p, over in (("cpu", params, True), (dev, params_dev, True),
+                            (dev, params_dev, False)):
+        eng = Engine(ccfg, params=p, pool="CXL", max_len=64,
+                     prompt_bucket=8, emulate_step_s=5e-5, device=device,
+                     **(kw if over else dict(max_batch=kw["max_batch"])))
+        rt = eng.runtime()
+        before = gather_rows.launches
+        if mode == "preempt":
+            hs = [rt.submit(q, max_new=12) for q in prompts[:4]]
+            while eng.stats.decode_steps < 3:
+                rt.step()
+            hs += [rt.submit(q, max_new=6, slo="interactive")
+                   for q in prompts[4:]]
+        else:
+            hs = [rt.submit(q, max_new=10) for q in prompts]
+        rt.drain()
+        st = eng.stats
+        seen.append(([h.tokens for h in hs],
+                     (st.preemptions, st.resumes, st.idle_spills,
+                      st.kv_spill_bytes, st.kv_restore_bytes, st.d2h_pulls),
+                     dataclasses.asdict(eng.kv_pool.stats()) if over
+                     else None,
+                     dataclasses.asdict(eng.store.stats()),
+                     (eng.store.cache.evictions, eng.store.cache.total_hits),
+                     _links(eng.clock),
+                     (gather_rows.launches - before, st.decode_steps)))
+    cpu, card, plain = seen
+    assert card[:6] == cpu[:6]
+    assert card[0] == plain[0]
+    assert card[1][1] > 0 and card[1][3] == card[1][4] > 0
+    assert cpu[6][0] == 0 and card[6][0] == card[6][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool,nodes", [("CXL+SSD", None), ("CXL", 2)])
+def test_tiers_engine_card_equals_cpu(pool, nodes):
+    """Reduced engram-27b (f32) at the emulated operating point over a
+    CXL+SSD chain and over a 2-node fabric that loses node 1 after decode
+    wave 2: the card emits the CPU's streams, equal to the plain CXL
+    engine's, with the same StoreStats, fabric stats and clock."""
+    import dataclasses
+
+    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Engine
+    dev = _card()
+    cfg = engram_27b.reduced()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=64, warm_rows=512,
+                                      aging_half_life_s=2e-4)))
+    params = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params)
+    rng = np.random.RandomState(10)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
+               for n in (5, 12, 8, 3)]
+    kw = dict(max_batch=2, max_len=64, prompt_bucket=8, emulate_step_s=5e-5,
+              fabric_nodes=nodes)
+    seen = []
+    for device, p, tiered in (("cpu", params, True),
+                              (dev, params_dev, True),
+                              (dev, params_dev, False)):
+        eng = Engine(ccfg, params=p, pool=pool if tiered else "CXL",
+                     device=device, **(kw if tiered else dict(
+                         kw, fabric_nodes=None)))
+        rt = eng.runtime()
+        hs = [rt.submit(q, max_new=8) for q in prompts]
+        while eng.busy:
+            if eng.fabric is not None and eng.stats.decode_steps == 2 \
+                    and eng.fabric.nodes[1].alive:
+                eng.fabric.kill(1)
+            rt.step()
+        seen.append(([h.tokens for h in hs],
+                     dataclasses.asdict(eng.store.stats()),
+                     eng.fabric.stats() if eng.fabric is not None else None,
+                     _links(eng.clock)))
+    cpu, card, plain = seen
+    assert card == cpu
+    assert card[0] == plain[0]
+    if nodes:
+        assert card[2]["rescues"]
+    else:
+        assert card[1]["cold_misses"] > 0

@@ -31,7 +31,7 @@ from repro_torch.kernels.engram_gather import gather_rows  # noqa: E402
 from repro_torch.kernels.gated_fuse import engram_gated_fuse  # noqa: E402
 from repro_torch.models.params import from_jax  # noqa: E402
 from repro_torch.pool.store import TableFetcher, fetch_layers  # noqa: E402
-from repro_torch.serving import Engine  # noqa: E402
+from repro_torch.serving import Engine, OverloadPolicy  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 
 torch.set_num_threads(2)
@@ -222,28 +222,36 @@ def test_engine_defaults_to_the_card(setup):
 def test_unported_options_raise(setup):
     cfg, _, _, params = setup
     kw = dict(params=params, device="cpu")
-    for bad in (dict(idle_spill_tokens=64), dict(slo_policy=object()),
-                dict(fabric_nodes=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, **bad, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, pool="CXL+SSD", **kw)
-    # ported since: chunked prefill, the hot-row cache and speculation
+    # ported since: chunked prefill, the hot-row cache, speculation,
+    # overload and KV spill, tier chains and the fabric
     assert Engine(cfg, prefill_chunk=4, **kw).prefill_chunk == 4
     assert Engine(cfg, spec=SpecConfig(), **kw).spec == SpecConfig()
     cached = dataclasses.replace(cfg, engram=dataclasses.replace(
         cfg.engram, store=StoreConfig(cache_rows=64)))
     assert Engine(cached, pool="CXL", **kw).store.stats().cache_rows == 64
+    assert Engine(cfg, idle_spill_tokens=64, **kw).idle_spill_tokens == 64
+    assert Engine(cfg, slo_policy=OverloadPolicy(), **kw).kv_pool is not None
+    assert Engine(cfg, pool="CXL", fabric_nodes=2, **kw).fabric.n_nodes == 2
+    chain = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(warm_rows=64)))
+    assert Engine(chain, pool="CXL+SSD", **kw).store.stats().tier == \
+        "CXL+SSD"
     with pytest.raises(TypeError):
         Engine(cfg, no_such_option=1, **kw)
     # the reference's fleet surface waits for the router
+    assert set(engine_mod._UNPORTED) == {"store", "clock", "name",
+                                         "rid_start", "step_latency_hint_s"}
     for bad in (dict(store=object()), dict(clock=object()), dict(name="r0"),
                 dict(rid_start=5), dict(step_latency_hint_s=0.01)):
         with pytest.raises(NotImplementedError, match="item 7"):
             Engine(cfg, **bad, **kw)
     eng = Engine(cfg, max_batch=1, max_len=64, prompt_bucket=8, **kw)
-    with pytest.raises(TypeError):
-        eng.submit([1, 2], max_new=2, arrival_s=1.0)
+    eng.submit([1, 2], max_new=2, arrival_s=1.0, klass="zipf",
+               slo="interactive")
+    req = eng.queue[-1]
+    assert (req.submitted_v, req.klass, req.slo) == (1.0, "zipf",
+                                                     "interactive")
+    assert eng.cursor.now_s == 1.0
 
 
 def test_port_imports_nothing_of_jax():
@@ -261,6 +269,9 @@ def test_port_imports_nothing_of_jax():
         "assert 'repro_torch.pool.cache' in sys.modules\n"
         "assert 'repro_torch.spec.proposer' in sys.modules\n"
         "assert 'repro_torch.spec.verifier' in sys.modules\n"
+        "for m in ('pool.cost', 'pool.kvpool', 'pool.tierchain', "
+        "'pool.fabric', 'serving.slo'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
