@@ -16,8 +16,9 @@ result lines are printed):
               512 rows); and on small tables whose rows are not 16-byte
               aligned; timed beside index_select.
   4. K2       gated_fuse against its plain version at d = 5120, F = 2560
-              in bf16 (T = 8, 256 and 2112: decode, an 8 x 32 prefill
-              group, a 2100-token prompt; every timed call with its own
+              in bf16 (T = 8, 32, 64, 96, 128, 256 and 2112: decode,
+              prefill groups of 1 to 4 and of 8 x 32 tokens, a
+              2100-token prompt; every timed call with its own
               cold weights; the split plan printed) and on small ragged
               shapes in bf16 and float32; timed.
   5. agree    the reduced engram-27b config served on the card (kernels)
@@ -77,12 +78,28 @@ result lines are printed):
               tokens, K1 once per decode wave, one read per steady wave;
               the chain's front + warm + cold rows add up to each wave's
               segments; the fabric's rescue window.
+ 13. fleet    two replicas over phase 7's parameter set and one f32 head:
+              (a) a ``Router`` with one shared TinyLFU hot-row cache of
+              2**20 rows, then private caches, each prompt served on one
+              replica and then on the other; (b) ``serve()`` of a poisson
+              ``Workload`` over ``least_loaded`` replicas at the emulated
+              point, each replica's stall replayed with the fleet's
+              traces; (c) Table 2, ``serve()`` on DRAM, CXL and RDMA at the
+              emulated point. Phase 7's tokens, K1 once per decode wave of
+              every replica, one read per busy replica per steady wave,
+              the shared cache out-hitting the private ones; the drive's
+              host-clock time beside the merged (parallel-hardware model)
+              tokens/s; (d) the top-2 logit margin where a prompt admitted
+              in a group of 4 rows leaves phase 7's stream, with K2 and
+              with its plain version in its place. Phase 6 also holds a
+              two-replica fleet card = CPU.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 12); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 13); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -287,8 +304,9 @@ def check_k2(cfg, dev) -> dict:
                 (mk(F, d) / math.sqrt(F)).to(dtype))
 
     result = {}
-    # decode batch; 8 x 32-token prefill group; a 2100-token prompt
-    for n_t in (8, 256, 2112):
+    # decode batch; prefill groups of 1 to 4 x 32 tokens (the fleet's
+    # admission groups); 8 x 32-token prefill group; a 2100-token prompt
+    for n_t in (8, 32, 64, 96, 128, 256, 2112):
         # each timed call has its own weights (78.6 MB, beyond the 50 MB
         # L2): on the main path K2's weights are never warm
         sets = [operands(n_t, d, F, torch.bfloat16) for _ in range(10)]
@@ -632,6 +650,64 @@ def check_agreement_tiers(dev) -> None:
           f"after wave 2 ({len(card['fabric_stats']['rescues'])} shard "
           f"rescued); StoreStats, fabric stats and clock identical on card "
           f"and CPU, streams equal to the run without tiers")
+
+
+def check_agreement_fleet(dev) -> None:
+    """``serve()`` of a two-replica fleet on the reduced config at the
+    emulated operating point, on the card and on the CPU: one TinyLFU
+    ``SharedCache`` of 2048 rows, ``least_loaded`` with re-dispatch, 8
+    poisson arrivals (qps 1e5) of 2 to 5 new tokens into 2 slots per
+    replica. Streams, rids, RouterStats, SharedCacheStats, each replica's
+    StoreStats, the link ledgers and the clock must be identical, and at
+    least one request must migrate."""
+    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Workload, serve
+    cfg = engram_27b.reduced()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=2048, admission="tinylfu")))
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    wl = Workload(requests=8, max_new=2, max_new_jitter=3, prompt_pool=3,
+                  arrival="poisson", qps=1e5, seed=1)
+    lens = [s_.max_new for s_ in wl.build(cfg.vocab_size)]
+    seen = []
+    for device, params in (("cpu", params_cpu), (dev, params_dev)):
+        res = serve(ccfg, wl, pool="CXL", replicas=2, policy="least_loaded",
+                    params=params, device=device, max_batch=2, max_len=64,
+                    prompt_bucket=8, emulate_step_s=5e-5)
+        router, hs = res.router, res.handles
+        rs = router.stats()
+        host_timed = ("wall_s", "ttft_s_sum")
+        seen.append(dict(
+            streams=[h.tokens for h in hs], rids=[h.rid for h in hs],
+            aggregate={k: v for k, v in dataclasses.asdict(
+                rs.aggregate).items() if k not in host_timed},
+            per_replica={n: {k: v for k, v in dataclasses.asdict(st).items()
+                             if k not in host_timed}
+                         for n, st in rs.per_replica.items()},
+            cache=dataclasses.asdict(rs.cache),
+            stores={n: dataclasses.asdict(st)
+                    for n, st in router.store_stats().items()},
+            migrations=rs.migrations, clock=link_ledgers(router.clock)))
+    cpu, card = seen
+    for key in cpu:
+        check(cpu[key] == card[key],
+              f"fleet agreement: {key} differs: cpu {cpu[key]} vs card "
+              f"{card[key]}")
+    check(card["migrations"] > 0, "fleet agreement: no request migrated")
+    check(all(len(t) == n for t, n in zip(card["streams"], lens)),
+          "fleet agreement: a request ended short")
+    c = card["cache"]
+    print(f"agree fleet: reduced engram-27b (f32, pool=CXL, emulated step "
+          f"5e-5 s), 2 replicas, least_loaded with re-dispatch, one TinyLFU "
+          f"SharedCache of 2048 rows, {len(lens)} poisson arrivals: "
+          f"{card['migrations']} migration(s), shared cache {c['hits']} hits"
+          f" / {c['misses']} misses (per replica "
+          f"{ {n: v['hits'] for n, v in c['per_view'].items()} }); streams, "
+          f"rids, RouterStats, SharedCacheStats, StoreStats, link ledgers "
+          f"and clock identical on card and CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -1428,6 +1504,404 @@ def serve_tiers(cfg, params, dev, smi: str, prompts, streams,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the fleet (router, serve, Table 2) at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def fleet_recorder():
+    """Record, for any drive of a ``Router`` or of ``serve()``, each
+    engine's reads, admission groups and decode waves per runtime step and
+    the order in which the replicas' schedulers charged their waves; under
+    PyTorch's sync debug mode, so a sync outside the counted reads fails.
+    ``rec["seconds"]`` is the drive's host-clock time."""
+    import torch
+    from repro_torch.pool.scheduler import PrefetchScheduler
+    from repro_torch.serving.runtime import EngramRuntime
+    rec = {"steps": {}, "order": [], "seconds": 0.0}
+    rt_step, charge = EngramRuntime.step, PrefetchScheduler.step
+
+    def step(self):
+        st = self.engine.stats
+        a = (st.d2h_pulls, st.prefill_waves, st.decode_steps)
+        events = rt_step(self)
+        st = self.engine.stats
+        rec["steps"].setdefault(self.engine.name, []).append(
+            (st.d2h_pulls - a[0], st.prefill_waves - a[1],
+             st.decode_steps - a[2]))
+        return events
+
+    def charged(self, *args, **kw):
+        rec["order"].append(self)
+        return charge(self, *args, **kw)
+
+    EngramRuntime.step, PrefetchScheduler.step = step, charged
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield rec
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+    finally:
+        EngramRuntime.step, PrefetchScheduler.step = rt_step, charge
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"{len(syncs)} stray syncs in the fleet: {syncs[:3]}")
+
+
+def check_fleet_steps(rec, engines, launches, label: str) -> dict:
+    """Per replica: one read per decode wave and admission group, plus one
+    for the keys of a decode wave after an admission (the single-engine
+    budget, per busy replica); K1 once per decode wave and K2 twice per
+    decode wave and admission group, summed over the replicas. Returns
+    each replica's reads per step."""
+    waves = sum(e.stats.decode_steps for e in engines)
+    groups = sum(e.stats.prefill_waves for e in engines)
+    check(launches["engram_gather"] == waves,
+          f"{label}: K1 launches {launches['engram_gather']} != one per "
+          f"{waves} decode waves of the replicas")
+    check(launches["gated_fuse"] == 2 * (groups + waves),
+          f"{label}: K2 launches {launches['gated_fuse']} != 2 x ({groups} "
+          f"admission groups + {waves} decode waves)")
+    reads = {}
+    for eng in engines:
+        steps = rec["steps"].get(eng.name, [])
+        got = [r for r, _, _ in steps]
+        want = [dec + grp + int(dec > 0 and grp > 0) for _, grp, dec in steps]
+        check(got == want, f"{label}: {eng.name} reads per step {got}, "
+              f"want {want}")
+        reads[eng.name] = got
+    return reads
+
+
+def group_streams(cfg, params, dev, prompts, streams, groups,
+                  max_new: int = 8) -> dict:
+    """Each prompt's first ``max_new`` tokens when admitted in a group of
+    a given row count, from one engine with phase 7's shapes that serves
+    each group alone: ``(size, prompt index) -> tokens``. A row's prefill
+    depends only on its prompt and its group's row count; decode rows
+    depend on neither (phase 11's finding). Groups of 8 are phase 7's."""
+    from repro_torch.serving import Engine
+    out = {(len(prompts), i): s_[:max_new] for i, s_ in enumerate(streams)}
+    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
+                 prompt_bucket=32, device=dev)
+    for g in sorted(groups):
+        if all((len(g), i) in out for i in g):
+            continue
+        rids = [eng.submit(prompts[i], max_new=max_new) for i in g]
+        eng.run()
+        for i, rid in zip(g, rids):
+            out[(len(g), i)] = eng.done.pop(rid).out
+    return out
+
+
+def flip_witness(cfg, params, dev, smi: str, prompts, streams,
+                 group=(0, 2, 4, 6), at=(4, 3)) -> None:
+    """Prompt ``at[0]`` admitted in phase 7's group of 8 x 32 tokens and in
+    the group of 4 x 32 that a round-robin fleet of two gives it
+    (``group``), each with K2 and with its plain version in K2's place:
+    the token each emits at position ``at[1]`` and the top-2 f32 logits
+    of the row that chose it. Where the group of 4 leaves phase 7's
+    stream, a margin of the order of bf16 rounding, phase 7's token the
+    runner-up, says a near-tie flipped; the plain K2 (no K2 launch) says
+    whether K2 is what flips it. Launches here are not counted."""
+    from repro_torch.core import engram as core_engram
+    from repro_torch.kernels.gated_fuse import gated_fuse_ref
+    from repro_torch.serving import Engine
+    p, pos = at
+    k2 = core_engram.engram_gated_fuse
+    rows = {}
+    try:
+        for name, fuse in (("K2", k2), ("plain K2", gated_fuse_ref)):
+            core_engram.engram_gated_fuse = fuse
+            for g in (tuple(range(len(prompts))), group):
+                eng = Engine(cfg, params=params, pool="CXL", max_batch=8,
+                             max_len=512, prompt_bucket=32, device=dev)
+                waves = []
+                decode = eng._decode_ext_fn
+
+                def recording(*args, _decode=decode, _eng=eng, _w=waves):
+                    logits, state = _decode(*args)
+                    _w.append((logits, [r.rid if r is not None else None
+                                        for r in _eng.slots]))
+                    return logits, state
+                eng._decode_ext_fn = recording
+                rid = [eng.submit(prompts[i], max_new=pos + 1)
+                       for i in g][g.index(p)]
+                reset_launches()
+                eng.run()
+                launched = read_launches()["gated_fuse"]
+                check((launched > 0) == (fuse is k2),
+                      f"witness: {name}, group {g}: {launched} K2 launches")
+                tok = eng.done[rid].out[pos]
+                logits, slots = waves[pos - 1]     # token 0 is prefill's
+                row = logits[slots.index(rid)].float()
+                top = row.topk(2)
+                idx, vals = top.indices.tolist(), top.values.tolist()
+                check(idx[0] == tok, f"witness: {name}, group {g}: the "
+                      f"row's argmax {idx[0]} is not the token {tok}")
+                rows[(name, len(g))] = (tok, idx, vals, row)
+                del eng, waves, logits
+                gc.collect()
+    finally:
+        core_engram.engram_gated_fuse = k2
+    check(rows[("K2", len(prompts))][0] == streams[p][pos],
+          f"witness: prompt {p} in phase 7's group emitted "
+          f"{rows[('K2', len(prompts))][0]} at {pos}, phase 7 "
+          f"{streams[p][pos]}")
+    for (name, n), (tok, idx, vals, row) in rows.items():
+        whose = "phase 7's" if tok == streams[p][pos] else "not phase 7's"
+        delta = (row - rows[("K2", n)][3]).abs().max().item()
+        print(f"fleet witness [{smi}]: prompt {p} in a group of {n} x 32 "
+              f"with {name}: token {pos} is {tok} ({whose}), top-2 logits "
+              f"{idx[0]}: {vals[0]:.6f}, {idx[1]}: {vals[1]:.6f}, margin "
+              f"{vals[0] - vals[1]:.6f}; max |logit - K2's| over the row "
+              f"{delta:.6f}")
+
+
+def serve_fleet(cfg, params, dev, smi: str, prompts, streams,
+                emulate_step_s: float = 5e-5) -> dict:
+    """The fleet at full width over phase 7's parameter set, engine shapes
+    and prompts, ``pool="CXL"``: (a) a 2-replica ``Router``
+    (``round_robin``) with phase 9's TinyLFU hot-row cache of 2**20 rows
+    mounted as ONE ``SharedCache``: the 8 prompts twice each, 16 new
+    tokens, then again in an order that sends each prompt to the other
+    replica; the same with private caches as the baseline; (b) ``serve()``
+    of 16 poisson requests (8 new tokens) over 2 ``least_loaded`` replicas
+    at the emulated point; (c) Table 2: ``serve()`` of the 8 prompts, 8
+    new tokens, one replica, for DRAM, CXL and RDMA at the emulated point.
+    Streams must be phase 7's (cut to their length; in (b), where arrivals
+    set the admission groups, a single engine's at the same group size);
+    K1 once per decode wave and K2 twice per wave and admission group of
+    every replica; one read per busy replica per steady wave and no other
+    sync; the shared cache must out-hit the private ones; every replica
+    holds the fleet's one f32 head; in (b) the replicas' traces replayed
+    together must give each its accounted stall exactly; (d) the near-tie
+    that a group of 4 rows flips (``flip_witness``). Returns the kernels'
+    launches summed over the runs (not (d)'s)."""
+    import torch
+    from repro_torch.configs import StoreConfig
+    from repro_torch.models.layers import with_f32_head
+    from repro_torch.pool.simulator import (replay_fleet_stall_s,
+                                            replay_stall_s)
+    from repro_torch.serving import Router, Workload, serve
+
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=1 << 20,
+                                      admission="tinylfu")))
+    fleet_params = with_f32_head(params)       # the fleet's one f32 head
+    w32 = fleet_params["head"]["w32"]
+    kw = dict(params=fleet_params, device=dev, max_batch=8, max_len=512,
+              prompt_bucket=32)
+    total = {"engram_gather": 0, "gated_fuse": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def heads_shared(engines, label):
+        check(all(e.params["head"]["w32"] is w32 for e in engines),
+              f"{label}: a replica holds its own f32 head")
+
+    # (a) shared hot-row cache against private ones. Each prompt goes in
+    # twice per round, so each replica admits one group of 8 x 32 tokens,
+    # phase 7's shape: in bf16 a prefill row depends on the group's row
+    # count, and a 4 x 32 group flips a near-tie of phase 7's streams
+    # (measured in (d), with K2 and with its plain version)
+    n = len(prompts)
+    swap = [i ^ 1 for i in range(n)]                # 1, 0, 3, 2, ...
+    hits = {}
+    for shared in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        router = Router(ccfg, replicas=2, pool="CXL", policy="round_robin",
+                        shared_cache=shared, **kw)
+        engines = [rt.engine for rt in router.replicas]
+        heads_shared(engines, "fleet run a")
+        label = f"fleet run a ({'shared' if shared else 'private'})"
+        rounds = []
+        for rnd, order in enumerate((list(range(n)) * 2, swap * 2)):
+            for e in engines:
+                e.reset_stats()
+            reset_launches()
+            with fleet_recorder() as rec:
+                hs = [router.submit(prompts[i], max_new=16) for i in order]
+                router.drain()
+            launches = read_launches()
+            add(launches)
+            got = [h.tokens for h in hs]
+            want = [streams[i] for i in order]
+            check(got == want, f"{label} round {rnd + 1}: streams {got} "
+                  f"differ from phase 7's {want}")
+            where = {}
+            for i, h in zip(order, hs):
+                where.setdefault(i, set()).add(h.runtime.engine.name)
+            reads = check_fleet_steps(rec, engines, launches,
+                                      f"{label} round {rnd + 1}")
+            agg = router.stats().aggregate
+            rounds.append(where)
+            print(f"{label} round {rnd + 1}: requests per replica "
+                  f"{ {e.name: e.stats.prefills for e in engines} }, decode "
+                  f"waves {[e.stats.decode_steps for e in engines]}; K1 "
+                  f"{launches['engram_gather']}, K2 "
+                  f"{launches['gated_fuse']} launches; reads per step "
+                  f"{reads}; streams equal to phase 7's; no other sync")
+            print(f"{label} round {rnd + 1} [{smi}]: host clock "
+                  f"{rec['seconds']:.3f} s for {agg.generated_tokens} tokens "
+                  f"({agg.generated_tokens / rec['seconds']:.2f} tokens/s, the"
+                  f" replicas' waves one after another on one card); merged "
+                  f"EngineStats.tokens_per_s {agg.tokens_per_s:.2f} (slowest "
+                  f"replica's wall time {agg.wall_s:.3f} s: the parallel-"
+                  f"hardware model, not a measurement)")
+        check(all(len(rounds[0][i]) == 1 and rounds[0][i].isdisjoint(
+            rounds[1][i]) for i in rounds[0]),
+              f"{label}: round 2 did not move every prompt to the other "
+              f"replica: {rounds}")
+        if shared:
+            cs = router.stats().cache
+            hits[shared] = cs.hits
+            per = {n: (v["hits"], v["misses"]) for n, v in
+                   cs.per_view.items()}
+        else:
+            st = router.store_stats()
+            hits[shared] = sum(x.hits for x in st.values())
+            per = {n: (x.hits, x.misses) for n, x in st.items()}
+        print(f"{label} [{smi}]: hot-row hits and misses per replica over "
+              f"both rounds {per}, {hits[shared]} hits in all; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; one f32 "
+              f"head for the fleet")
+        del router, engines, hs
+    check(hits[True] > hits[False],
+          f"fleet run a: the shared cache's {hits[True]} hits do not exceed "
+          f"the private caches' {hits[False]}")
+
+    # (b) serve() over a poisson workload
+    gc.collect()
+    torch.cuda.empty_cache()
+    wl = Workload(requests=16, max_new=8,
+                  prompts=tuple(tuple(int(t) for t in p) for p in prompts),
+                  arrival="poisson", qps=2e4, seed=0)
+    reset_launches()
+    with fleet_recorder() as rec:
+        res = serve(ccfg, wl, pool="CXL", replicas=2, policy="least_loaded",
+                    emulate_step_s=emulate_step_s, **kw)
+    launches = read_launches()
+    add(launches)
+    router = res.router
+    engines = [rt.engine for rt in router.replicas]
+    heads_shared(engines, "fleet run b")
+    # each request against its prompt's stream admitted in a group of the
+    # same row count (phase 7's when 8): arrivals set the groups
+    index = {tuple(int(t) for t in p): i for i, p in enumerate(prompts)}
+    groups = {}
+    for h in res.handles:
+        key = (h.runtime.engine.name, h.request.first_token_v)
+        groups.setdefault(key, []).append(index[tuple(h.request.prompt)])
+    ref = group_streams(cfg, fleet_params, dev, prompts, streams,
+                        {tuple(sorted(g)) for g in groups.values()})
+    sizes = {h.rid: len(groups[(h.runtime.engine.name,
+                                h.request.first_token_v)])
+             for h in res.handles}
+    got = [h.tokens for h in res.handles]
+    want = [ref[(sizes[h.rid], index[tuple(h.request.prompt)])]
+            for h in res.handles]
+    check(got == want, f"fleet run b: streams {got} differ from the same "
+          f"prompts admitted in groups of the same size {want}")
+    same7 = sum(g == streams[index[tuple(h.request.prompt)]][:8]
+                for g, h in zip(got, res.handles))
+    reads = check_fleet_steps(rec, engines, launches, "fleet run b")
+    # the replicas share the CXL link and the cache:shared link, so only
+    # their traces replayed together, in charge order, see each other's
+    # waits; a lone replay of one trace is a lower bound
+    scheds = [e.scheduler for e in engines]
+    who = [next(r for r, s_ in enumerate(scheds) if s_ is o)
+           for o in rec["order"]]
+    traces = [list(s_.trace) for s_ in scheds]
+    layers = dict(layers=cfg.engram_layers(), n_layers=cfg.n_layers)
+    fleet = replay_fleet_stall_s(ccfg.engram, "CXL", traces, who,
+                                 shared_cache=True, **layers)
+    replay = {}
+    for eng, stall, trace in zip(engines, fleet, traces):
+        solo = replay_stall_s(ccfg.engram, "CXL", trace, **layers)
+        check(stall == eng.stats.stall_s,
+              f"fleet run b: {eng.name} replays to {stall} s of stall, "
+              f"accounted {eng.stats.stall_s} s")
+        check(solo <= eng.stats.stall_s,
+              f"fleet run b: {eng.name} alone replays to {solo} s, more "
+              f"than the fleet's {eng.stats.stall_s} s")
+        replay[eng.name] = (stall, solo)
+    rs = router.stats()
+    ttft = res.ttft_v()
+    print(f"fleet run b (serve, 16 poisson requests at 2e4 qps, 2 replicas, "
+          f"least_loaded, emulated step {emulate_step_s} s): "
+          f"{rs.migrations} migrations, requests per replica "
+          f"{ {n: st.prefills for n, st in rs.per_replica.items()} }, decode "
+          f"waves {[e.stats.decode_steps for e in engines]}, admission "
+          f"group sizes {sorted(len(g) for g in groups.values())}; K1 "
+          f"{launches['engram_gather']}, K2 {launches['gated_fuse']}; reads "
+          f"per step {reads}; streams equal to a single engine's at the same"
+          f" group size ({same7} of 16 also equal to phase 7's, admitted 8 "
+          f"at a time); stall per replica "
+          f"(accounted = fleet replay; alone) "
+          f"{ {n: (f'{a:.9f}', f'{b:.9f}') for n, (a, b) in replay.items()} }"
+          f" s")
+    print(f"fleet run b [{smi}]: mean virtual TTFT "
+          f"{sum(ttft) / len(ttft) * 1e3:.4f} ms over {len(ttft)} requests, "
+          f"RouterStats.cache_hit_rate {rs.cache_hit_rate:.4f}; host clock "
+          f"{rec['seconds']:.3f} s for {rs.aggregate.generated_tokens} tokens"
+          f" ({rs.aggregate.generated_tokens / rec['seconds']:.2f} tokens/s)"
+          f"; merged tokens_per_s {rs.aggregate.tokens_per_s:.2f} (the "
+          f"parallel-hardware model), tokens_per_s_emulated "
+          f"{rs.aggregate.tokens_per_s_emulated:.1f}")
+    del res, router, engines
+
+    # (c) Table 2 at the emulated point
+    table = {}
+    wl = Workload(requests=len(prompts), max_new=8,
+                  prompts=tuple(tuple(int(t) for t in p) for p in prompts))
+    for pool in ("DRAM", "CXL", "RDMA"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        with fleet_recorder() as rec:
+            res = serve(cfg, wl, pool=pool, replicas=1,
+                        emulate_step_s=emulate_step_s, **kw)
+        launches = read_launches()
+        add(launches)
+        eng = res.runtime.engine
+        heads_shared([eng], f"fleet run c ({pool})")
+        got = [h.tokens for h in res.handles]
+        check(got == [s_[:8] for s_ in streams],
+              f"fleet run c ({pool}): streams {got} differ from phase 7's")
+        reads = check_fleet_steps(rec, [eng], launches,
+                                  f"fleet run c ({pool})")
+        table[pool] = res.stats
+        print(f"fleet run c ({pool}): {res.stats.decode_steps} decode waves, "
+              f"K1 {launches['engram_gather']}, K2 {launches['gated_fuse']};"
+              f" reads per step {reads[None]}; stall "
+              f"{res.stats.stall_s * 1e6:.3f} us (virtual); streams equal to "
+              f"phase 7's")
+        del res, eng
+    print(f"fleet run c [{smi}]: tokens_per_s_emulated (the pool cost "
+          f"model's clock, no CXL device) DRAM "
+          f"{table['DRAM'].tokens_per_s_emulated:.3f}, CXL "
+          f"{table['CXL'].tokens_per_s_emulated:.3f}, RDMA "
+          f"{table['RDMA'].tokens_per_s_emulated:.3f}; CXL/DRAM "
+          f"{table['CXL'].tokens_per_s_emulated / table['DRAM'].tokens_per_s_emulated:.4f}")
+
+    # (d) what a group of 4 rows does to phase 7's streams
+    gc.collect()
+    torch.cuda.empty_cache()
+    flip_witness(cfg, fleet_params, dev, smi, prompts, streams)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1468,13 +1942,15 @@ def main() -> int:
     check_agreement_spec(dev)
     check_agreement_overload(dev)
     check_agreement_tiers(dev)
+    check_agreement_fleet(dev)
     params = draw_params(cfg, dev)
     launches, streams = serve_full(cfg, params, dev, smi)
     prompts = serve_prompts(cfg)
     for phase in (serve_long_prompt, serve_chunked,
                   lambda *a: serve_spec(*a, prompts, streams),
                   lambda *a: serve_overload(*a, prompts, streams),
-                  lambda *a: serve_tiers(*a, prompts, streams)):
+                  lambda *a: serve_tiers(*a, prompts, streams),
+                  lambda *a: serve_fleet(*a, prompts, streams)):
         gc.collect()             # the last phase's engine (a cycle with its
         torch.cuda.empty_cache()  # runtime) before the next one's caches
         for k, n in phase(cfg, params, dev, smi).items():
@@ -1493,11 +1969,16 @@ def main() -> int:
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
           "(decode, and each unrolled verify step); launches summed over "
-          "the serve, long-prompt, chunked, spec, overload and tiers runs; also "
+          "the serve, long-prompt, chunked, spec, overload, tiers and fleet "
+          "runs; also "
           "measured: "
           + json.dumps({"engram_gather_2x512_verify_wave": k1["spec"],
                         "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],
+                        "gated_fuse_T32": k2[32],
+                        "gated_fuse_T64": k2[64],
+                        "gated_fuse_T96": k2[96],
+                        "gated_fuse_T128": k2[128],
                         "gated_fuse_T256": k2[256],
                         "gated_fuse_T2112": k2[2112]}))
     print(smi)

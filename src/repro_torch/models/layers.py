@@ -78,8 +78,12 @@ def with_f32_head(params: dict) -> dict:
     """Shallow copy of a param tree whose head also holds an f32 copy of its
     weight (``head["w32"]``), made once: ``head_logits`` computes in f32,
     and casting a bf16 head per call would allocate the f32 copy on every
-    step. An f32 head is shared, not copied."""
+    step. A tree that already holds ``w32`` comes back as it is, so engines
+    built from one prepared tree (the router's replicas) share one f32
+    head; an f32 head is shared, not copied (``.float()`` returns it)."""
     head = params["head"]
+    if "w32" in head:
+        return params
     out = dict(params)
     out["head"] = dict(head, w32=head["w"].float())
     return out

@@ -15,8 +15,9 @@ the sketch's virtual-clock ``decay`` ages the tier chain's placement.
 chunk-boundary slot snapshots (``serving.slots.extract_prefix``) keyed by
 chained prefix-block hashes (``core.hashing.prefix_chain_keys``).
 
-Not in this slice: ``SharedCache`` and the fleet views
-(``PrefixKVCache.view``) belong to the router, ROADMAP queue 1 item 7.
+``SharedCache`` and ``PrefixKVCache.view`` are the fleet's: several engine
+replicas (``serving.router.Router``) mount one cache through per-replica
+views, so a row or prefix one replica fetched is a hit for every other.
 """
 from __future__ import annotations
 
@@ -24,8 +25,6 @@ import dataclasses
 from collections import OrderedDict
 
 import numpy as np
-
-_ROUTER = "ROADMAP queue 1, item 7 (router, api and workload)"
 
 
 @dataclasses.dataclass
@@ -218,12 +217,106 @@ class LRUHotRowCache:
         self.evictions = 0
 
 
-class SharedCache:
-    """One hot-row cache behind several engine replicas: not in this
-    slice (the router's)."""
+# ---------------------------------------------------------------------------
+# shared cache (one hot-row LRU serving several engine replicas)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"SharedCache: {_ROUTER}")
+@dataclasses.dataclass
+class SharedCacheStats:
+    """Aggregate + per-replica accounting for a ``SharedCache``."""
+    capacity_rows: int
+    rows: int
+    hits: int
+    misses: int
+    evictions: int
+    per_view: dict
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+
+class _SharedCacheView:
+    """One replica's handle onto a ``SharedCache``: forwards every wave to
+    the shared LRU (so any replica's fetch warms rows for all of them) while
+    keeping per-replica hit/miss totals. Duck-types ``LRUHotRowCache`` for
+    ``CachedStore`` (``access_wave`` / ``capacity_rows`` / ``hit_rate``)."""
+
+    def __init__(self, shared: "SharedCache", name):
+        self.shared = shared
+        self.name = name
+        self.total_hits = 0
+        self.total_misses = 0
+        self.waves = 0
+
+    @property
+    def capacity_rows(self) -> int:
+        return self.shared.cache.capacity_rows
+
+    def __len__(self) -> int:
+        return len(self.shared.cache)
+
+    def __contains__(self, key: int) -> bool:
+        return key in self.shared.cache
+
+    def access_wave(self, keys) -> WaveAccess:
+        wave = self.shared.cache.access_wave(keys)
+        self.total_hits += wave.hits
+        self.total_misses += wave.misses
+        self.waves += 1
+        return wave
+
+    def occupy(self, keys) -> int:
+        """Capacity-pressure insert (no hit/miss accounting), forwarded to
+        the shared LRU: one replica's KV landing evicts fleet-wide."""
+        return self.shared.cache.occupy(keys)
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.total_hits + self.total_misses
+        return self.total_hits / n if n else 0.0
+
+    def reset_stats(self) -> None:
+        self.total_hits = 0
+        self.total_misses = 0
+        self.waves = 0
+
+
+class SharedCache:
+    """One hot-row cache shared by N front-ends (the DP case: several
+    engine replicas multiplexing one pool).
+
+    Each replica takes a ``view(name)`` and mounts it as the ``cache`` of
+    its own ``CachedStore``: rows any replica pulls from the backing tier
+    become hits for every other replica, the pooled-tier win a private
+    per-replica cache cannot capture. ``stats()`` reports the aggregate
+    hit rate plus the per-replica split."""
+
+    def __init__(self, capacity_rows: int, admission=None):
+        self.cache = LRUHotRowCache(capacity_rows, admission=admission)
+        self.views: dict = {}
+
+    @property
+    def capacity_rows(self) -> int:
+        return self.cache.capacity_rows
+
+    def view(self, name) -> _SharedCacheView:
+        assert name not in self.views, f"duplicate cache view {name!r}"
+        v = _SharedCacheView(self, name)
+        self.views[name] = v
+        return v
+
+    def stats(self) -> SharedCacheStats:
+        return SharedCacheStats(
+            capacity_rows=self.cache.capacity_rows,
+            rows=len(self.cache),
+            hits=self.cache.total_hits,
+            misses=self.cache.total_misses,
+            evictions=self.cache.evictions,
+            per_view={n: {"hits": v.total_hits, "misses": v.total_misses,
+                          "waves": v.waves, "hit_rate": v.hit_rate}
+                      for n, v in self.views.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +325,7 @@ class SharedCache:
 
 @dataclasses.dataclass
 class PrefixCacheStats:
-    """Block-granular accounting for a ``PrefixKVCache``; the reference's
-    fields (``per_view`` stays empty until the fleet views are ported)."""
+    """Block-granular accounting for a ``PrefixKVCache``."""
     capacity_bytes: int
     bytes: int
     entries: int
@@ -277,6 +369,7 @@ class PrefixKVCache:
         self.inserts = 0
         self.evictions = 0
         self.restored_tokens = 0
+        self.views: dict = {}
 
     def __contains__(self, key: int) -> bool:
         return int(key) in self._entries
@@ -315,9 +408,14 @@ class PrefixKVCache:
             self.evictions += 1
         return True
 
-    def view(self, name):
-        """A replica's window onto a shared cache: not in this slice."""
-        raise NotImplementedError(f"PrefixKVCache.view: {_ROUTER}")
+    def view(self, name) -> "_PrefixCacheView":
+        """A replica's stats window onto this one shared structure (the
+        ``SharedCache`` pattern); a private fleet builds one cache per
+        replica instead."""
+        assert name not in self.views, f"duplicate prefix view {name!r}"
+        v = _PrefixCacheView(self, name)
+        self.views[name] = v
+        return v
 
     def stats(self) -> PrefixCacheStats:
         return PrefixCacheStats(
@@ -325,4 +423,69 @@ class PrefixKVCache:
             entries=len(self._entries), lookups=self.lookups,
             hit_blocks=self.hit_blocks, lookup_blocks=self.lookup_blocks,
             inserts=self.inserts, evictions=self.evictions,
-            restored_tokens=self.restored_tokens)
+            restored_tokens=self.restored_tokens,
+            per_view={n: {"hit_blocks": v.hit_blocks,
+                          "lookup_blocks": v.lookup_blocks,
+                          "inserts": v.inserts, "hit_rate": v.hit_rate}
+                      for n, v in self.views.items()})
+
+
+class _PrefixCacheView:
+    """One replica's handle onto a shared ``PrefixKVCache``: forwards
+    lookups and inserts (any replica's prefill warms prefixes for all of
+    them) while keeping per-replica hit accounting. Duck-types the cache
+    for the engine (``lookup`` / ``insert`` / ``block_tokens`` /
+    ``__contains__``)."""
+
+    def __init__(self, shared: PrefixKVCache, name):
+        self.shared = shared
+        self.name = name
+        self.hit_blocks = 0
+        self.lookup_blocks = 0
+        self.inserts = 0
+
+    @property
+    def block_tokens(self) -> int:
+        return self.shared.block_tokens
+
+    def __contains__(self, key: int) -> bool:
+        return key in self.shared
+
+    def lookup(self, chain) -> tuple:
+        n, snap, nbytes = self.shared.lookup(chain)
+        self.lookup_blocks += len(chain)
+        self.hit_blocks += n
+        return n, snap, nbytes
+
+    def insert(self, key: int, snapshot, n_tokens: int, nbytes: int) -> bool:
+        ok = self.shared.insert(key, snapshot, n_tokens, nbytes)
+        self.inserts += int(ok)
+        return ok
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.lookup_blocks
+        return self.hit_blocks / n if n else 0.0
+
+    def stats(self) -> PrefixCacheStats:
+        return self.shared.stats()
+
+
+def zipf_keys(n: int, vocab: int, *, alpha: float = 1.2,
+              seed: int = 0) -> np.ndarray:
+    """Zipf-distributed key stream over [0, vocab), the paper's reuse
+    assumption, used by tests and benchmarks to drive the cache.
+
+    ``alpha > 1`` draws the rejection-sampled ``rng.zipf`` stream;
+    ``alpha <= 1`` (where numpy's sampler is undefined) draws from the
+    exact finite Zipf law ``P(rank r) ∝ r^-alpha`` over the vocab."""
+    rng = np.random.RandomState(seed)
+    if alpha <= 1.0:
+        w = np.arange(1, vocab + 1, dtype=np.float64) ** -alpha
+        return rng.choice(vocab, size=n, p=w / w.sum()).astype(np.int64)
+    ranks = rng.zipf(alpha, size=4 * n)
+    ranks = ranks[ranks <= vocab][:n]
+    while ranks.size < n:                      # heavy tail can over-reject
+        extra = rng.zipf(alpha, size=4 * n)
+        ranks = np.concatenate([ranks, extra[extra <= vocab]])[:n]
+    return (ranks - 1).astype(np.int64)

@@ -154,6 +154,11 @@ class StoreStats:
         return self.spec_depth_sum / self.spec_waves if self.spec_waves \
             else 0.0
 
+    @property
+    def wasted_prefetch_rate(self) -> float:
+        n = self.accepted_segments + self.wasted_segments
+        return self.wasted_segments / n if n else 0.0
+
 
 # ---------------------------------------------------------------------------
 # backends
@@ -347,19 +352,26 @@ class CachedStore(_StoreBase):
     Hit and miss paths proceed in parallel, so a wave completes at
     ``max(hit path, miss path)``: the §6 formula evaluated with the
     measured per-wave split. Clock-bound, the two paths occupy two links:
-    misses the backing tier's fleet-wide link, hits the cache's own link
-    (``cache:<id>``, the cache tier's bandwidth)."""
+    misses the backing tier's fleet-wide link, hits the cache's own DRAM
+    channel: ``cache_link`` when given (a shared cache hands every replica
+    the same link, so N replicas hitting it split its bandwidth), else a
+    private ``cache:<id>`` link at the cache tier's bandwidth."""
 
     def __init__(self, backing, cache_tier: TierSpec | str = "DRAM",
-                 cache: Optional[LRUHotRowCache] = None, clock=None):
+                 cache: Optional[LRUHotRowCache] = None, clock=None,
+                 cache_link=None):
         super().__init__(backing.ecfg, backing.tier.name)
         self.backing = backing
         self.cache_tier = TIERS[cache_tier] if isinstance(cache_tier, str) \
             else cache_tier
         self.cache = cache
-        self._cache_link = clock.link(f"cache:{id(self):x}",
-                                      self.cache_tier.bandwidth_Bps) \
-            if clock is not None else None
+        if cache_link is not None:
+            self._cache_link = cache_link
+        elif clock is not None:
+            self._cache_link = clock.link(f"cache:{id(self):x}",
+                                          self.cache_tier.bandwidth_Bps)
+        else:
+            self._cache_link = None
         self._stats.cache_tier = self.cache_tier.name
         # the cache defines __len__: test identity, not truthiness
         self._stats.cache_rows = 0 if cache is None else cache.capacity_rows
@@ -478,17 +490,27 @@ def fetch_layers(fetchers, gids) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def make_store(ecfg: EngramConfig, tier: TierSpec | str | None,
-               store_cfg=None, clock=None, fabric=None):
+               store_cfg=None, cache=None, clock=None, cache_link=None,
+               fabric=None):
     """The store for a backing tier (``None`` and no fabric ->
     ``LocalStore``), honouring the store config: a chain spec
     (``"CXL+SSD"``) builds a ``TierChain`` (its warm level sharded over
     ``fabric`` when one is given); otherwise ``fabric`` (a ``PoolFabric``)
     backs the store instead of a single-link ``TierStore``, and
     ``cache_rows > 0`` puts a ``CachedStore`` with ``"lru"`` or
-    ``"tinylfu"`` admission in front."""
+    ``"tinylfu"`` admission in front.
+
+    ``cache``: an externally owned hot-row cache (a ``SharedCache.view``
+    shared across engine replicas) mounted instead of a private LRU.
+    ``cache_link``: the clock link its hits contend on (the router passes
+    one link for a shared cache); without it each store owns a private
+    cache link."""
     scfg = store_cfg if store_cfg is not None else ecfg.store
     if tier is not None and is_chain(tier):
         from .tierchain import TierChain
+        if cache is not None:
+            raise ValueError("a shared hot-row cache cannot front a tier "
+                             "chain: the chain owns its DRAM front")
         return TierChain(ecfg, tier, store_cfg=scfg, clock=clock,
                          fabric=fabric)
     if tier is None and fabric is None:
@@ -498,6 +520,10 @@ def make_store(ecfg: EngramConfig, tier: TierSpec | str | None,
         base = FabricStore(ecfg, fabric)
     else:
         base = TierStore(ecfg, tier, clock=clock)
+    if cache is not None:
+        tier_name = scfg.cache_tier if scfg is not None else "DRAM"
+        return CachedStore(base, cache_tier=tier_name, cache=cache,
+                           clock=clock, cache_link=cache_link)
     if scfg is not None and scfg.cache_rows > 0:
         if scfg.admission not in ("lru", "tinylfu"):
             raise ValueError(f"unknown cache admission {scfg.admission!r}")
@@ -505,5 +531,5 @@ def make_store(ecfg: EngramConfig, tier: TierSpec | str | None,
         return CachedStore(base, cache_tier=scfg.cache_tier,
                            cache=LRUHotRowCache(scfg.cache_rows,
                                                 admission=adm),
-                           clock=clock)
+                           clock=clock, cache_link=cache_link)
     return base

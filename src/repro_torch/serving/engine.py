@@ -69,9 +69,10 @@ Storage: ``pool="CXL+SSD"`` serves over a ``TierChain`` and
 ``fabric``/``fabric_nodes`` over a ``PoolFabric``; both change only what
 a wave costs on the clock, not how its rows are gathered.
 
-Not ported in this slice: the router's fleet options (``store``,
-``clock``, ``name``, ``rid_start``, ``step_latency_hint_s``) raise
-NotImplementedError naming ROADMAP queue 1 item 7.
+Fleet options (``serving.router.Router``): ``store`` mounts a store built
+outside (a ``CachedStore`` over a ``SharedCache`` view), ``clock`` a fleet
+``VirtualClock``, ``name`` labels the replica, ``rid_start`` offsets its
+request ids and ``step_latency_hint_s`` seeds the step estimate.
 """
 from __future__ import annotations
 
@@ -104,16 +105,6 @@ from .clock import VirtualClock
 from .slo import OverloadPolicy
 from .slots import (extract_prefix, gate_state, restore_prefix,
                     select_slots, update_slots)
-
-# Engine options of the reference that a later slice ports.
-_UNPORTED = {
-    "store": "7 (router, api and workload)",
-    "clock": "7 (router, api and workload)",
-    "name": "7 (router, api and workload)",
-    "rid_start": "7 (router, api and workload)",
-    "step_latency_hint_s": "7 (router, api and workload)",
-}
-
 
 @dataclasses.dataclass
 class Request:
@@ -226,6 +217,11 @@ class EngineStats:
         return _rate(self.generated_tokens, self.wall_s)
 
     @property
+    def tokens_per_s_emulated(self) -> float:
+        """Throughput at the emulated operating point (paper-scale steps)."""
+        return _rate(self.generated_tokens, self.emu_time_s)
+
+    @property
     def acceptance_rate(self) -> float:
         return _rate(self.accepted_tokens, self.proposed_tokens)
 
@@ -239,6 +235,13 @@ class EngineStats:
     @property
     def tokens_per_step(self) -> float:
         return _rate(self.generated_tokens, self.decode_steps)
+
+    @property
+    def pad_row_fraction(self) -> float:
+        """Fraction of executed prefill token positions that were padding
+        (right-pad positions of admission groups, chunk-tail steps)."""
+        return _rate(self.prefill_pad_tokens,
+                     self.prefill_pad_tokens + self.prefill_tokens)
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -256,6 +259,10 @@ class EngineStats:
         return float(self.prefill_tokens + self.prefill_pad_tokens)
 
     @property
+    def requests_per_s(self) -> float:
+        return _rate(self.requests_completed, self.wall_s)
+
+    @property
     def mean_ttft_s(self) -> float:
         """Mean submit -> first-token latency over admitted requests."""
         return _rate(self.ttft_s_sum, self.prefills)
@@ -263,6 +270,27 @@ class EngineStats:
     @property
     def mean_ttft_v(self) -> float:
         return _rate(self.ttft_v_sum, self.prefills)
+
+    def merge(self, other: "EngineStats") -> "EngineStats":
+        """Aggregate another replica's counters into this one (the router's
+        fleet view). Counters add; the clock quantities ``wall_s``,
+        ``emu_time_s`` and ``v_time_s`` take the max, since replicas model
+        parallel hardware sharing one clock, not a serial loop (on one card
+        the router runs their waves one after another, so a merged
+        ``tokens_per_s`` is the model's number, not the card's). Dict
+        fields (per-class speculation) merge key by key."""
+        for f in dataclasses.fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if f.name in ("wall_s", "emu_time_s", "v_time_s"):
+                setattr(self, f.name, max(a, b))
+            elif isinstance(a, dict):
+                for k, sub in b.items():
+                    tgt = a.setdefault(k, {})
+                    for kk, vv in sub.items():
+                        tgt[kk] = tgt.get(kk, 0) + vv
+            else:
+                setattr(self, f.name, a + b)
+        return self
 
 
 def _bucket(n: int, bucket: int) -> int:
@@ -274,6 +302,7 @@ class Engine:
                  flags: RunFlags = RunFlags(), max_batch: int = 8,
                  max_len: int = 512, prompt_bucket: int = 32,
                  pool: Optional[str] = None, seed: int = 0,
+                 step_latency_hint_s: Optional[float] = None,
                  emulate_step_s: Optional[float] = None,
                  emu_prefill_scaled: bool = False,
                  prefill_chunk: Optional[int] = None, prefix_cache=None,
@@ -283,7 +312,9 @@ class Engine:
                  kv_pool: Optional[KVPagePool] = None,
                  arbiter: Optional[PoolArbiter] = None,
                  idle_spill_tokens: Optional[int] = None,
-                 device=None, **unported):
+                 store=None, name: Optional[str] = None,
+                 rid_start: int = 0, clock: Optional[VirtualClock] = None,
+                 device=None):
         """``device``: where the model runs — the CUDA device unless the
         caller passes ``device="cpu"``; with no CUDA device and no
         ``device`` this raises. ``params``: a parameter tree on that device
@@ -291,10 +322,17 @@ class Engine:
 
         ``emulate_step_s``: evaluate pool stalls at a production operating
         point instead of this host's step times (stalls are accounted in
-        ``emu_time_s`` rather than slept), as in the reference. The
-        reference's fleet options (``store``, ``clock``, ``name``,
-        ``rid_start``, ``step_latency_hint_s``) raise until the router is
-        ported.
+        ``emu_time_s`` rather than slept), as in the reference.
+        ``step_latency_hint_s`` seeds the step-time estimate the prefetch
+        windows use before the first wave is timed.
+
+        Fleet options (the router passes them): ``store``, a store built
+        outside (a ``CachedStore`` over a ``SharedCache`` view) instead of
+        the config's; ``clock``, the fleet ``VirtualClock`` on which every
+        replica's waves and transfers interleave (a lone engine gets a
+        private one); ``name``, the replica label of the router's stats;
+        ``rid_start``, the base of this engine's request ids (the router
+        gives each replica a disjoint range).
 
         ``prefill_chunk``: chunked admission (see the module docstring);
         None keeps monolithic admission. ``prefix_cache``: a
@@ -320,17 +358,10 @@ class Engine:
         Neither composes with ``spec``, and idle spill needs monolithic
         admission. ``arbiter``: a ``PoolArbiter`` that books KV transfers
         page by page and caps their hot-row cache occupancy."""
-        for key, val in unported.items():
-            if key not in _UNPORTED:
-                raise TypeError(f"Engine() got an unexpected keyword "
-                                f"argument {key!r}")
-            if val:
-                raise NotImplementedError(
-                    f"Engine({key}=...) is ROADMAP queue 1, item "
-                    f"{_UNPORTED[key]}")
         check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.name = name
         self.flags = flags
         self.max_batch = max_batch
         self.max_len = max_len
@@ -338,8 +369,8 @@ class Engine:
         self.pool = pool_tier(pool) if pool else None
         self.emulate_step_s = emulate_step_s
         self.emu_prefill_scaled = bool(emu_prefill_scaled)
-        self.clock = VirtualClock()
-        self.cursor = self.clock.cursor("engine")
+        self.clock = clock if clock is not None else VirtualClock()
+        self.cursor = self.clock.cursor(name if name else "engine")
         if params is None:
             params = init_params(cfg, seed, self.device)
         if params["embed"]["w"].device.type != self.device.type:
@@ -357,15 +388,16 @@ class Engine:
             # link contention only at the emulated operating point (see the
             # reference engine: real-mode cursors mirror host wall time)
             link_clock = self.clock if emulate_step_s is not None else None
-            if fabric is None and fabric_nodes:
+            if store is None and fabric is None and fabric_nodes:
                 if pool is None:
                     raise ValueError("fabric_nodes needs a pooled tier")
                 from ..pool.fabric import PoolFabric
                 # a chain spec shards its warm level over the fabric
                 self.fabric = PoolFabric(cfg.engram, int(fabric_nodes),
                                          tier=self.pool, clock=link_clock)
-            self.store = make_store(cfg.engram, pool, clock=link_clock,
-                                    fabric=self.fabric)
+            self.store = store if store is not None \
+                else make_store(cfg.engram, pool, clock=link_clock,
+                                fabric=self.fabric)
             self.store.bind_cursor(self.cursor)
             self.scheduler = PrefetchScheduler(self.store, cfg.engram,
                                                layers=cfg.engram_layers(),
@@ -427,9 +459,11 @@ class Engine:
         self.done: dict[int, Request] = {}
         self.cancelled: dict[int, Request] = {}
         self.stats = EngineStats()
-        self._rid = 0
+        self._rid = int(rid_start)
         self._runtime = None
         self._step_times: list[float] = []
+        if step_latency_hint_s:
+            self._step_times.append(step_latency_hint_s)
         self._free: deque[int] = deque(range(max_batch))   # free slot ids
         self._tokens_host = np.zeros((max_batch,), np.int64)  # self.tokens
         self._next_keys: Optional[np.ndarray] = None  # (B,1,L,T) prefetched

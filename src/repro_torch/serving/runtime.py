@@ -164,6 +164,10 @@ class EngramRuntime:
         """This replica's position on the virtual timeline."""
         return self.engine.cursor.now_s
 
+    def advance_to(self, t_s: float) -> None:
+        """Fast-forward an idle replica to a future arrival time."""
+        self.engine.cursor.advance_to(t_s)
+
     def step(self) -> list[TokenEvent]:
         """One serving wave: admit queued requests into free slots, then
         (chunked mode) one chunk-prefill wave over the prefill jobs, then

@@ -361,3 +361,53 @@ def test_tiers_engine_card_equals_cpu(pool, nodes):
         assert card[2]["rescues"]
     else:
         assert card[1]["cold_misses"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_router_card_equals_cpu(shared):
+    """``serve()`` of a two-replica Router on reduced engram-27b (f32) at
+    the emulated operating point, ``least_loaded`` with re-dispatch, a
+    TinyLFU hot-row cache shared by both replicas or private to each,
+    poisson arrivals of 2 to 5 new tokens: the card emits the CPU's
+    streams and rids with the same RouterStats, cache stats, per-replica
+    StoreStats and clock, and one f32 head serves both replicas."""
+    import dataclasses
+
+    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Workload, serve
+    dev = _card()
+    cfg = engram_27b.reduced()
+    ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
+        cfg.engram, store=StoreConfig(cache_rows=2048, admission="tinylfu")))
+    params = init_params(cfg, seed=0, device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params)
+    wl = Workload(requests=8, max_new=2, max_new_jitter=3, prompt_pool=3,
+                  arrival="poisson", qps=1e5, seed=1)
+    lens = [spec.max_new for spec in wl.build(cfg.vocab_size)]
+    host_timed = ("wall_s", "ttft_s_sum")
+    seen = []
+    for device, p in (("cpu", params), (dev, params_dev)):
+        res = serve(ccfg, wl, pool="CXL", replicas=2, policy="least_loaded",
+                    shared_cache=shared, params=p, device=device,
+                    max_batch=2, max_len=64, prompt_bucket=8,
+                    emulate_step_s=5e-5)
+        router, hs = res.router, res.handles
+        heads = {id(rt.engine.params["head"]["w32"])
+                 for rt in router.replicas}
+        assert len(heads) == 1
+        rs = router.stats()
+        seen.append(([h.tokens for h in hs], [h.rid for h in hs],
+                     {n: {k: v for k, v in dataclasses.asdict(st).items()
+                          if k not in host_timed}
+                      for n, st in rs.per_replica.items()},
+                     dataclasses.asdict(rs.cache) if shared else None,
+                     {n: dataclasses.asdict(st)
+                      for n, st in router.store_stats().items()},
+                     rs.migrations, _links(router.clock)))
+    cpu, card = seen
+    assert card == cpu
+    assert card[5] > 0
+    assert [len(t) for t in card[0]] == lens

@@ -5,8 +5,8 @@ from the reference, the port's ``Engine(device="cpu")`` must emit the
 reference ``Engine``'s token streams exactly and leave equal ``StoreStats``,
 with and without a pool tier; a steady pool decode wave reads the device
 once (tests/test_hotpath.py's budget). Also: the port runs on the card by
-default, raises for options later slices port, and imports nothing of JAX
-or of the JAX package."""
+default, takes the reference's fleet options, raises for options later
+slices port, and imports nothing of JAX or of the JAX package."""
 import dataclasses
 import os
 import subprocess
@@ -31,7 +31,10 @@ from repro_torch.kernels.engram_gather import gather_rows  # noqa: E402
 from repro_torch.kernels.gated_fuse import engram_gated_fuse  # noqa: E402
 from repro_torch.models.params import from_jax  # noqa: E402
 from repro_torch.pool.store import TableFetcher, fetch_layers  # noqa: E402
+from repro_torch.models.layers import with_f32_head  # noqa: E402
+from repro_torch.pool.store import make_store  # noqa: E402
 from repro_torch.serving import Engine, OverloadPolicy  # noqa: E402
+from repro_torch.serving import VirtualClock  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 
 torch.set_num_threads(2)
@@ -238,13 +241,25 @@ def test_unported_options_raise(setup):
         "CXL+SSD"
     with pytest.raises(TypeError):
         Engine(cfg, no_such_option=1, **kw)
-    # the reference's fleet surface waits for the router
-    assert set(engine_mod._UNPORTED) == {"store", "clock", "name",
-                                         "rid_start", "step_latency_hint_s"}
-    for bad in (dict(store=object()), dict(clock=object()), dict(name="r0"),
-                dict(rid_start=5), dict(step_latency_hint_s=0.01)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            Engine(cfg, **bad, **kw)
+    # the fleet options (ported with the router): the store and clock
+    # passed in are the ones used, rids count up from rid_start as in the
+    # reference, the name labels the cursor, the hint seeds the estimate
+    assert not hasattr(engine_mod, "_UNPORTED")
+    clock = VirtualClock()
+    store = make_store(cfg.engram, "CXL", clock=clock)
+    eng = Engine(cfg, pool="CXL", store=store, clock=clock, name="r0",
+                 rid_start=5, step_latency_hint_s=0.01, max_batch=1,
+                 max_len=64, prompt_bucket=8, **kw)
+    assert eng.store is store and eng.clock is clock and eng.name == "r0"
+    assert store.cursor is eng.cursor and "r0" in clock.stats()["cursors"]
+    assert eng._step_estimate_s() == 0.01
+    assert eng.submit([1, 2], max_new=2) == 6
+    ref = RefEngine(setup[1], params=setup[2], rid_start=5,
+                    name="r0", max_batch=1, max_len=64, prompt_bucket=8)
+    assert ref.submit([1, 2], max_new=2) == 6
+    stats = eng.run()
+    assert list(eng.done) == [6] and stats.generated_tokens == 2
+    assert Engine(cfg, **kw).name is None
     eng = Engine(cfg, max_batch=1, max_len=64, prompt_bucket=8, **kw)
     eng.submit([1, 2], max_new=2, arrival_s=1.0, klass="zipf",
                slo="interactive")
@@ -252,6 +267,23 @@ def test_unported_options_raise(setup):
     assert (req.submitted_v, req.klass, req.slo) == (1.0, "zipf",
                                                      "interactive")
     assert eng.cursor.now_s == 1.0
+
+
+def test_engines_share_one_f32_head(setup):
+    """``with_f32_head`` keeps a ``w32`` the tree already holds: engines
+    built from one prepared tree share one f32 head (the router's replicas),
+    and an f32 head is the head itself, not a copy."""
+    cfg, _, _, params = setup
+    kw = dict(max_batch=1, max_len=64, prompt_bucket=8, device="cpu")
+    bf16 = dict(params, head={"w": params["head"]["w"].bfloat16()})
+    prepared = with_f32_head(bf16)
+    assert with_f32_head(prepared) is prepared
+    a, b = (Engine(cfg, params=prepared, **kw) for _ in range(2))
+    assert a.params["head"]["w32"] is b.params["head"]["w32"] \
+        is prepared["head"]["w32"]
+    assert a.params["head"]["w32"].dtype == torch.float32
+    f32 = Engine(cfg, params=params, **kw).params["head"]
+    assert f32["w32"].data_ptr() == params["head"]["w"].data_ptr()
 
 
 def test_port_imports_nothing_of_jax():
@@ -270,7 +302,8 @@ def test_port_imports_nothing_of_jax():
         "assert 'repro_torch.spec.proposer' in sys.modules\n"
         "assert 'repro_torch.spec.verifier' in sys.modules\n"
         "for m in ('pool.cost', 'pool.kvpool', 'pool.tierchain', "
-        "'pool.fabric', 'serving.slo'):\n"
+        "'pool.fabric', 'serving.slo', 'serving.router', 'serving.api', "
+        "'serving.workload', 'pool.feasibility', 'pool.simulator'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -483,5 +483,15 @@ def test_prefix_cache_options_checked(tiny):
     with pytest.raises(ValueError, match="block_tokens"):
         EngramRuntime(cfg, prefill_chunk=4,
                       prefix_cache=PrefixKVCache(1 << 20, 8), **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PrefixKVCache(1 << 20, 8).view("r0")
+    # fleet views (ported with the router) share one cache's blocks
+    shared = PrefixKVCache(1 << 20, 8)
+    v0, v1 = shared.view("r0"), shared.view("r1")
+    assert v0.block_tokens == v1.block_tokens == 8
+    assert v0.insert(11, "snap", 8, 100) and 11 in v1
+    assert v1.lookup([11, 12]) == (1, "snap", 100)
+    st = shared.stats()
+    assert st.per_view["r0"]["inserts"] == 1
+    assert st.per_view["r1"]["hit_blocks"] == 1
+    assert v1.stats() == st and v1.hit_rate == 0.5
+    with pytest.raises(AssertionError, match="duplicate"):
+        shared.view("r0")

@@ -185,8 +185,18 @@ def test_make_store_builds_cached_store():
     with pytest.raises(ValueError):
         port_store.make_store(E27, "RDMA", store_cfg=StoreConfig(
             cache_rows=64, admission="bogus"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_cache.SharedCache(64)
+    # a SharedCache (ported with the router) builds, and its views share
+    # rows: a store over one view hits what the other view's store fetched
+    shared = port_cache.SharedCache(64)
+    stores = [port_store.make_store(E27, "RDMA", cache=shared.view(n))
+              for n in ("r0", "r1")]
+    assert all(st.cache.shared is shared for st in stores)
+    assert stores[0].stats().cache_rows == 64
+    keys = np.arange(16, dtype=np.int64)
+    assert stores[0].prefetch(keys).misses == 16
+    assert stores[1].prefetch(keys).hits == 16
+    assert len(stores[1].cache) == len(shared.cache) == 16
+    assert shared.stats().per_view["r1"]["hits"] == 16
 
 
 def test_scheduler_cached_store_rescues_rdma():
