@@ -93,9 +93,30 @@ result lines are printed):
               in a group of 4 rows leaves phase 7's stream, with K2 and
               with its plain version in its place. Phase 6 also holds a
               two-replica fleet card = CPU.
+ 14. host     the Engram tables in pinned, device-mapped host memory
+              (``pooled_host``: K1 reads each row in place over the host
+              link): (a) phase 7's tables copied into registered host
+              buffers; K1 on host rows at the decode wave's 2 x 128 and the
+              verify wave's 2 x 512 rows, bit-equal to its plain version and
+              to K1 on the HBM copies, timed beside K1 from HBM, the
+              reference's route (CPU index_select, then a non_blocking copy)
+              and the byte bound at PCIe Gen5 x16's nominal 64 GB/s, with
+              the link's rate measured by one large copy printed beside
+              it; (b) engram-27b served with those host tables,
+              phase 7's prompts and 16 new tokens: phase 7's streams, K1
+              once per decode wave and once per Engram layer per admission
+              group, one read per steady wave, the peak about the tables'
+              23 GB below phase 7's; (c) deepseek-coder-33b (62 layers,
+              33.5 B parameters on the card, its tables drawn into (b)'s
+              buffers) and (d) engram-40b (40 layers, 74.2 GB of host
+              tables) at full width, 8 prompts x 8 new tokens each, with K2
+              held at their d (7168, 6144; T = 8, 256) and K1 bit-equal on
+              each model's own host tables (a decode wave's ids, the last
+              rows and rows past 4 GiB among them): launch and read
+              budgets, peak device memory under 80 GB.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 13); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 14); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -104,6 +125,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -150,21 +172,61 @@ def call_ms(fn, args_list, warmup: int = 3) -> float:
     return start.elapsed_time(end) / len(args_list)
 
 
-def device_ms(fn, args_list, warmup: int = 3) -> float:
-    """Mean device time per call: every kernel, copy and fill the profiler
-    (CUPTI) records over ``args_list``, summed, over the call count. Raises
-    if the profiler records no device time."""
+CUPTI_PRIME = 1024
+CUPTI_LOST: list = []
+
+
+@contextlib.contextmanager
+def cupti_session(ops: list):
+    """A CUDA-only profiler (CUPTI) session that appends to ``ops``, when
+    it closes, every kernel, copy and fill that started on the card after
+    its marker. The profiler loses the first device records of a session
+    (on an H100 with torch 2.11: none to 134 of them, more as the process
+    goes on), so a session first runs ``CUPTI_PRIME`` throwaway kernels
+    and then a spin kernel as its marker, and raises if the marker's
+    record was lost too. How many priming records each session
+    lost goes to ``CUPTI_LOST``."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for a in args_list[:warmup]:
-        fn(*a)
+    x = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(CUPTI_PRIME):
+            x.add_(1)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mark = [e for e in dev if "spin_kernel" in e.name]
+    check(len(mark) == 1, "the profiler lost its marker record")
+    end = mark[0].time_range.end
+    CUPTI_LOST.append(CUPTI_PRIME + 1 - sum(e.time_range.start < end
+                                            for e in dev))
+    ops.extend(e for e in dev if e.time_range.start >= end)
+
+
+def device_ms(fn, args_list, warmup: int = 3,
+              ops_per_call: int | None = None) -> float:
+    """Mean device time per call: the durations of every kernel, copy and
+    fill the profiler records over ``args_list`` (``cupti_session``),
+    summed, over the call count. Raises if it records no device time, or,
+    with ``ops_per_call``, any other number of device operations than that
+    many per call (a lost record would read as a faster call)."""
+    import torch
+    for a in args_list[:warmup]:
+        fn(*a)
+    ops = []
+    with cupti_session(ops):
         for a in args_list:
             fn(*a)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
+    us = sum(e.time_range.elapsed_us() for e in ops)
     check(us > 0, "the profiler recorded no device time")
+    if ops_per_call is not None:
+        check(len(ops) == ops_per_call * len(args_list),
+              f"the profiler recorded {len(ops)} device operations for "
+              f"{len(args_list)} calls of {ops_per_call}")
     return us / 1e3 / len(args_list)
 
 
@@ -214,9 +276,11 @@ def check_k1(cfg, dev) -> dict:
               f"K1 not bit-equal at N={n}")
         err = (out.float() - ref.float()).abs().max().item()
         args = [(flat, g) for g in gids]
-        ms = device_ms(gather_rows, [(flat, g) for g in cold((n,))])
+        ms = device_ms(gather_rows, [(flat, g) for g in cold((n,))],
+                       ops_per_call=1)
         plain = device_ms(gather_rows_ref, [(flat, g) for g in cold((n,))])
-        lib = device_ms(index_select, [(flat, g) for g in cold((n,))])
+        lib = device_ms(index_select, [(flat, g) for g in cold((n,))],
+                        ops_per_call=1)
         b_ms, b_by = bound(2 * n * row_bytes + 8 * n, 0)
         result[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by)
@@ -240,10 +304,12 @@ def check_k1(cfg, dev) -> dict:
         check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
               f"K1 multi-table not bit-equal at {L} x {n}")
         args = [(flats, g) for g in gids]
-        ms = device_ms(gather_rows_multi, [(flats, g) for g in cold((L, n))])
+        ms = device_ms(gather_rows_multi, [(flats, g) for g in cold((L, n))],
+                       ops_per_call=1)
         plain = device_ms(gather_rows_multi_ref,
                           [(flats, g) for g in cold((L, n))])
-        lib = device_ms(per_layer, [(flats, g) for g in cold((L, n))])
+        lib = device_ms(per_layer, [(flats, g) for g in cold((L, n))],
+                        ops_per_call=L)
         b_ms, b_by = bound(L * (2 * n * row_bytes + 8 * n), 0)
         result[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                            library_ms=lib, bound_ms=b_ms, bound_by=b_by)
@@ -288,59 +354,72 @@ def check_k1(cfg, dev) -> dict:
 # phase 4: K2
 # ---------------------------------------------------------------------------
 
-def check_k2(cfg, dev) -> dict:
+def k2_operands(gen, dev, n_t, d, F, dtype):
+    import torch
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    return (mk(n_t, d).to(dtype), mk(n_t, F).to(dtype),
+            (mk(d, d) / math.sqrt(d)).to(dtype),
+            (mk(F, d) / math.sqrt(F)).to(dtype))
+
+
+def time_k2(gen, dev, n_t: int, d: int, F: int) -> dict:
+    """K2 in bf16 at one shape against its plain version (one bf16 ulp,
+    bit-identical across calls), device-timed with cold weights beside its
+    bound and the plain version."""
     import torch
     from repro_torch.kernels.gated_fuse import (engram_gated_fuse,
                                                 gated_fuse_ref)
     from repro_torch.kernels.gated_fuse.ops import plan_split
+    # each timed call has its own weights (78.6 MB at d = 5120, beyond the
+    # 50 MB L2): on the main path K2's weights are never warm
+    sets = [k2_operands(gen, dev, n_t, d, F, torch.bfloat16)
+            for _ in range(10)]
+    out = engram_gated_fuse(*sets[0])
+    ref = gated_fuse_ref(*sets[0])
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    check(torch.equal(out, engram_gated_fuse(*sets[0])),
+          f"K2 not bit-identical across two calls at T={n_t} d={d}")
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = device_ms(engram_gated_fuse, sets, ops_per_call=1)
+    plain = device_ms(gated_fuse_ref, sets)
+    nbytes = 2 * (2 * n_t * d + n_t * F + d * d + F * d)
+    flops = 2 * n_t * d * (d + F)
+    b_ms, b_by = bound(nbytes, flops)
+    check(ms >= b_ms, f"K2 at T={n_t} d={d}: {ms:.5f} ms is below its "
+          f"bound {b_ms:.6f} ms: the timing is at fault")
+    plan = plan_split(n_t, d, F)
+    print(f"K2 gated_fuse T={n_t} d={d} F={F} bf16: token tile "
+          f"{plan.bn}, split {plan.s_g} + {plan.s_p} parts (slabs per "
+          f"part {plan.q_g}, {plan.q_p}), grid {plan.grid} = "
+          f"{plan.blocks} blocks; max|err| {err:.3e} within rtol=2^-7 "
+          f"atol=1e-3, bit-identical across calls; device ms, cold "
+          f"weights: kernel {ms:.5f}, plain {plain:.5f}, bound "
+          f"{b_ms:.6f} ({b_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.3f} GFLOP, {100 * b_ms / ms:.1f} % of bound); "
+          f"per call with launch: kernel "
+          f"{call_ms(engram_gated_fuse, sets):.5f}")
+    del sets, out, ref
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_k2(cfg, dev) -> dict:
+    import torch
+    from repro_torch.kernels.gated_fuse import (engram_gated_fuse,
+                                                gated_fuse_ref)
     d = cfg.d_model
     F = len(cfg.engram.orders) * cfg.engram.emb_dim
     gen = torch.Generator(device=dev).manual_seed(2)
-
-    def operands(n_t, d, F, dtype):
-        mk = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa
-        return (mk(n_t, d).to(dtype), mk(n_t, F).to(dtype),
-                (mk(d, d) / math.sqrt(d)).to(dtype),
-                (mk(F, d) / math.sqrt(F)).to(dtype))
-
-    result = {}
     # decode batch; prefill groups of 1 to 4 x 32 tokens (the fleet's
     # admission groups); 8 x 32-token prefill group; a 2100-token prompt
-    for n_t in (8, 32, 64, 96, 128, 256, 2112):
-        # each timed call has its own weights (78.6 MB, beyond the 50 MB
-        # L2): on the main path K2's weights are never warm
-        sets = [operands(n_t, d, F, torch.bfloat16) for _ in range(10)]
-        out = engram_gated_fuse(*sets[0])
-        ref = gated_fuse_ref(*sets[0])
-        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
-        check(torch.equal(out, engram_gated_fuse(*sets[0])),
-              f"K2 not bit-identical across two calls at T={n_t}")
-        err = (out.float() - ref.float()).abs().max().item()
-        ms = device_ms(engram_gated_fuse, sets)
-        plain = device_ms(gated_fuse_ref, sets)
-        nbytes = 2 * (2 * n_t * d + n_t * F + d * d + F * d)
-        flops = 2 * n_t * d * (d + F)
-        b_ms, b_by = bound(nbytes, flops)
-        plan = plan_split(n_t, d, F)
-        result[n_t] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        print(f"K2 gated_fuse T={n_t} d={d} F={F} bf16: token tile "
-              f"{plan.bn}, split {plan.s_g} + {plan.s_p} parts (slabs per "
-              f"part {plan.q_g}, {plan.q_p}), grid {plan.grid} = "
-              f"{plan.blocks} blocks; max|err| {err:.3e} within rtol=2^-7 "
-              f"atol=1e-3, bit-identical across calls; device ms, cold "
-              f"weights: kernel {ms:.5f}, plain {plain:.5f}, bound "
-              f"{b_ms:.6f} ({b_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.3f} GFLOP, {100 * b_ms / ms:.1f} % of bound); "
-              f"per call with launch: kernel "
-              f"{call_ms(engram_gated_fuse, sets):.5f}")
-        del sets, out, ref
-        torch.cuda.empty_cache()
+    result = {n_t: time_k2(gen, dev, n_t, d, F)
+              for n_t in (8, 32, 64, 96, 128, 256, 2112)}
     for n_t, dd, ff, dtype, tol in ((5, 100, 36, torch.bfloat16, BF16_TOL),
                                     (13, 512, 264, torch.bfloat16, BF16_TOL),
                                     (37, 98, 30, torch.float32, F32_TOL),
                                     (40, 128, 64, torch.float32, F32_TOL)):
-        ops = operands(n_t, dd, ff, dtype)
+        ops = k2_operands(gen, dev, n_t, dd, ff, dtype)
         torch.testing.assert_close(engram_gated_fuse(*ops).float(),
                                    gated_fuse_ref(*ops).float(), **tol)
     print("K2 ragged shapes (bf16 5x100x36 element loads, bf16 13x512x264 "
@@ -781,7 +860,8 @@ def serve_prompts(cfg) -> list:
 def serve_full(cfg, params, dev, smi: str, reps: int = 2) -> tuple:
     """Serve 8 requests on full-width engram-27b, ``reps`` times after a
     warm-up at the same shapes; returns each kernel's launch count over
-    the last run and that run's token streams."""
+    the last run, that run's token streams and its decode-wave wall time
+    and peak memory (``serve_once``)."""
     import torch
     from repro_torch.serving import Engine
 
@@ -792,16 +872,19 @@ def serve_full(cfg, params, dev, smi: str, reps: int = 2) -> tuple:
     eng.warmup(prompts)              # the measured 8 x 32 prefill group
     rt = eng.runtime()
     for rep in range(reps):
-        launches, streams = serve_once(cfg, eng, rt, prompts, dev, smi, rep)
+        launches, streams, summary = serve_once(cfg, eng, rt, prompts, dev,
+                                                smi, rep)
     profile_waves(eng, rt, prompts)
-    return launches, streams
+    return launches, streams, summary
 
 
 def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> tuple:
     """One counted run of the main path: every request to completion with
     the kernels' launch counters and the engine's stats reset just before
     it; checks the counts, the reads per wave and the outputs. Returns the
-    launches and the token streams."""
+    launches, the token streams and {wave_ms, peak_gb}: the mean decode
+    wave's wall time and the peak device memory since the engine's
+    caller reset it."""
     import torch
     eng.reset_stats()
     n_steps0 = len(eng._step_times)
@@ -844,7 +927,9 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> tuple:
           f"{st.mean_ttft_s * 1e3:.2f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, run "
           f"{run_s:.2f} s")
-    return launches, [h.tokens for h in handles]
+    summary = dict(wave_ms=decode_s * 1e3 / st.decode_steps,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, [h.tokens for h in handles], summary
 
 
 def profile_waves(eng, rt, prompts, max_new: int = 6,
@@ -855,7 +940,6 @@ def profile_waves(eng, rt, prompts, max_new: int = 6,
     The first step (admission, and in chunked mode the chunk waves) is not
     profiled."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         rt.submit(p, max_new=max_new)
     rt.step()                        # admission + the post-admission wave
@@ -863,25 +947,28 @@ def profile_waves(eng, rt, prompts, max_new: int = 6,
         rt.step()
     torch.cuda.synchronize()
     waves0 = eng.stats.decode_steps
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    ops = []
+    with cupti_session(ops):
+        t0 = time.perf_counter()
         while eng.busy:
             rt.step()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     n = eng.stats.decode_steps - waves0
-    ev = prof.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    n_ops = sum(e.count for e in ev)
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    by_name = {}
+    for e in ops:
+        calls, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     check(n > 0, f"{label}: no wave left to profile")
     print(f"{label}: {n} steady waves under the profiler: wall "
           f"{wall_ms / n:.3f} ms/wave, device busy {dev_ms / n:.3f} ms/wave "
-          f"({100 * dev_ms / wall_ms:.1f} % of wall), {n_ops / n:.0f} "
+          f"({100 * dev_ms / wall_ms:.1f} % of wall), {len(ops) / n:.0f} "
           f"device kernels/copies per wave")
-    for e in top:
-        print(f"{label}:   {e.self_device_time_total / 1e3 / n:9.4f} ms/wave"
-              f"  {e.count / n:6.1f} calls/wave  {e.key[:90]}")
+    for name, (calls, us) in top:
+        print(f"{label}:   {us / 1e3 / n:9.4f} ms/wave  {calls / n:6.1f} "
+              f"calls/wave  {name[:90]}")
 
 
 def serve_long_prompt(cfg, params, dev, smi: str) -> dict:
@@ -1902,6 +1989,395 @@ def serve_fleet(cfg, params, dev, smi: str, prompts, streams,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: host tables (pooled_host) at full width
+# ---------------------------------------------------------------------------
+
+PCIE5_X16_BYTES_PER_S = 64e9     # PCIe Gen5 x16, nominal, one direction
+
+
+def host_status(label: str) -> str:
+    """Host memory registered for the card now, and the kernel's
+    MemAvailable."""
+    from repro_torch.kernels.engram_gather.host import pinned_bytes
+    avail = next(int(line.split()[1]) * 1024 for line in
+                 open("/proc/meminfo") if line.startswith("MemAvailable"))
+    return (f"{label}: host pinned {pinned_bytes() / 1e9:.2f} GB, "
+            f"MemAvailable {avail / 1e9:.2f} GB")
+
+
+def host_facts(smi: str) -> None:
+    """What phase 14 depends on: the machine's memory, the memlock limit
+    (cudaHostRegister does not appear to be held to it here), and whether
+    PyTorch's pinned allocator rounds a request up (why the tables get
+    exact-size registered buffers instead)."""
+    import resource
+
+    import torch
+    mem = {line.split(":")[0]: line.split()[1] for line in
+           open("/proc/meminfo")}
+    soft, hard = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    ask = (64 << 20) + (1 << 20)
+    before = torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
+    x = torch.empty(ask, dtype=torch.uint8, pin_memory=True)
+    took = torch.cuda.host_memory_stats().get("allocated_bytes.current",
+                                              0) - before
+    del x
+    print(f"host [{smi}]: MemTotal {mem['MemTotal']} kB, MemAvailable "
+          f"{mem['MemAvailable']} kB, RLIMIT_MEMLOCK soft {soft} hard "
+          f"{hard} B, {os.cpu_count()} cores; PyTorch's pinned allocator "
+          f"took {took} B for a {ask} B request")
+
+
+def link_rate(host_flat, dev) -> float:
+    """Bytes/s of one large copy from a registered host buffer to the card
+    (2 GiB, the best of 3 after one warm-up)."""
+    import torch
+    n = min(host_flat.numel(), 1 << 30)
+    src = host_flat.view(-1)[:n]
+    dst = torch.empty(n, dtype=src.dtype, device=dev)
+    best = 0.0
+    for rep in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        if rep:
+            best = max(best, n * src.element_size()
+                       / (start.elapsed_time(end) / 1e3))
+    return best
+
+
+def check_k1_host(cfg, hbm, host, dev, smi: str) -> dict:
+    """(a) K1 reading rows in place from the host tables ``host`` (phase
+    7's, just copied down) against its plain version on the same bytes
+    (bit-equal) and against K1 on the HBM copies ``hbm``, at the decode
+    wave's 2 x 128 rows and the verify wave's 2 x 512; timed beside K1 from
+    HBM, the reference's route (CPU index_select on the pinned table, then
+    a non_blocking copy to the card) and the byte bound at the host link's
+    nominal peak (PCIe Gen5 x16); the link's rate measured in the run is
+    printed and returned beside it, not used as a bound. Synchronises after every checked call: a trap on a host
+    row shows only at the next sync."""
+    import torch
+    from repro_torch.kernels.engram_gather import (gather_rows_multi,
+                                                   gather_rows_multi_ref)
+    from repro_torch.kernels.engram_gather.host import device_pointer
+    e = cfg.engram
+    L = len(hbm)
+    T, V, hd = hbm[0].shape
+    hbm_f = [t.view(T * V, hd) for t in hbm]
+    host_f = [t.view(T * V, hd) for t in host]
+    row_bytes = hd * host[0].element_size()
+    ptrs = [device_pointer(t) for t in host_f]
+    check(all(p is not None and p % 16 == 0 for p in ptrs),
+          f"host tables' device addresses {ptrs} not 16-byte aligned: K1 "
+          f"would copy byte by byte")
+    rate = link_rate(host_f[0], dev)
+    print(f"host tables [{smi}]: {L} x {T} x {V} x {hd} "
+          f"{host[0].dtype}; device address == host address "
+          f"{ptrs == [t.data_ptr() for t in host_f]}; host->card "
+          f"link {rate / 1e9:.2f} GB/s measured (one 2 GiB copy from a "
+          f"registered buffer, best of 3), PCIe Gen5 x16 nominal "
+          f"{PCIE5_X16_BYTES_PER_S / 1e9:.0f} GB/s")
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def cold(n):
+        return [torch.randint(0, T * V, (L, n), generator=gen, device=dev)
+                for _ in range(40)]
+
+    def ref_route(g_cpu, staging):
+        for j in range(L):
+            torch.index_select(host_f[j], 0, g_cpu[j], out=staging[j])
+        return staging.to(dev, non_blocking=True)
+
+    result = {}
+    for key, n, what in (("wave", 16 * 8, "a decode wave"),
+                         ("spec", 16 * 8 * 4, "a verify wave, B=8 m=4")):
+        for g in cold(n)[:4]:
+            out = gather_rows_multi(host_f, g)
+            torch.cuda.synchronize()
+            g_cpu = g.cpu()
+            check(torch.equal(out.cpu().view(torch.int16),
+                              gather_rows_multi_ref(host_f, g_cpu)
+                              .view(torch.int16)),
+                  f"K1 on host rows not bit-equal at {L} x {n}")
+            check(torch.equal(out.view(torch.int16),
+                              gather_rows_multi(hbm_f, g).view(torch.int16)),
+                  f"K1 on host rows != K1 on HBM at {L} x {n}")
+            torch.cuda.synchronize()
+        ms = device_ms(gather_rows_multi, [(host_f, g) for g in cold(n)],
+                       ops_per_call=1)
+        hbm_ms = device_ms(gather_rows_multi, [(hbm_f, g) for g in cold(n)],
+                           ops_per_call=1)
+        gids = [g.cpu() for g in cold(n)]
+        t0 = time.perf_counter()
+        for g in gids:
+            gather_rows_multi_ref(host_f, g)
+        plain = (time.perf_counter() - t0) * 1e3 / len(gids)
+        staging = [torch.empty((L, n, hd), dtype=host[0].dtype,
+                               pin_memory=True) for _ in gids]
+        lib = call_ms(ref_route, list(zip(gids, staging)))
+        with_launch = call_ms(gather_rows_multi,
+                              [(host_f, g) for g in cold(n)])
+        link_ms = L * n * row_bytes / PCIE5_X16_BYTES_PER_S * 1e3
+        hbm_b_ms, _ = bound(L * (n * row_bytes + 8 * n), 0)
+        b_ms, b_by = max((link_ms, "bytes over the host link at 64 GB/s"),
+                         (hbm_b_ms, "bytes over HBM"))
+        check(ms >= b_ms, f"K1 on host rows at {L} x {n}: {ms:.5f} ms is "
+              f"below its bound {b_ms:.6f} ms: the timing is at fault")
+        result[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by="bytes",
+                           hbm_ms=hbm_ms, link_GBps=rate / 1e9)
+        print(f"K1 host rows {L} tables x {n} rows ({what}, one launch) "
+              f"[{smi}]: bit-equal to the plain version and to K1 on HBM; "
+              f"device ms: kernel {ms:.5f} (from HBM {hbm_ms:.5f}), bound "
+              f"{b_ms:.6f} ({b_by}: {L * n * row_bytes} B of rows; "
+              f"the kernel at {100 * b_ms / ms:.1f} % of it; at the "
+              f"measured {rate / 1e9:.2f} GB/s the rows take "
+              f"{L * n * row_bytes / rate * 1e3:.6f}); per call with "
+              f"launch: kernel {with_launch:.5f}; host ms: plain "
+              f"version (CPU gather) {plain:.5f}, the reference's route "
+              f"(CPU index_select into pinned memory + non_blocking copy) "
+              f"{lib:.5f}")
+        del staging
+    return result
+
+
+def serve_27b_once(cfg, params, dev, prompts, flags) -> tuple:
+    """Phase 7's engine shapes and warm-up, its 8 prompts x 16 new tokens
+    under ``flags``, counted from zero: (engine, launches, reads per step,
+    run seconds, token streams, mean decode-wave ms)."""
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, params=params, flags=flags, pool="CXL", max_batch=8,
+                 max_len=512, prompt_bucket=32, device=dev)
+    eng.warmup(prompts)
+    rt = eng.runtime()
+    eng.reset_stats()
+    n_steps0 = len(eng._step_times)
+    reset_launches()
+    handles = [rt.submit(p, max_new=16) for p in prompts]
+    pulls, run_s = drive(eng, rt)
+    launches = read_launches()
+    wave_ms = sum(eng._step_times[n_steps0:]) * 1e3 / eng.stats.decode_steps
+    return eng, launches, pulls, run_s, [h.tokens for h in handles], wave_ms
+
+
+def serve_host_27b(cfg, params, dev, smi: str, prompts, streams,
+                   serve7: dict) -> tuple:
+    """(a) and (b): phase 7's tables move into registered host buffers
+    (``tables_to_host``, in place in phase 7's tree); K1 is held on the
+    host rows (``check_k1_host``) while the HBM copies still exist, and a
+    control run serves phase 7's mix from those HBM copies; then, the HBM
+    copies freed, engram-27b serves phase 7's 8 prompts, 16 new tokens,
+    with ``RunFlags(engram_strategy="pooled_host")`` and ``pool="CXL"``
+    after the same warm-up. The streams must be phase 7's, K1 must launch
+    once per decode wave and once per Engram layer per admission group,
+    one read per steady wave and no other sync, and the peak device memory
+    must drop by about the tables' 23 GB. The decode-wave wall time is
+    printed beside the control's (same process state, just before) and
+    phase 7's. Returns the launches of both runs, K1's host timings and
+    the two host buffers."""
+    import torch
+    from repro_torch.models.params import tables_to_host
+    from repro_torch.models.transformer import RunFlags
+
+    host_facts(smi)
+    layers = params["engram"]["layers"]
+    hbm = [layer["tables"] for layer in layers]
+    nbytes = sum(t.numel() * t.element_size() for t in hbm)
+    t0 = time.perf_counter()
+    tables_to_host(params)
+    move_s = time.perf_counter() - t0
+    host = [layer["tables"] for layer in layers]
+    print(f"host run b: {nbytes / 1e9:.3f} GB of phase 7's tables moved to "
+          f"host in {move_s:.2f} s (map, register and copy); "
+          + host_status("now"))
+    k1 = check_k1_host(cfg, hbm, host, dev, smi)
+    ctrl = dict(params, engram={"layers": [dict(layer, tables=t) for
+                                           layer, t in zip(layers, hbm)]})
+    eng, ctrl_launches, _, _, got, ctrl_ms = serve_27b_once(
+        cfg, ctrl, dev, prompts, RunFlags())
+    check(got == streams, "host run b: the HBM control's streams differ "
+          "from phase 7's")
+    del eng, ctrl, hbm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    eng, launches, pulls, run_s, got, wave_ms = serve_27b_once(
+        cfg, params, dev, prompts, RunFlags(engram_strategy="pooled_host"))
+    st = eng.stats
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(got == streams, f"host run b: streams {got} differ from phase "
+          f"7's {streams}")
+    k1_want = st.decode_steps + len(layers) * st.prefill_waves
+    check(launches["engram_gather"] == k1_want,
+          f"host run b: K1 launches {launches['engram_gather']} != "
+          f"{st.decode_steps} decode waves + {len(layers)} x "
+          f"{st.prefill_waves} admission groups")
+    check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
+          f"host run b: K2 launches {launches['gated_fuse']}")
+    check(len(pulls) == st.decode_steps and all(p == 1 for p in pulls[1:]),
+          f"host run b: device->host reads per step {pulls}")
+    check(peak < serve7["peak_gb"] - 20,
+          f"host run b: peak {peak:.2f} GB is not about 23 GB below phase "
+          f"7's {serve7['peak_gb']:.2f} GB")
+    print(f"host run b: engram-27b, pooled_host, pool=CXL, 8 requests x 16 "
+          f"tokens: streams equal to phase 7's; {st.prefill_waves} "
+          f"admission group(s), {st.decode_steps} decode waves; K1 launches "
+          f"{launches['engram_gather']} (1 per decode wave + "
+          f"{len(layers)} per admission group), K2 launches "
+          f"{launches['gated_fuse']}; reads per step {pulls}; no other "
+          f"sync")
+    print(f"host run b [{smi}]: decode wave {wave_ms:.2f} ms (tables in "
+          f"HBM: {ctrl_ms:.2f} ms in the control run just before, "
+          f"{serve7['wave_ms']:.2f} ms in phase 7), peak device memory "
+          f"{peak:.2f} GB (phase 7: {serve7['peak_gb']:.2f} GB), run "
+          f"{run_s:.2f} s; " + host_status("host"))
+    del eng
+    for k in launches:
+        launches[k] += ctrl_launches[k]
+    return launches, k1, host
+
+
+def check_host_rows(params, dev, label: str) -> None:
+    """K1 on a model's own host tables against its plain version on the
+    same bytes, bit-equal: one decode wave's ids (2 x 128), drawn over each
+    table's whole row space, with the first and last rows, the last row of
+    every sub-table and the rows either side of the byte offsets 2^31 to
+    2^35 among them (engram-40b's tables hold 37 GB each: the kernel's
+    offsets must not wrap at 32 bits). Synchronises after the call: a trap
+    on a host row shows only at the next sync."""
+    import torch
+    from repro_torch.kernels.engram_gather import (gather_rows_multi,
+                                                   gather_rows_multi_ref)
+    tabs = [layer["tables"] for layer in params["engram"]["layers"]]
+    T, V, hd = tabs[0].shape
+    R, row_bytes = T * V, hd * tabs[0].element_size()
+    edges = [0, R - 1] + [t * V + V - 1 for t in range(T)]
+    for k in range(31, 36):
+        r = (1 << k) // row_bytes
+        edges += [x for x in (r - 1, r) if x < R]
+    n = 16 * 8
+    gen = torch.Generator(device=dev).manual_seed(15)
+    gid = torch.randint(0, R, (len(tabs), n), generator=gen, device=dev)
+    gid[:, :len(edges)] = torch.tensor(edges, device=dev)
+    flats = [t.view(R, hd) for t in tabs]
+    out = gather_rows_multi(flats, gid)
+    torch.cuda.synchronize()
+    check(torch.equal(out.cpu().view(torch.int16),
+                      gather_rows_multi_ref(flats, gid.cpu())
+                      .view(torch.int16)),
+          f"{label}: K1 on the host tables not bit-equal to its plain "
+          f"version")
+    print(f"{label}: K1 on the model's host tables bit-equal to its plain "
+          f"version at {len(tabs)} x {n} rows ({len(edges)} fixed: rows 0 "
+          f"and {R - 1} (byte offset {(R - 1) * row_bytes}), the last row "
+          f"of each of the {T} sub-tables, rows either side of 2^31 to "
+          f"2^35 B)")
+
+
+def serve_host_model(name: str, dev, smi: str, host_tables=None) -> tuple:
+    """(c) and (d): a model whose tables do not fit beside its weights on
+    the card, at full width and depth: K2 held at its d (T = 8 and 256)
+    first, then the weights drawn on the card and the tables drawn on the
+    card chunk by chunk into registered host buffers (``host_tables``
+    reused when given), then 8 prompts x 8 new tokens behind
+    ``Engine(pool="CXL", max_batch=8, max_len=512)`` with pooled_host. K1
+    bit-equal on the model's host tables (``check_host_rows``), then K1
+    once per decode wave and once per Engram layer per admission group,
+    K2 twice per wave and group, one read per steady wave and no other
+    sync, tokens in the vocabulary, finite prefill logits, peak device
+    memory under 80 GB. Returns the launches and K2's timings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.engram_gather.host import host_empty
+    from repro_torch.models.model import init_params, model_defs
+    from repro_torch.models.params import DTYPES, tree_leaves
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine
+
+    cfg = get_config(name)
+    e = cfg.engram
+    label = f"host run {name}"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k2 = {n_t: time_k2(gen, dev, n_t, cfg.d_model,
+                       len(e.orders) * e.emb_dim) for n_t in (8, 256)}
+    torch.cuda.reset_peak_memory_stats()
+    reused = host_tables is not None
+    t0 = time.perf_counter()
+    if not reused:
+        host_tables = [host_empty(d.shape, DTYPES[d.dtype]) for d in
+                       (layer["tables"] for layer in
+                        model_defs(cfg)["engram"]["layers"])]
+    t1 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, table_memory="pinned_host",
+                         host_tables=host_tables)
+    reg_s, draw_s = t1 - t0, time.perf_counter() - t1
+    del host_tables
+    leaves = list(tree_leaves(params))
+    on_card = sum(t.numel() for t in leaves if t.device.type == "cuda")
+    on_host = sum(t.numel() * t.element_size() for t in leaves
+                  if t.device.type == "cpu")
+    print(f"{label}: {cfg.n_layers} layers d_model {cfg.d_model} vocab "
+          f"{cfg.vocab_size} engram layers {cfg.engram_layers()}: "
+          f"{on_card / 1e9:.3f} B parameters on the card, "
+          f"{on_host / 1e9:.3f} GB of tables in host memory "
+          f"({'reused buffers' if reused else 'new buffers'}): map and "
+          f"register {reg_s:.2f} s, draw and fill {draw_s:.2f} s; "
+          + host_status("now"))
+    check_host_rows(params, dev, label)
+    eng = Engine(cfg, params=params, flags=RunFlags(
+        engram_strategy="pooled_host"), pool="CXL", max_batch=8,
+        max_len=512, prompt_bucket=32, device=dev)
+    del params, leaves
+    prompts = serve_prompts(cfg)
+    eng.warmup(prompts)
+    rt = eng.runtime()
+    eng.reset_stats()
+    n_steps0 = len(eng._step_times)
+    reset_launches()
+    handles = [rt.submit(p, max_new=8) for p in prompts]
+    pulls, run_s = drive(eng, rt)
+    launches = read_launches()
+    st = eng.stats
+    n_eng = len(cfg.engram_layers())
+    check(all(h.finished and len(h.tokens) == 8 for h in handles)
+          and all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
+          f"{label}: not every request emitted 8 tokens of the vocabulary")
+    check(launches["engram_gather"] == st.decode_steps
+          + n_eng * st.prefill_waves,
+          f"{label}: K1 launches {launches['engram_gather']} != "
+          f"{st.decode_steps} + {n_eng} x {st.prefill_waves}")
+    check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
+          f"{label}: K2 launches {launches['gated_fuse']}")
+    check(len(pulls) == st.decode_steps and all(p == 1 for p in pulls[1:]),
+          f"{label}: device->host reads per step {pulls}")
+    logits, _ = eng._prefill_fn(eng.params, {
+        "tokens": torch.tensor([prompts[0]], device=dev),
+        "lengths": torch.tensor([len(prompts[0])], device=dev)})
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{label}: prefill logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
+    decode_s = sum(eng._step_times[n_steps0:])
+    tokens = st.generated_tokens - st.prefills
+    print(f"{label}: pooled_host, pool=CXL, 8 requests x 8 tokens, "
+          f"{st.prefill_waves} admission group(s), {st.decode_steps} decode "
+          f"waves; K1 launches {launches['engram_gather']}, K2 launches "
+          f"{launches['gated_fuse']}; reads per step {pulls}; no other sync")
+    print(f"{label} [{smi}]: decode {tokens / decode_s:.2f} tok/s, wave "
+          f"{decode_s * 1e3 / st.decode_steps:.2f} ms, mean TTFT "
+          f"{st.mean_ttft_s * 1e3:.2f} ms, peak device memory {peak:.2f} GB,"
+          f" run {run_s:.2f} s; first stream {handles[0].tokens}; "
+          + host_status("host"))
+    del eng, rt, logits
+    return launches, k2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1944,7 +2420,7 @@ def main() -> int:
     check_agreement_tiers(dev)
     check_agreement_fleet(dev)
     params = draw_params(cfg, dev)
-    launches, streams = serve_full(cfg, params, dev, smi)
+    launches, streams, serve7 = serve_full(cfg, params, dev, smi)
     prompts = serve_prompts(cfg)
     for phase in (serve_long_prompt, serve_chunked,
                   lambda *a: serve_spec(*a, prompts, streams),
@@ -1955,6 +2431,27 @@ def main() -> int:
         torch.cuda.empty_cache()  # runtime) before the next one's caches
         for k, n in phase(cfg, params, dev, smi).items():
             launches[k] += n
+
+    # phase 14: the tables in host memory; each model freed before the next
+    t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_launches, k1_host, host_tables = serve_host_27b(
+        cfg, params, dev, smi, prompts, streams, serve7)
+    del params
+    k2_host = {}
+    for name in ("deepseek-coder-33b", "engram-40b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        # coder-33b's tables have engram-27b's shape: its buffers are reused,
+        # then freed before engram-40b's 74 GB are registered
+        n, k2_host[name] = serve_host_model(name, dev, smi, host_tables)
+        host_tables = None
+        for k in host_launches:
+            host_launches[k] += n[k]
+    for k, n in host_launches.items():
+        launches[k] += n
+    print(f"host: phase 14 took {time.perf_counter() - t14:.1f} s")
 
     kernels = [
         dict(name="engram_gather", route="cuda",
@@ -1969,10 +2466,22 @@ def main() -> int:
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
           "(decode, and each unrolled verify step); launches summed over "
-          "the serve, long-prompt, chunked, spec, overload, tiers and fleet "
-          "runs; also "
-          "measured: "
-          + json.dumps({"engram_gather_2x512_verify_wave": k1["spec"],
+          "the serve, long-prompt, chunked, spec, overload, tiers, fleet "
+          "and host-table runs; also measured (host rows: plain_ms is the "
+          "CPU gather and library_ms the reference's route, both on the "
+          "host clock; bound at PCIe Gen5 x16's nominal 64 GB/s, link_GBps "
+          "the rate measured in the run): "
+          + json.dumps({"engram_gather_host_2x128_decode_wave":
+                        k1_host["wave"],
+                        "engram_gather_host_2x512_verify_wave":
+                        k1_host["spec"],
+                        "gated_fuse_d7168_T8":
+                        k2_host["deepseek-coder-33b"][8],
+                        "gated_fuse_d7168_T256":
+                        k2_host["deepseek-coder-33b"][256],
+                        "gated_fuse_d6144_T8": k2_host["engram-40b"][8],
+                        "gated_fuse_d6144_T256": k2_host["engram-40b"][256],
+                        "engram_gather_2x512_verify_wave": k1["spec"],
                         "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],
                         "gated_fuse_T32": k2[32],
@@ -1981,6 +2490,10 @@ def main() -> int:
                         "gated_fuse_T128": k2[128],
                         "gated_fuse_T256": k2[256],
                         "gated_fuse_T2112": k2[2112]}))
+    print(f"profiler: {len(CUPTI_LOST)} sessions lost {min(CUPTI_LOST)} to "
+          f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records, "
+          f"in order {CUPTI_LOST}; device times count only the records "
+          f"after each session's marker")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

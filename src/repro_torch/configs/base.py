@@ -365,12 +365,14 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    from . import deepseek_7b, engram_27b  # noqa: F401
+    from . import (deepseek_7b, deepseek_coder_33b,  # noqa: F401
+                   engram_27b, engram_40b)
     _LOADED = True
 
 
 # Engram table presets (paper §5.2)
 ENGRAM_27B = dict(table_vocab=2_262_400, emb_dim=1280, n_heads=8, orders=(2, 3))
+ENGRAM_40B = dict(table_vocab=7_239_680, emb_dim=1280, n_heads=8, orders=(2, 3))
 
 
 def engram_for(depth: int, preset: dict, **kw) -> EngramConfig:

@@ -10,12 +10,23 @@ Retrieval strategies of the reference, as they run on one device:
   tp / pooled   the reference's mesh strategies. Without a mesh they reduce
                 to ``local`` exactly as the reference's do, and this port
                 has no mesh yet;
-  pooled_host   a host-offloaded table: not ported yet (ROADMAP queue 1,
-                item 9).
+  pooled_host   the tables live in pinned, device-mapped host memory (the
+                paper's CXL pool as the card sees it: memory beside the
+                host, read over the host link). K1 reads each row in place
+                from the card into device memory (``retrieve_host``, the
+                paper's Listing 2); the weights and KV stay on the card.
+                ``models.params`` places the tables there
+                (``table_memory="pinned_host"``, ``tables_to_host``). On
+                the CPU the tables are plain CPU tensors and the gather is
+                K1's plain version.
 
-Fusion goes through the gated_fuse kernel (K2) on the port's path.
+``StrategySpec.store`` resolves each strategy to the store modelling what
+its placement costs (``pool.store.STRATEGY_TIERS``). Fusion goes through
+the gated_fuse kernel (K2) on the port's path.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -68,23 +79,53 @@ def retrieve_local_kernel(ecfg: EngramConfig, tables, idx):
     return rows.reshape(*rows.shape[:-2], -1)
 
 
-def _retrieve_host(ecfg: EngramConfig, tables, idx):
-    raise NotImplementedError(
-        "pooled_host retrieval (pinned host table read by K1) is ROADMAP "
-        "queue 1, item 9 (multi-device retrieval)")
+def retrieve_host(ecfg: EngramConfig, tables, idx):
+    """tables (T,V,hd) in host memory; idx (B,S,T) -> (B,S,T*hd) on idx's
+    device. On the card K1 reads the rows in place from the pinned, mapped
+    host tables (``engram_gather`` on a mapped CPU tensor); the reference
+    instead gathers on the host under ``compute_on("device_host")`` and the
+    rows then move to the device. Both give the same rows. ``idx`` on the
+    CPU takes K1's plain version. Tables on the card raise: this strategy
+    is a placement, and tables in HBM are ``local``'s."""
+    if tables.device.type != "cpu":
+        raise ValueError(f"pooled_host retrieval reads tables in host "
+                         f"memory; these live on {tables.device}")
+    rows = engram_gather(tables, idx)
+    return rows.reshape(*rows.shape[:-2], -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StrategySpec:
+    """A retrieval strategy: where the rows live and how they are read.
+    What that placement costs (tier latency, hot-row cache, prefetch
+    windows) is the store's concern: ``spec.store(ecfg)`` resolves the
+    matching ``EngramStore`` through ``pool.store.STRATEGY_TIERS``."""
+    name: str
+    fn: object                        # (ecfg, tables, idx) -> rows
+
+    def store(self, ecfg: EngramConfig):
+        from ..pool.store import store_for_strategy
+        return store_for_strategy(ecfg, self.name)
 
 
 STRATEGIES = {
-    "local": retrieve_local,
-    "local_kernel": retrieve_local_kernel,
-    "tp": retrieve_local,            # no mesh: the reference reduces to local
-    "pooled": retrieve_local,        # no mesh: the reference reduces to local
-    "pooled_host": _retrieve_host,
+    s.name: s for s in (
+        StrategySpec("local", retrieve_local),
+        StrategySpec("local_kernel", retrieve_local_kernel),
+        StrategySpec("tp", retrieve_local),   # no mesh: reduces to local
+        StrategySpec("pooled", retrieve_local),
+        StrategySpec("pooled_host", retrieve_host),
+    )
 }
 
 
 def retrieve(ecfg: EngramConfig, tables, idx, strategy: str = None):
-    return STRATEGIES[strategy or ecfg.strategy](ecfg, tables, idx)
+    return STRATEGIES[strategy or ecfg.strategy].fn(ecfg, tables, idx)
+
+
+def strategy_store(ecfg: EngramConfig, strategy: str = None):
+    """The EngramStore modelling the cost of ``strategy``'s placement."""
+    return STRATEGIES[strategy or ecfg.strategy].store(ecfg)
 
 
 def engram_fuse(cfg: ModelConfig, fuse_params, h, rows,

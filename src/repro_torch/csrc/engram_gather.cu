@@ -29,8 +29,16 @@
 // same kernel copies byte by byte, never a host-side fallback.
 //
 // Each table is a base pointer plus a row stride in bytes and a row count,
-// so the kernel can read rows from any addressable memory (device memory
-// here; pinned, mapped host memory for the paper's CXL-to-VRAM copy). Row
+// so the kernel reads rows from any memory the card can address: device
+// memory, or pinned, device-mapped host memory, the paper's CXL-to-VRAM
+// copy (Listing 2: a CXL expander shows up to the host as memory, and the
+// card reads it as it reads mapped host memory, over the host link). That
+// host path is served (strategy pooled_host) and checked against the plain
+// version by the wrapper's tests and chip_smoke.py. Over the link a row
+// costs one PCIe round trip instead of one to HBM, so keeping every row's
+// chain in flight at once matters more there, not less. The host entries at
+// the end register an existing host buffer and return its device address,
+// which is what the kernel is given. Row
 // ids are int64, laid out [table][row]. A row id outside [0, n_rows) traps:
 // the wrapper cannot check device-resident ids without a host sync, and a
 // silent zero row would hide the fault. The kernel allocates nothing and
@@ -117,4 +125,32 @@ extern "C" int engram_gather_tables(const void* const* bases,
         tabs, gid, (int)n_per_table, (int)n_total, static_cast<char*>(out),
         (int)row_bytes);
   return (int)cudaGetLastError();
+}
+
+// Host tables. Register the host buffer [ptr, ptr + nbytes) as pinned and
+// mapped into every context (cudaHostRegisterMapped | Portable) and pass
+// back the address through which the card reads it: a table in that buffer
+// is handed to the kernel at this address, which equals the host address
+// only where cudaDevAttrCanUseHostPointerForRegisteredMem says so. A failed
+// call's error is cleared here, so it does not surface at the next launch's
+// cudaGetLastError().
+extern "C" int engram_host_register(void* ptr, int64_t nbytes,
+                                    void** dev_ptr) {
+  if (ptr == nullptr || nbytes <= 0 || dev_ptr == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaHostRegister(
+      ptr, (size_t)nbytes, cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (e == cudaSuccess) {
+    e = cudaHostGetDevicePointer(dev_ptr, ptr, 0);
+    if (e != cudaSuccess) cudaHostUnregister(ptr);
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// Unregister a buffer registered by engram_host_register (by its base).
+extern "C" int engram_host_unregister(void* ptr) {
+  const cudaError_t e = cudaHostUnregister(ptr);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }

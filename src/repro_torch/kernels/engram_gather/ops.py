@@ -9,6 +9,15 @@ is whatever the wave needs and the lane width is the table's own (the
 TPU's power-of-two row buckets and 128-lane padding guard against
 recompiles and VMEM tiling, neither of which exists here).
 
+Where the tables live: on the card, or in pinned, device-mapped host
+memory (``host.host_empty``; the ``pooled_host`` strategy), which K1 reads
+in place over the host link and writes to rows on the card. Both are
+served paths, held bit-equal to the plain version on the card. The row
+ids decide where the call runs: ids on the CPU take the plain version
+(every table must then be on the CPU); ids on the card launch the kernel,
+and a CPU table that is not mapped for the card raises, never quietly
+copies.
+
 ``gather_rows.launches`` counts the kernel's launches, through whichever
 entry.
 """
@@ -20,6 +29,7 @@ from typing import Sequence
 import torch
 
 from ..build import load
+from .host import device_pointer
 from .ref import gather_rows_multi_ref, gather_rows_ref
 
 MAX_TABLES = 8
@@ -42,24 +52,25 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
                       gid: torch.Tensor) -> torch.Tensor:
     """out[t, i] = tables[t][gid[t, i]]. tables: 1 to 8 (R_t, hd) tensors
     of one dtype and width, each with unit stride along hd and any row
-    stride; gid (L, N) int64 (int32 is converted once) on their device ->
-    out (L, N, hd) in the tables' dtype, in one launch.
+    stride; gid (L, N) int64 (int32 is converted once) -> out (L, N, hd) in
+    the tables' dtype on gid's device, in one launch.
 
-    CPU tensors take the plain version. On CUDA the kernel launches on the
-    current stream; row ids are not range-checked on the host (that would
-    need a sync) — the kernel traps on one outside its table."""
-    first = tables[0]
-    if first.device.type == "cpu":
+    gid on the CPU takes the plain version, over CPU tables. gid on CUDA
+    launches the kernel on the current stream, over tables on gid's device
+    or in mapped host memory (read in place); a pageable CPU table raises.
+    Row ids are not range-checked on the host (that would need a sync) —
+    the kernel traps on one outside its table."""
+    if gid.device.type == "cpu":
+        if any(t.device.type != "cpu" for t in tables):
+            raise ValueError(f"gather_rows_multi: gid on the CPU, tables on "
+                             f"{[str(t.device) for t in tables]}")
         return gather_rows_multi_ref(tables, gid)
     if not 1 <= len(tables) <= MAX_TABLES:
         raise ValueError(f"gather_rows_multi: 1 to {MAX_TABLES} tables, got "
                          f"{len(tables)}")
-    if first.device.type != "cuda" or any(
-            t.device != first.device for t in tables) or \
-            gid.device != first.device:
-        raise ValueError(f"gather_rows_multi: tables on "
-                         f"{[str(t.device) for t in tables]}, gid on "
-                         f"{gid.device}")
+    if gid.device.type != "cuda":
+        raise ValueError(f"gather_rows_multi: gid on {gid.device}")
+    first = tables[0]
     hd = first.shape[-1]
     for t in tables:
         if t.dim() != 2 or t.stride(1) != 1 or t.shape[1] != hd or \
@@ -72,18 +83,19 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
             gid.dtype not in (torch.int64, torch.int32):
         raise ValueError(f"gather_rows_multi: gid must be ({len(tables)}, N) "
                          f"int64/int32, got {gid.dtype} {tuple(gid.shape)}")
+    ptrs = [_device_address(t, gid.device) for t in tables]
     gid = gid.to(torch.int64).contiguous()
     L, N = gid.shape
     item = first.element_size()
-    out = torch.empty((L, N, hd), dtype=first.dtype, device=first.device)
+    out = torch.empty((L, N, hd), dtype=first.dtype, device=gid.device)
     if out.numel() == 0:
         return out                       # nothing to copy: no launch
-    bases = (ctypes.c_void_p * L)(*[t.data_ptr() for t in tables])
+    bases = (ctypes.c_void_p * L)(*ptrs)
     strides = (ctypes.c_int64 * L)(*[t.stride(0) * item for t in tables])
     n_rows = (ctypes.c_int64 * L)(*[t.shape[0] for t in tables])
     rc = _kernel()(bases, strides, n_rows, L, gid.data_ptr(), N,
                    out.data_ptr(), hd * item,
-                   torch.cuda.current_stream(first.device).cuda_stream)
+                   torch.cuda.current_stream(gid.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"engram_gather kernel launch failed: "
                            f"cudaError {rc}")
@@ -91,11 +103,27 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
     return out
 
 
+def _device_address(t: torch.Tensor, device: torch.device) -> int:
+    """Where the kernel on ``device`` reads table ``t``: its own address on
+    that device, or the mapped address of a host table."""
+    if t.device == device:
+        return t.data_ptr()
+    if t.device.type == "cpu":
+        ptr = device_pointer(t)
+        if ptr is not None:
+            return ptr
+        raise ValueError("gather_rows_multi: a pageable CPU table with row "
+                         f"ids on {device}; the card reads host tables only "
+                         "in buffers pinned and mapped by host.host_empty")
+    raise ValueError(f"gather_rows_multi: a table on {t.device}, row ids on "
+                     f"{device}")
+
+
 def gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     """out[i] = table[gid[i]]: the one-table case of ``gather_rows_multi``.
     table (R, hd) with unit stride along hd and any row stride; gid (N,)
-    int64/int32 on the table's device -> out (N, hd)."""
-    if table.device.type == "cpu":
+    int64/int32 -> out (N, hd) on gid's device."""
+    if table.device.type == "cpu" and gid.device.type == "cpu":
         return gather_rows_ref(table, gid)
     if gid.dim() != 1:
         raise ValueError(f"gather_rows: gid must be 1-D, got "

@@ -59,29 +59,56 @@ def tree_leaves(tree):
         yield tree
 
 
-def _init_leaf(d: ParamDef, gen: torch.Generator,
-               device: torch.device) -> torch.Tensor:
-    t = torch.empty(d.shape, dtype=DTYPES[d.dtype], device=device)
-    if d.init == "ones":
-        return t.fill_(1.0)
-    if d.init != "normal":
+def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """Draw leaf ``d`` on ``device``, chunk by chunk. With ``out`` (a host
+    tensor mapped for the card) each chunk is drawn into one device buffer
+    and copied down into ``out``, so the device never holds the whole leaf;
+    the bytes are those of a draw without ``out`` (same generator calls on
+    chunks of the same sizes)."""
+    dtype = DTYPES[d.dtype]
+    if out is not None and (tuple(out.shape) != d.shape or out.dtype != dtype):
+        raise ValueError(f"host table {out.dtype} {tuple(out.shape)} for a "
+                         f"{d.dtype} {d.shape} leaf")
+    if d.init not in ("ones", "normal"):
         raise ValueError(d.init)
     fan_in = d.fan_in or (d.shape[0] if d.shape else 1)
     scale = d.scale if d.scale >= 0 else 1.0 / math.sqrt(max(fan_in, 1))
-    flat = t.view(-1)
+
+    def draw(part):
+        if d.init == "ones":
+            part.fill_(1.0)
+        else:
+            part.normal_(0.0, scale, generator=gen)
+
+    if out is None:
+        t = torch.empty(d.shape, dtype=dtype, device=device)
+        flat = t.view(-1)
+        for i in range(0, flat.numel(), _INIT_CHUNK):
+            draw(flat[i:i + _INIT_CHUNK])
+        return t
+    flat = out.view(-1)
+    chunk = torch.empty(min(flat.numel(), _INIT_CHUNK), dtype=dtype,
+                        device=device)
     for i in range(0, flat.numel(), _INIT_CHUNK):
-        flat[i:i + _INIT_CHUNK].normal_(0.0, scale, generator=gen)
-    return t
+        part = chunk[:min(_INIT_CHUNK, flat.numel() - i)]
+        draw(part)
+        flat[i:i + part.numel()].copy_(part, non_blocking=True)
+    return out
 
 
-def tree_init(defs, seed: int = 0, device=None):
+def tree_init(defs, seed: int = 0, device=None, host_leaves=None):
     """Materialise a def tree from one seeded ``torch.Generator`` on
     ``device``. The draws are not the reference's (``jax.random`` cannot be
-    reproduced in torch); tests bridge the reference's weights instead."""
+    reproduced in torch); tests bridge the reference's weights instead.
+    ``host_leaves`` maps ``id(def)`` to a mapped host tensor that leaf is
+    drawn into (see ``_init_leaf``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return tree_map(lambda d: _init_leaf(d, gen, dev), defs)
+    host_leaves = host_leaves or {}
+    return tree_map(lambda d: _init_leaf(d, gen, dev, host_leaves.get(id(d))),
+                    defs)
 
 
 def to_torch(a, device: torch.device) -> torch.Tensor:
@@ -93,12 +120,53 @@ def to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def init_params(cfg, seed: int = 0, device=None, dtype=None):
+def init_params(cfg, seed: int = 0, device=None, dtype=None,
+                table_memory: str | None = None, host_tables=None):
     """Seeded random parameters for ``cfg`` drawn on ``device`` (the card
     unless the caller passes ``device="cpu"``), in ``dtype`` (default
-    ``cfg.dtype``; norm scales stay f32 as in the reference)."""
+    ``cfg.dtype``; norm scales stay f32 as in the reference).
+
+    ``table_memory="pinned_host"`` puts every Engram layer's tables in
+    pinned, device-mapped host memory (the ``pooled_host`` strategy's
+    placement): each is still drawn on the card, chunk by chunk in the
+    same generator order, and copied down, so its bytes equal a plain
+    draw's and the card never holds a whole table set. ``host_tables``
+    (one mapped host tensor per Engram layer, of the tables' shape) are
+    filled in place instead of registering new buffers. On the CPU the
+    tables are plain CPU tensors either way."""
     from .model import model_defs
-    return tree_init(model_defs(cfg, dtype), seed, device)
+    if table_memory not in (None, "pinned_host"):
+        raise ValueError(f"table_memory {table_memory!r}: None or "
+                         "'pinned_host'")
+    defs = model_defs(cfg, dtype)
+    dev = resolve_device(device)
+    if table_memory is None or dev.type == "cpu" or "engram" not in defs:
+        return tree_init(defs, seed, dev)
+    from ..kernels.engram_gather.host import host_empty
+    tdefs = [layer["tables"] for layer in defs["engram"]["layers"]]
+    if host_tables is None:
+        host_tables = [host_empty(d.shape, DTYPES[d.dtype]) for d in tdefs]
+    if len(host_tables) != len(tdefs):
+        raise ValueError(f"{len(host_tables)} host tables for "
+                         f"{len(tdefs)} Engram layers")
+    params = tree_init(defs, seed, dev, {id(d): h for d, h
+                                          in zip(tdefs, host_tables)})
+    torch.cuda.synchronize(dev)      # the host tables are written
+    return params
+
+
+def tables_to_host(params):
+    """Move a tree's Engram tables from the card into new pinned, mapped
+    host buffers, in place: each layer's ``tables`` leaf becomes its host
+    copy, and the device copy is freed once nothing else holds it. Tables
+    already on the CPU stay. Returns ``params``."""
+    from ..kernels.engram_gather.host import host_empty
+    for layer in params.get("engram", {}).get("layers", []):
+        t = layer["tables"]
+        if t.device.type == "cpu":
+            continue
+        layer["tables"] = host_empty(tuple(t.shape), t.dtype).copy_(t)
+    return params
 
 
 def from_jax(np_tree, cfg, device=None):

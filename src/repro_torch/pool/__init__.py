@@ -7,10 +7,11 @@ from .simulator import (cached_read_latency_s, latency_sweep,
                         rdma_rescue_sweep, scalability_table,
                         throughput_table)
 from .cost import CostRow, breakeven_nodes, cost_table, local_cost, pool_cost
-from .store import (CachedStore, LocalStore, PrefetchHandle, Segments,
-                    StoreStats, TableFetcher, TierStore, fetch_layers,
-                    keys_to_gid, make_store, segment_bytes, segment_count,
-                    segment_keys)
+from .store import (STRATEGY_TIERS, CachedStore, EngramStore, LocalStore,
+                    PrefetchHandle, Segments, StoreStats, TableFetcher,
+                    TierStore, fetch_layers, keys_to_gid, make_store,
+                    segment_bytes, segment_count, segment_keys,
+                    store_for_strategy)
 from .cache import (FrequencySketch, LRUHotRowCache, PrefixCacheStats,
                     PrefixKVCache, SharedCache, SharedCacheStats,
                     TinyLFUAdmission, WaveAccess, zipf_keys)
@@ -18,11 +19,13 @@ from .kvpool import KVPagePool, KVPoolStats, PoolArbiter, kv_page_keys
 from .scheduler import PrefetchScheduler, SpecWaveReport, WaveReport
 
 __all__ = [
-    "CXL", "CachedStore", "CostRow", "DRAM", "Feasibility", "FrequencySketch",
+    "CXL", "CachedStore", "CostRow", "DRAM", "EngramStore", "Feasibility",
+    "FrequencySketch",
     "HBM", "KVPagePool", "KVPoolStats", "LRUHotRowCache", "LocalStore",
     "PoolArbiter", "PrefetchHandle", "PrefetchScheduler", "PrefixCacheStats",
     "PrefixKVCache", "RDMA", "Segments", "ServingPoint", "SharedCache",
-    "SharedCacheStats", "SpecWaveReport", "StoreStats", "TIERS",
+    "SharedCacheStats", "SpecWaveReport", "STRATEGY_TIERS", "StoreStats",
+    "TIERS",
     "TableFetcher", "TierSpec", "TierStore", "TinyLFUAdmission",
     "WaveAccess", "WaveReport", "breakeven_nodes", "cached_read_latency_s",
     "check", "check_all_tiers", "cost_table", "fetch_layers", "keys_to_gid",
@@ -30,5 +33,6 @@ __all__ = [
     "measured_scalability", "paper_case_study", "pool_cost", "pool_tier",
     "prefetch_window_s", "rdma_rescue_sweep", "read_latency_s",
     "required_bandwidth_Bps", "scalability_table", "segment_bytes",
-    "segment_count", "segment_keys", "throughput_table",
+    "segment_count", "segment_keys", "store_for_strategy",
+    "throughput_table",
 ]

@@ -23,7 +23,7 @@ launch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -158,6 +158,15 @@ class StoreStats:
     def wasted_prefetch_rate(self) -> float:
         n = self.accepted_segments + self.wasted_segments
         return self.wasted_segments / n if n else 0.0
+
+
+@runtime_checkable
+class EngramStore(Protocol):
+    def prefetch(self, tokens, fetch: Optional[Callable[[], Any]] = None
+                 ) -> PrefetchHandle: ...
+    def gather(self, handle: PrefetchHandle) -> Any: ...
+    def stats(self) -> StoreStats: ...
+    def read_latency_s(self, batch_tokens: int) -> float: ...
 
 
 # ---------------------------------------------------------------------------
@@ -447,17 +456,24 @@ class CachedStore(_StoreBase):
 class TableFetcher:
     """Materialises rows for packed segment keys from one layer's Engram
     tables ``(T, V_pad, hd)``, through the engram_gather kernel (its plain
-    version for a table on the CPU).
+    version when ``device`` is the CPU).
+
+    ``device`` is where the model computes (default: the tables' device).
+    It differs from the tables' when they live in mapped host memory
+    (``pooled_host``): K1 on the card then reads them in place.
 
     Row ids come from ``keys_to_gid(..., table_rows=V_pad)``: the tables
     are padded past ``table_vocab``, so ``key % (T * table_vocab)`` would
     address the wrong rows. A wave's ids are computed and range-checked on
     the host and moved to the device once."""
 
-    def __init__(self, ecfg: EngramConfig, tables: torch.Tensor):
+    def __init__(self, ecfg: EngramConfig, tables: torch.Tensor,
+                 device: Optional[torch.device] = None):
         self.ecfg = ecfg
         self.T, self.V, self.hd = tables.shape
         self.flat = tables.view(self.T * self.V, self.hd)   # no copy
+        self.device = torch.device(device) if device is not None \
+            else tables.device
 
     def gid_for(self, keys) -> np.ndarray:
         """Flat row ids in this fetcher's (padded) table space."""
@@ -473,16 +489,16 @@ class TableFetcher:
 def fetch_layers(fetchers, gids) -> torch.Tensor:
     """Every Engram layer's rows in ONE engram_gather launch: ``gids[j]``
     are flat row ids in ``fetchers[j]``'s table space, all of one length N
-    -> (L, N, hd). The ids are range-checked on the host and uploaded in
-    one copy."""
+    -> (L, N, hd) on the fetchers' compute device. The ids are range-checked
+    on the host and uploaded in one copy."""
     from ..kernels.engram_gather import gather_rows_multi
     gid = np.stack([np.asarray(g, np.int64).reshape(-1) for g in gids])
     for f, g in zip(fetchers, gid):
         rows = f.flat.shape[0]
         if g.size and (g.min() < 0 or g.max() >= rows):
             raise IndexError(f"row id outside the {rows}-row table")
-    dev = fetchers[0].flat.device
-    return gather_rows_multi([f.flat for f in fetchers], upload(gid, dev))
+    return gather_rows_multi([f.flat for f in fetchers],
+                             upload(gid, fetchers[0].device))
 
 
 # ---------------------------------------------------------------------------
@@ -533,3 +549,19 @@ def make_store(ecfg: EngramConfig, tier: TierSpec | str | None,
                                                 admission=adm),
                            clock=clock, cache_link=cache_link)
     return base
+
+
+# Which tier's latency semantics each retrieval strategy emulates when no
+# explicit pool tier is requested (strategy = placement; store = cost).
+STRATEGY_TIERS: dict[str, Optional[str]] = {
+    "local": None,             # next to the activations
+    "local_kernel": None,      # same placement, the K1 gather
+    "tp": None,                # row-sharded over the model axis (HBM)
+    "pooled": "CXL",           # the paper's CXL pool
+    "pooled_host": "DRAM",     # pinned, mapped host memory
+}
+
+
+def store_for_strategy(ecfg: EngramConfig, strategy: Optional[str] = None):
+    """Resolve a retrieval strategy to the store modelling its tier."""
+    return make_store(ecfg, STRATEGY_TIERS[strategy or ecfg.strategy])

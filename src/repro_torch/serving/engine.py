@@ -34,6 +34,14 @@ materialises every Engram layer's rows in one engram_gather (K1) launch
 chunk waves and prefill groups retrieve by plain indexing. Every forward
 fuses the rows through the gated_fuse kernel (K2).
 
+Table placement: with ``RunFlags(engram_strategy="pooled_host")`` on the
+card the Engram tables live in pinned, device-mapped host memory
+(``init_params(..., table_memory="pinned_host")`` or ``tables_to_host``),
+and every retrieval, pool-mode waves, prefill groups, chunk waves and
+``pool=None`` decode alike, is a K1 launch that reads its rows in place
+over the host link; the weights and KV stay on the card. The engine checks
+that placement and strategy agree and raises otherwise.
+
 Single-sync waves, as in the reference: the host reads the device through
 ``_host`` only, once per admission group (first tokens | the group's
 packed prompt keys), once per chunk wave (sampled tokens | the chunk's
@@ -91,6 +99,7 @@ from ..core.hashing import (block_engram_indices, block_engram_keys,
                             engram_indices, host_block_keys,
                             pack_segment_keys, prefix_chain_keys)
 from ..device import resolve_device, sync_allowed, upload
+from ..kernels.engram_gather.host import is_mapped
 from ..models.layers import with_f32_head
 from ..models.model import (build_chunk_prefill, build_decode_step,
                             build_prefill_step, init_decode_state,
@@ -379,6 +388,8 @@ class Engine:
         self.params = with_f32_head(params)
         self.has_engram = bool(cfg.engram_layers()) and "engram" in params
         self._n_eng = len(cfg.engram_layers())
+        if self.has_engram:
+            self._check_tables()
 
         self.store = None
         self.scheduler = None
@@ -406,7 +417,8 @@ class Engine:
                 # decode rows are materialised by the engram_gather kernel
                 self._fetchers = [
                     TableFetcher(cfg.engram,
-                                 self.params["engram"]["layers"][j]["tables"])
+                                 self.params["engram"]["layers"][j]["tables"],
+                                 device=self.device)
                     for j in range(self._n_eng)]
         self._pool_mode = self.pool is not None and self.has_engram
         self._prefill_fn = build_prefill_step(cfg, flags, max_len=max_len)
@@ -496,6 +508,35 @@ class Engine:
                 self.kv_pool = KVPagePool(1 << 30, 8)
         # rid -> _SpilledReq: preempted requests parked in the KV pool
         self._spilled: dict[int, _SpilledReq] = {}
+
+    def _check_tables(self) -> None:
+        """The Engram tables' placement must agree with the strategy: on
+        the card, ``pooled_host`` reads tables in pinned, mapped host
+        memory and every other strategy tables on the card; on the CPU
+        everything is on the CPU. Anything else raises (nothing is copied
+        to make it fit)."""
+        strategy = self.flags.engram_strategy or self.cfg.engram.strategy
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        for j, layer in enumerate(self.params["engram"]["layers"]):
+            t = layer["tables"]
+            if dev.type == "cpu":
+                ok = t.device.type == "cpu"
+            elif strategy == "pooled_host":
+                ok = is_mapped(t)
+            else:
+                ok = t.device == dev
+            if not ok:
+                where = "host memory" if t.device.type == "cpu" \
+                    else str(t.device)
+                raise ValueError(
+                    f"Engram layer {j}'s tables live in {where}, the engine "
+                    f"runs on {self.device} with strategy {strategy!r}: on "
+                    f"the card, pooled_host reads tables in pinned, mapped "
+                    f"host memory (init_params(table_memory='pinned_host') "
+                    f"or tables_to_host) and every other strategy tables "
+                    f"on the card")
 
     # ------------------------------------------------------------ public API
 

@@ -411,3 +411,156 @@ def test_router_card_equals_cpu(shared):
     assert card == cpu
     assert card[5] > 0
     assert [len(t) for t in card[0]] == lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_host_table_bit_equal(dtype):
+    """K1 on a table in a registered (pinned, mapped) host buffer reads it
+    in place: bit-equal to its plain version on the CPU and to K1 on an HBM
+    copy, one launch per call, the rows on the card; a slice of the buffer
+    (an interior address) too."""
+    from repro_torch.kernels.engram_gather import host_empty, is_mapped
+    dev = _card()
+    table = host_empty((4096, 160), TORCH_DTYPES[dtype])
+    table.copy_(torch.randn(4096, 160).to(TORCH_DTYPES[dtype]))
+    assert is_mapped(table) and is_mapped(table[7:])
+    gid = torch.randint(0, 4000, (2, 333), device=dev)
+    before = gather_rows.launches
+    got = gather_rows_multi([table, table[7:]], gid)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1 and got.device == gid.device
+    want = gather_rows_multi_ref([table, table[7:]], gid.cpu())
+    assert torch.equal(got.cpu(), want)
+    hbm = table.to(dev)
+    assert torch.equal(got, gather_rows_multi([hbm, hbm[7:]], gid))
+    idx = torch.randint(0, 256, (8, 1, 16), device=dev)
+    tables = table.view(16, 256, 160)
+    assert torch.equal(engram_gather(tables, idx).cpu(),
+                       engram_gather_ref(tables, idx.cpu()))
+
+
+@pytest.mark.cuda
+def test_gather_rows_pageable_table_raises():
+    """A pageable CPU table with row ids on the card raises: no plain
+    version, no copy, no launch."""
+    dev = _card()
+    table = torch.randn(100, 160)
+    before = gather_rows.launches
+    with pytest.raises(ValueError, match="pageable"):
+        gather_rows(table, torch.zeros(4, dtype=torch.int64, device=dev))
+    assert gather_rows.launches == before
+
+
+@pytest.mark.cuda
+def test_init_params_pinned_host_bytes_equal_plain_draw():
+    """table_memory="pinned_host" draws the tables on the card chunk by
+    chunk into mapped host buffers: every leaf's bytes equal a plain draw's
+    (the tables with a chunk smaller than a table, so several chunks and a
+    ragged last one), and the buffers are reused in place when given."""
+    import dataclasses
+
+    from repro_torch.configs import engram_27b
+    from repro_torch.kernels.engram_gather import is_mapped
+    from repro_torch.models import params as params_mod
+    from repro_torch.models.params import init_params, tree_leaves
+    dev = _card()
+    cfg = engram_27b.reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    chunk = params_mod._INIT_CHUNK
+    params_mod._INIT_CHUNK = 100_003
+    try:
+        plain = init_params(cfg, 5, dev)
+        host = init_params(cfg, 5, dev, table_memory="pinned_host")
+        tables = [layer["tables"] for layer in host["engram"]["layers"]]
+        again = init_params(cfg, 5, dev, table_memory="pinned_host",
+                            host_tables=tables)
+    finally:
+        params_mod._INIT_CHUNK = chunk
+    assert all(is_mapped(t) for t in tables)
+    assert all(layer["tables"] is t
+               for layer, t in zip(again["engram"]["layers"], tables))
+    for a, b in zip(tree_leaves(plain), tree_leaves(host)):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_fetch_layers_host_tables_rows_on_card():
+    """fetch_layers uploads the ids to the fetchers' compute device: with
+    host tables the rows come from K1 on the card, equal to an HBM fetch."""
+    from repro_torch.configs import engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tables_to_host
+    from repro_torch.pool.store import TableFetcher, fetch_layers
+    dev = _card()
+    cfg = engram_27b.reduced()
+    params = init_params(cfg, seed=0, device=dev)
+    hbm = [layer["tables"] for layer in params["engram"]["layers"]]
+    tables_to_host(params)
+    host = [layer["tables"] for layer in params["engram"]["layers"]]
+    assert all(t.device.type == "cpu" for t in host)
+    rng = np.random.RandomState(0)
+    keys = rng.randint(0, cfg.engram.n_tables * cfg.engram.table_vocab,
+                       size=(len(host), 40))
+    f_host = [TableFetcher(cfg.engram, t, device=dev) for t in host]
+    f_hbm = [TableFetcher(cfg.engram, t) for t in hbm]
+    gids = [f.gid_for(k) for f, k in zip(f_host, keys)]
+    before = gather_rows.launches
+    got = fetch_layers(f_host, gids)
+    assert got.device.type == "cuda" and gather_rows.launches == before + 1
+    assert torch.equal(got, fetch_layers(f_hbm, gids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pool", "pool_none", "chunked", "spec"])
+def test_engine_host_tables_card_equals_hbm(mode):
+    """engram-27b reduced in bf16 with pooled_host and host tables against
+    the same weights with HBM tables, on every retrieval path: pool-mode
+    decode waves, pool=None decode, chunk waves, and the pool=None block
+    path of speculative verify waves. Identical streams, and K1 on every
+    retrieval (a CPU table with ids on the card cannot take the plain
+    version: K1 or raise). A placement that disagrees with the strategy
+    raises."""
+    import dataclasses
+
+    from repro_torch.configs import SpecConfig, engram_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tables_to_host, tree_map
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine
+    dev = _card()
+    cfg = dataclasses.replace(engram_27b.reduced(), dtype="bfloat16")
+    n_eng = len(cfg.engram_layers())
+    host_flags = RunFlags(engram_strategy="pooled_host")
+    params = init_params(cfg, seed=0, device=dev)
+    kw = dict(max_batch=4, max_len=64, prompt_bucket=8, device=dev,
+              pool=None if mode in ("pool_none", "spec") else "CXL")
+    if mode == "chunked":
+        kw.update(prefill_chunk=4)
+    if mode == "spec":
+        kw.update(spec=SpecConfig(proposer="ngram", max_draft=2))
+    prompts = [[5, 17, 42], [7, 8, 9, 10], [3, 1, 4, 1, 5, 9], [11, 12]]
+
+    def serve(eng):
+        rt = eng.runtime()
+        hs = [rt.submit(p, max_new=6) for p in prompts]
+        while eng.busy:
+            rt.step()
+        return [h.tokens for h in hs]
+
+    want = serve(Engine(cfg, params=params, **kw))
+    with pytest.raises(ValueError, match="tables live in"):
+        Engine(cfg, params=params, flags=host_flags, **kw)
+    host = tables_to_host(tree_map(lambda t: t, params))
+    with pytest.raises(ValueError, match="tables live in"):
+        Engine(cfg, params=host, **kw)
+    eng = Engine(cfg, params=host, flags=host_flags, **kw)
+    before = gather_rows.launches
+    assert serve(eng) == want
+    launches, st = gather_rows.launches - before, eng.stats
+    if mode == "pool":
+        assert launches == st.decode_steps + n_eng * st.prefill_waves
+    elif mode == "pool_none":
+        assert launches == n_eng * (st.decode_steps + st.prefill_waves)
+    else:
+        assert launches > st.decode_steps

@@ -72,7 +72,8 @@ def _t(a):
 
 # ------------------------------------------------------------------ configs
 
-@pytest.mark.parametrize("name", ["engram-27b", "deepseek-7b"])
+@pytest.mark.parametrize("name", ["engram-27b", "deepseek-7b", "engram-40b",
+                                  "deepseek-coder-33b"])
 def test_configs_identical(name):
     cfg, rcfg = get_config(name), ref_get_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
@@ -273,7 +274,8 @@ def test_greedy_stream_16_tokens(bridged):
 def test_external_rows_and_strategies(bridged):
     """Decode with rows gathered outside (the engine's prefetch path)
     equals decode that gathers itself; pooled/tp reduce to local without a
-    mesh; pooled_host is a later slice."""
+    mesh; pooled_host (a CPU table: K1's plain version) gathers the same
+    rows."""
     cfg, _, _, params = bridged
     e = cfg.engram
     toks = torch.tensor([[3, 9, 4], [8, 1, 2]])
@@ -288,8 +290,9 @@ def test_external_rows_and_strategies(bridged):
         np.testing.assert_array_equal(
             port_engram.retrieve(e, tables, idx, strategy).numpy(),
             local.numpy())
-    with pytest.raises(NotImplementedError):
-        port_engram.retrieve(e, tables, idx, "pooled_host")
+    np.testing.assert_array_equal(
+        port_engram.retrieve(e, tables, idx, "pooled_host").numpy(),
+        local.numpy())
     rows = [port_engram.retrieve(e, layer["tables"], idx)
             for layer in params["engram"]["layers"]]
     a, _ = port_model.build_decode_step(cfg, RunFlags())(params, s1, tok)

@@ -2,9 +2,9 @@
 
 ``pool/feasibility.py`` and ``pool/simulator.py`` compute on the host with
 the same Python and numpy arithmetic as the reference, so every float is
-held with ``==`` on the paper's engram-27b Engram config (E27; the E40
-twins wait for the port's engram-40b config) and on the tests' 3-layer
-deepseek-7b. ``replay_stall_s`` replays the port engine's recorded wave
+held with ``==`` on the paper's engram-27b Engram config (E27), on its
+engram-40b one (E40) where tests/test_pool.py runs both, and on the
+tests' 3-layer deepseek-7b. ``replay_stall_s`` replays the port engine's recorded wave
 trace, plain, sharded over a fabric, over a tier chain and speculative, to
 the bit of the stall the engine accounted; the reference's replay of the
 same trace gives the same number. ``replay_fleet_stall_s`` replays a
@@ -21,6 +21,7 @@ import numpy as np  # noqa: E402
 
 from repro.configs import deepseek_7b as ref_deepseek_7b  # noqa: E402
 from repro.configs.base import ENGRAM_27B as REF_ENGRAM_27B  # noqa: E402
+from repro.configs.base import ENGRAM_40B as REF_ENGRAM_40B  # noqa: E402
 from repro.configs.base import EngramConfig as RefEngramConfig  # noqa: E402
 from repro.configs.base import StoreConfig as RefStoreConfig  # noqa: E402
 from repro.models.model import init_params as ref_init_params  # noqa: E402
@@ -29,7 +30,8 @@ from repro.pool import scheduler as ref_scheduler  # noqa: E402
 from repro.pool import simulator as ref_sim  # noqa: E402
 from repro.pool import tiers as ref_tiers  # noqa: E402
 from repro.serving import Router as RefRouter  # noqa: E402
-from repro_torch.configs import ENGRAM_27B, EngramConfig  # noqa: E402
+from repro_torch.configs import ENGRAM_27B, ENGRAM_40B  # noqa: E402
+from repro_torch.configs import EngramConfig  # noqa: E402
 from repro_torch.configs import SpecConfig, StoreConfig  # noqa: E402
 from repro_torch.configs import deepseek_7b  # noqa: E402
 from repro_torch.models.params import from_jax  # noqa: E402
@@ -48,6 +50,8 @@ torch.set_num_threads(2)
 
 E27 = EngramConfig(**ENGRAM_27B)
 REF_E27 = RefEngramConfig(**REF_ENGRAM_27B)
+E40 = EngramConfig(**ENGRAM_40B)
+REF_E40 = RefEngramConfig(**REF_ENGRAM_40B)
 CHAIN = dict(cache_rows=32, warm_rows=256, aging_half_life_s=0.05)
 
 
@@ -99,6 +103,33 @@ def test_latency_sweep_matches_reference():
         dram, cxl, rdma = (sweep[t][i][1] for t in ("DRAM", "CXL", "RDMA"))
         assert dram <= cxl < rdma, (b, dram, cxl, rdma)
         assert cxl < 10 * dram and rdma > 5 * cxl
+
+
+@pytest.mark.parametrize("name", ["E27", "E40"])
+def test_latency_ordering_dram_cxl_rdma(name):
+    """Twin of tests/test_pool.py's, on both paper configs: DRAM <= CXL <
+    RDMA, CXL within 10x of DRAM, RDMA beyond 5x CXL; the sweep equals the
+    reference's."""
+    ecfg, ref_ecfg = {"E27": (E27, REF_E27), "E40": (E40, REF_E40)}[name]
+    sweep = latency_sweep(ecfg, batch_sizes=(1, 64, 256, 1024))
+    assert sweep == ref_sim.latency_sweep(ref_ecfg,
+                                          batch_sizes=(1, 64, 256, 1024))
+    for i, (b, _) in enumerate(sweep["DRAM"]):
+        dram, cxl, rdma = (sweep[t][i][1] for t in ("DRAM", "CXL", "RDMA"))
+        assert dram <= cxl < rdma, (b, dram, cxl, rdma)
+        assert cxl < 10 * dram and rdma > 5 * cxl
+
+
+def test_latency_scale_invariant_in_table_size():
+    """Paper §5.2: CXL read efficiency does not diminish as Engram scales
+    (27B vs 40B tables give the same latency; only the vocabulary grows),
+    and each equals the reference's."""
+    for b in (16, 256):
+        l27 = read_latency_s(E27, TIERS["CXL"], b)
+        l40 = read_latency_s(E40, TIERS["CXL"], b)
+        assert abs(l27 - l40) / l27 < 1e-9
+        assert l40 == ref_sim.read_latency_s(REF_E40, ref_tiers.TIERS["CXL"],
+                                             b)
 
 
 @pytest.mark.parametrize("b", [1, 17, 256, 1000, 4096])
