@@ -38,7 +38,13 @@ result lines are printed):
               ``CXL+SSD`` chain, a 2-node fabric losing node 1) on card
               and CPU: identical streams (equal to the runs without the
               policy or the tiers), counters, KVPoolStats, StoreStats,
-              fabric stats and clock.
+              fabric stats and clock. And gemma2-27b-reduced and
+              gemma3-1b-reduced (a 16-token window, softcaps, qk-norms,
+              post-block norms, tied and scaled embeddings) on card and
+              CPU: monolithic, chunked with a PrefixKVCache and scripted
+              speculation, identical streams; teacher-forced logits over
+              48 positions past the window (decode_window_slice off and
+              on) within 1e-3.
   7. serve    engram-27b at full width and full depth (36 layers, 22.9 B
               parameters, seeded random bf16 weights drawn on the card,
               shared by phases 7 to 10) behind ``Engine(pool="CXL",
@@ -113,10 +119,26 @@ result lines are printed):
               held at their d (7168, 6144; T = 8, 256) and K1 bit-equal on
               each model's own host tables (a decode wave's ids, the last
               rows and rows past 4 GiB among them): launch and read
-              budgets, peak device memory under 80 GB.
+              budgets, peak device memory under 80 GB; between them, (e)
+              gemma2-27b (46 layers, d 4608, a tied 256k vocabulary, 27.3
+              B parameters on the card) from (b)'s buffers, serve's mix
+              with 16 new tokens twice (identical streams), K2 held at d
+              = 4608, K1 bit-equal on its host tables, every logit within
+              its final softcap of 30.
+ 15. gemma3   gemma3-1b at full width and depth (26 layers, d 1152, a
+              512-token window on 22 local layers), tables in HBM,
+              ``pool="CXL"``: (c) K2 at d = 1152 (T = 8, 256, 2112); (a)
+              a 2100-token prompt through monolithic admission, the
+              local layers' chunked attention skipping the KV block
+              before the window (counted), TTFT; (b) 8 prompts of 490 to
+              510 tokens decoding 32 tokens across position 512, with
+              ``decode_window_slice`` off and on: the waves' logits within
+              16 bf16 ulps of each logit plus its row's RMS, the streams
+              compared (where they part, the top-2 margin must be within
+              that tolerance); each run's steady waves profiled.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 14); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 15); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -787,6 +809,122 @@ def check_agreement_fleet(dev) -> None:
           f"{ {n: v['hits'] for n, v in c['per_view'].items()} }); streams, "
           f"rids, RouterStats, SharedCacheStats, StoreStats, link ledgers "
           f"and clock identical on card and CPU")
+
+
+def forced_logits(cfg, params, device, window_slice: bool) -> list:
+    """Teacher-forced logits of the reduced gemma configs over 48
+    positions past their 16-token window: a 2-row prefill (16 and 11
+    tokens) through chunked attention (8-token chunks, so local layers
+    skip KV blocks), then 48 decode steps of seeded tokens at
+    ``max_len=64``. Returns the prefill's and every step's logits."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_decode_step, build_prefill_step
+    from repro_torch.models.transformer import RunFlags
+    flags = RunFlags(chunk_threshold=8, q_chunk=8, kv_chunk=8,
+                     decode_window_slice=window_slice)
+    rng = np.random.RandomState(7)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, size=(2, 16)))
+    forced = torch.from_numpy(rng.randint(1, cfg.vocab_size, size=(48, 2)))
+    logits, state = build_prefill_step(cfg, flags, max_len=64)(params, {
+        "tokens": toks.to(device), "lengths": torch.tensor(
+            [16, 11], device=device)})
+    out = [logits]
+    decode = build_decode_step(cfg, flags)
+    for tok in forced:
+        logits, state = decode(params, state, tok.to(device))
+        out.append(logits)
+    return [t.cpu() for t in out]
+
+
+def check_agreement_gemma(dev) -> None:
+    """gemma2-27b-reduced and gemma3-1b-reduced (f32, pool CXL, a 16-token
+    window: sliding-window layers, softcaps, qk-norms, post-block norms,
+    tied and scaled embeddings) on the card and on the CPU: monolithic
+    serving of three prompts of 18 to 30 tokens, chunked admission
+    (``prefill_chunk=8``) with a PrefixKVCache over three prompts sharing
+    a 16-token head, served one at a time, and speculation with a
+    ScriptedProposer over the monolithic streams: identical streams, the
+    speculative ones equal to the monolithic, every draft accepted, prefix
+    blocks restored. Random weights make flat streams, so the
+    teacher-forced logits over 48 positions past the window
+    (``forced_logits``, ``decode_window_slice`` off and on) must also agree
+    within 1e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SpecConfig, gemma2_27b, gemma3_1b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.pool.cache import PrefixKVCache
+    from repro_torch.serving import Engine
+    from repro_torch.spec import ScriptedProposer
+
+    def run(eng, prompts, one_at_a_time=False):
+        rids = []
+        for p in prompts:
+            rids.append(eng.submit(p, max_new=12))
+            if one_at_a_time:
+                eng.run()
+        eng.run()
+        return [eng.done[r].out for r in rids]
+
+    for mod in (gemma2_27b, gemma3_1b):
+        cfg = mod.reduced()
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+        rng = np.random.RandomState(5)
+        prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
+                   for n in (18, 23, 30)]
+        head = list(rng.randint(1, cfg.vocab_size, size=16))
+        shared = [head + list(rng.randint(1, cfg.vocab_size, size=n))
+                  for n in (3, 7, 12)]
+        kw = dict(pool="CXL", max_batch=2, max_len=64, prompt_bucket=8)
+        seen, script = [], None
+        for device, params in (("cpu", params_cpu), (dev, params_dev)):
+            mono = run(Engine(cfg, params=params, device=device, **kw),
+                       prompts)
+            script = script or [p + o for p, o in zip(prompts, mono)]
+            chunked = Engine(cfg, params=params, device=device,
+                             prefill_chunk=8,
+                             prefix_cache=PrefixKVCache(64 << 20, 8), **kw)
+            chunked_out = run(chunked, shared, one_at_a_time=True)
+            spec = Engine(cfg, params=params, device=device,
+                          spec=SpecConfig(),
+                          proposer=ScriptedProposer(script), **kw)
+            spec_out = run(spec, prompts)
+            st = spec.stats
+            seen.append(dict(
+                mono=mono, chunked=chunked_out, spec=spec_out,
+                hits=chunked.stats.prefix_hit_blocks,
+                drafts=(st.proposed_tokens, st.accepted_tokens)))
+        cpu, card = seen
+        for key in cpu:
+            check(cpu[key] == card[key],
+                  f"{cfg.name} agreement: {key} differs: cpu {cpu[key]} vs "
+                  f"card {card[key]}")
+        check(card["spec"] == card["mono"], f"{cfg.name} agreement: "
+              f"speculative streams differ from the monolithic")
+        check(card["hits"] > 0, f"{cfg.name} agreement: no prefix hit")
+        proposed, accepted = card["drafts"]
+        check(accepted == proposed > 0, f"{cfg.name} agreement: "
+              f"{accepted} of {proposed} scripted drafts accepted")
+        worst = {}
+        for ws in (False, True):
+            ref = forced_logits(cfg, params_cpu, "cpu", ws)
+            got = forced_logits(cfg, params_dev, dev, ws)
+            for a, b in zip(got, ref):
+                # f32 sums in another order on the card, through the stack
+                torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+            worst[ws] = max((a - b).abs().max().item()
+                            for a, b in zip(got, ref))
+        print(f"agree {cfg.name} (f32, pool=CXL, window "
+              f"{cfg.window_size}): monolithic, chunked with a prefix cache "
+              f"({card['hits']} blocks restored) and scripted speculation "
+              f"({accepted}/{proposed} drafts accepted, streams equal to the "
+              f"monolithic) identical on card and CPU; teacher-forced logits "
+              f"over 48 positions past the window, max|card - cpu| "
+              f"{worst[False]:.2e} masked, {worst[True]:.2e} with "
+              f"decode_window_slice")
 
 
 # ---------------------------------------------------------------------------
@@ -2279,18 +2417,45 @@ def check_host_rows(params, dev, label: str) -> None:
           f"2^35 B)")
 
 
-def serve_host_model(name: str, dev, smi: str, host_tables=None) -> tuple:
-    """(c) and (d): a model whose tables do not fit beside its weights on
-    the card, at full width and depth: K2 held at its d (T = 8 and 256)
-    first, then the weights drawn on the card and the tables drawn on the
-    card chunk by chunk into registered host buffers (``host_tables``
-    reused when given), then 8 prompts x 8 new tokens behind
-    ``Engine(pool="CXL", max_batch=8, max_len=512)`` with pooled_host. K1
-    bit-equal on the model's host tables (``check_host_rows``), then K1
-    once per decode wave and once per Engram layer per admission group,
-    K2 twice per wave and group, one read per steady wave and no other
-    sync, tokens in the vocabulary, finite prefill logits, peak device
-    memory under 80 GB. Returns the launches and K2's timings."""
+def record_waves(eng, keep: bool = True) -> list:
+    """Wrap the engine's decode step so that each wave appends (logits,
+    the slots' rids) to the returned list (``keep=False``: only the
+    running max |logit|, a device scalar, as its one entry). Adds no
+    sync."""
+    import torch
+    waves = []
+    decode = eng._decode_ext_fn
+
+    def recording(*args):
+        logits, state = decode(*args)
+        if keep:
+            waves.append((logits, [r.rid if r is not None else None
+                                   for r in eng.slots]))
+        else:
+            top = logits.abs().amax()
+            waves[:] = [torch.maximum(waves[0], top) if waves else top]
+        return logits, state
+    eng._decode_ext_fn = recording
+    return waves
+
+
+def serve_host_model(name: str, dev, smi: str, host_tables=None,
+                     max_new: int = 8, reps: int = 1) -> tuple:
+    """(c), (d) and (e): a model whose tables do not fit beside its weights
+    on the card, at full width and depth: K2 held at its d (T = 8 and
+    256) first, then the weights drawn on the card and the tables drawn on
+    the card chunk by chunk into registered host buffers (``host_tables``
+    reused when given), then 8 prompts x ``max_new`` new tokens behind
+    ``Engine(pool="CXL", max_batch=8, max_len=512)`` with pooled_host,
+    ``reps`` counted runs after a warm-up, whose streams must be
+    identical. K1 bit-equal on the model's host tables
+    (``check_host_rows``), then K1 once per decode wave and once per
+    Engram layer per admission group, K2 twice per wave and group, one
+    read per steady wave and no other sync, tokens in the vocabulary,
+    finite prefill logits (with a final softcap: every prefill and decode
+    logit within it), peak device memory under 80 GB; then a profile of
+    its steady decode waves. Returns the launches of the counted runs and
+    K2's timings."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.engram_gather.host import host_empty
@@ -2336,45 +2501,272 @@ def serve_host_model(name: str, dev, smi: str, host_tables=None) -> tuple:
     prompts = serve_prompts(cfg)
     eng.warmup(prompts)
     rt = eng.runtime()
-    eng.reset_stats()
-    n_steps0 = len(eng._step_times)
-    reset_launches()
-    handles = [rt.submit(p, max_new=8) for p in prompts]
-    pulls, run_s = drive(eng, rt)
-    launches = read_launches()
-    st = eng.stats
+    cap = cfg.final_logit_softcap
     n_eng = len(cfg.engram_layers())
-    check(all(h.finished and len(h.tokens) == 8 for h in handles)
-          and all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
-          f"{label}: not every request emitted 8 tokens of the vocabulary")
-    check(launches["engram_gather"] == st.decode_steps
-          + n_eng * st.prefill_waves,
-          f"{label}: K1 launches {launches['engram_gather']} != "
-          f"{st.decode_steps} + {n_eng} x {st.prefill_waves}")
-    check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
-          f"{label}: K2 launches {launches['gated_fuse']}")
-    check(len(pulls) == st.decode_steps and all(p == 1 for p in pulls[1:]),
-          f"{label}: device->host reads per step {pulls}")
+    launches = dict.fromkeys(read_launches(), 0)
+    first = None
+    top = record_waves(eng, keep=False)
+    for rep in range(reps):
+        eng.reset_stats()
+        n_steps0 = len(eng._step_times)
+        top.clear()
+        reset_launches()
+        handles = [rt.submit(p, max_new=max_new) for p in prompts]
+        pulls, run_s = drive(eng, rt)
+        got = read_launches()
+        st = eng.stats
+        streams = [h.tokens for h in handles]
+        first = first or streams
+        check(all(h.finished and len(h.tokens) == max_new for h in handles)
+              and all(0 <= t < cfg.vocab_size for s_ in streams
+                      for t in s_),
+              f"{label}: not every request emitted {max_new} tokens of the "
+              f"vocabulary")
+        check(streams == first, f"{label}: run {rep + 1}'s streams "
+              f"{streams} differ from run 1's {first}")
+        check(got["engram_gather"] == st.decode_steps
+              + n_eng * st.prefill_waves,
+              f"{label}: K1 launches {got['engram_gather']} != "
+              f"{st.decode_steps} + {n_eng} x {st.prefill_waves}")
+        check(got["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
+              f"{label}: K2 launches {got['gated_fuse']}")
+        check(len(pulls) == st.decode_steps
+              and all(p == 1 for p in pulls[1:]),
+              f"{label}: device->host reads per step {pulls}")
+        if cap > 0:
+            check(top[0].item() <= cap, f"{label}: a decode logit "
+                  f"{top[0].item()} beyond the final softcap {cap}")
+        for k in launches:
+            launches[k] += got[k]
+        decode_s = sum(eng._step_times[n_steps0:])
+        tokens = st.generated_tokens - st.prefills
+        print(f"{label} run {rep + 1}: pooled_host, pool=CXL, 8 requests x "
+              f"{max_new} tokens, {st.prefill_waves} admission group(s), "
+              f"{st.decode_steps} decode waves; K1 launches "
+              f"{got['engram_gather']}, K2 launches {got['gated_fuse']}; "
+              f"reads per step {pulls}; no other sync"
+              + (f"; streams equal to run 1's" if rep else ""))
+        print(f"{label} run {rep + 1} [{smi}]: decode "
+              f"{tokens / decode_s:.2f} tok/s, wave "
+              f"{decode_s * 1e3 / st.decode_steps:.2f} ms, mean TTFT "
+              f"{st.mean_ttft_s * 1e3:.2f} ms, run {run_s:.2f} s"
+              + (f", max |decode logit| {top[0].item():.4f} (cap {cap})"
+                 if cap > 0 else ""))
+    toks = torch.zeros((len(prompts), 32), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
     logits, _ = eng._prefill_fn(eng.params, {
-        "tokens": torch.tensor([prompts[0]], device=dev),
-        "lengths": torch.tensor([len(prompts[0])], device=dev)})
-    check(tuple(logits.shape) == (1, cfg.vocab_size)
+        "tokens": toks.to(dev), "lengths": torch.tensor(
+            [len(p) for p in prompts], device=dev)})
+    check(tuple(logits.shape) == (len(prompts), cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{label}: prefill logits not finite")
+    if cap > 0:
+        check(logits.abs().max().item() <= cap,
+              f"{label}: a prefill logit beyond the final softcap {cap}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
-    decode_s = sum(eng._step_times[n_steps0:])
-    tokens = st.generated_tokens - st.prefills
-    print(f"{label}: pooled_host, pool=CXL, 8 requests x 8 tokens, "
-          f"{st.prefill_waves} admission group(s), {st.decode_steps} decode "
-          f"waves; K1 launches {launches['engram_gather']}, K2 launches "
-          f"{launches['gated_fuse']}; reads per step {pulls}; no other sync")
-    print(f"{label} [{smi}]: decode {tokens / decode_s:.2f} tok/s, wave "
-          f"{decode_s * 1e3 / st.decode_steps:.2f} ms, mean TTFT "
-          f"{st.mean_ttft_s * 1e3:.2f} ms, peak device memory {peak:.2f} GB,"
-          f" run {run_s:.2f} s; first stream {handles[0].tokens}; "
+    profile_waves(eng, rt, prompts, label=f"{label} profile")
+    print(f"{label} [{smi}]: peak device memory {peak:.2f} GB; prefill "
+          f"logits of the 8 prompts finite, max |logit| "
+          f"{logits.abs().max().item():.4f}; first stream {first[0]}; "
           + host_status("host"))
     del eng, rt, logits
+    return launches, k2
+
+
+# ---------------------------------------------------------------------------
+# phase 15: gemma3-1b at full width, tables in HBM
+# ---------------------------------------------------------------------------
+
+def window_witness(runs: dict, ulps: int = 16) -> dict:
+    """Hold ``decode_window_slice``'s decode waves (``runs[True]``) to the
+    masked ones (``runs[False]``), row by row (a request's rid), up to the
+    first wave whose argmax differs anywhere: each logit within ``ulps``
+    bf16 ulps (2^-8 each) of its own size plus its row's RMS,
+    ``|a - b| <= ulps * 2^-8 * (|a| + rms(row))``. The slice changes only
+    the order of the attention sums, and its bf16 roundings pass through
+    26 residual adds, so the hidden state moves by a few ulps and every
+    logit by as many ulps of the row's RMS (7.7 of them at most on an
+    H100 at full width); a slice of the wrong rows moves typical logits
+    by about their RMS, 256 ulps. Where the streams part, the masked
+    row's top-2 margin at that wave must be within the tolerance at its
+    top logit (a near-tie that bf16 rounding may flip). Returns the largest difference, its largest
+    share of its tolerance and the parting point (None when the streams
+    agree)."""
+    a, b = runs[False]["waves"], runs[True]["waves"]
+    rel = ulps * 2.0 ** -8
+    worst, share, parted = 0.0, 0.0, None
+    for j, ((la, sa), (lb, sb)) in enumerate(zip(a, b)):
+        rids = [r for r in sa if r is not None]
+        rows_a = la[[sa.index(r) for r in rids]].float()
+        rows_b = lb[[sb.index(r) for r in rids]].float()
+        rms = rows_a.square().mean(dim=-1, keepdim=True).sqrt()
+        tol = rel * (rows_a.abs() + rms)
+        diff = (rows_a - rows_b).abs()
+        worst = max(worst, diff.max().item())
+        share = max(share, (diff / tol).max().item())
+        check(bool((diff <= tol).all()), f"window slice: wave {j} logits "
+              f"differ by up to {(diff / tol).max().item():.2f} x their "
+              f"tolerance")
+        flip = (rows_a.argmax(-1) != rows_b.argmax(-1)).nonzero().flatten()
+        if len(flip):
+            i = int(flip[0])
+            top = rows_a[i].topk(2).values.tolist()
+            tol_i = rel * (abs(top[0]) + rms[i].item())
+            parted = dict(wave=j, rid=rids[i], margin=top[0] - top[1],
+                          tol=tol_i)
+            check(top[0] - top[1] <= tol_i, f"window slice: rid {rids[i]} "
+                  f"parts at wave {j} with a top-2 margin "
+                  f"{top[0] - top[1]:.4f} > {tol_i:.4f}: not a near-tie")
+            break
+    return dict(worst=worst, share=share, parted=parted)
+
+
+def serve_gemma3(dev, smi: str) -> tuple:
+    """gemma3-1b at full width and depth (26 layers, d 1152, a 512-token
+    window on 22 local layers, qk-norms, two RoPE bases, tied and scaled
+    embeddings), seeded bf16 weights and ENGRAM_27B tables drawn on the
+    card, ``pool="CXL"``: (c) K2 at d = 1152 (T = 8, 256, 2112) against its
+    plain version first; (a) one 2100-token prompt (bucket 2112) through
+    monolithic admission at ``max_len=2176``, after a warm-up with another:
+    chunked attention in every layer, whose local layers skip the KV block
+    wholly before the window (counted), 8 new tokens, TTFT; (b) 8 prompts
+    of 490 to 510 tokens, 32 new tokens each, decoding across position
+    512, with ``decode_window_slice`` off and then on: the waves' logits
+    held together and the streams compared (``window_witness``), and each
+    run's steady waves profiled. Launch and read budgets as phase 7's in
+    each run; peak device memory printed.
+    Returns the launches of the counted runs and K2's timings."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.layers import with_f32_head
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine
+
+    cfg = get_config("gemma3-1b")
+    e = cfg.engram
+    gen = torch.Generator(device=dev).manual_seed(4)
+    k2 = {n_t: time_k2(gen, dev, n_t, cfg.d_model,
+                       len(e.orders) * e.emb_dim) for n_t in (8, 256, 2112)}
+    torch.cuda.reset_peak_memory_stats()
+    # one f32 head (the transposed tied embedding) for every engine here
+    params = with_f32_head(draw_params(cfg, dev))
+    launches = dict.fromkeys(read_launches(), 0)
+    rng = np.random.RandomState(15)
+    n_local = sum(k == "local" for k in cfg.attn_kinds)
+    label = "gemma3-1b"
+
+    def counted(eng, rt, prompts, max_new):
+        eng.reset_stats()
+        n0 = len(eng._step_times)
+        reset_launches()
+        handles = [rt.submit(p, max_new=max_new) for p in prompts]
+        pulls, run_s = drive(eng, rt)
+        got, st = read_launches(), eng.stats
+        check(all(h.finished and len(h.tokens) == max_new for h in handles)
+              and all(0 <= t < cfg.vocab_size for h in handles
+                      for t in h.tokens),
+              f"{label}: not every request emitted {max_new} tokens of the "
+              f"vocabulary")
+        check(got["engram_gather"] == st.decode_steps,
+              f"{label}: K1 launches {got['engram_gather']} != one per "
+              f"{st.decode_steps} decode waves")
+        check(got["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
+              f"{label}: K2 launches {got['gated_fuse']}")
+        check(len(pulls) == st.decode_steps
+              and all(p == 1 for p in pulls[1:]),
+              f"{label}: device->host reads per step {pulls}")
+        for k in launches:
+            launches[k] += got[k]
+        decode_s = sum(eng._step_times[n0:])
+        return handles, dict(
+            pulls=pulls, run_s=run_s, launches=got, waves=st.decode_steps,
+            groups=st.prefill_waves, ttft_ms=st.mean_ttft_s * 1e3,
+            wave_ms=decode_s * 1e3 / st.decode_steps,
+            tok_s=(st.generated_tokens - st.prefills) / decode_s)
+
+    # (a) a 2100-token prompt: chunked attention with the window's skip
+    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=2176,
+                 prompt_bucket=32, device=dev)
+    warm, prompt = (list(rng.randint(1, cfg.vocab_size, size=2100))
+                    for _ in range(2))
+    eng.warmup([warm])
+    rt = eng.runtime()
+    attention._chunk_attn.window_skipped = 0
+    r = counted(eng, rt, [prompt], 8)[1]
+    skipped = attention._chunk_attn.window_skipped
+    fl = RunFlags()
+    S = 2112
+    want = n_local * sum(max(0, (i * fl.q_chunk - cfg.window_size)
+                                // fl.kv_chunk)
+                         for i in range(-(-S // fl.q_chunk)))
+    check(skipped == want, f"{label} long prompt: {skipped} KV blocks "
+          f"skipped by the window, want {want}")
+    print(f"{label} long prompt: 2100 tokens (bucket {S}) + 8 new, "
+          f"monolithic admission, chunked attention (q and kv chunks of "
+          f"{fl.q_chunk}) in all {cfg.n_layers} layers; the window skipped "
+          f"{skipped} KV blocks ({n_local} local layers x 1: q chunk 2 skips "
+          f"block 0) of the {n_local * 6} causal ones on local layers; K1 "
+          f"launches {r['launches']['engram_gather']}, K2 launches "
+          f"{r['launches']['gated_fuse']}; reads per step {r['pulls']}; no "
+          f"other sync")
+    print(f"{label} long prompt [{smi}]: TTFT {r['ttft_ms']:.2f} ms, run "
+          f"{r['run_s']:.3f} s")
+    del eng, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) across the window, decode_window_slice off and on
+    prompts = [list(rng.randint(1, cfg.vocab_size, size=n))
+               for n in (490, 493, 496, 499, 502, 505, 508, 510)]
+    runs = {}
+    for ws in (False, True):
+        eng = Engine(cfg, params=params, flags=RunFlags(
+            decode_window_slice=ws), pool="CXL", max_batch=8, max_len=576,
+            prompt_bucket=32, device=dev)
+        eng.warmup(prompts)
+        rt = eng.runtime()
+        waves = record_waves(eng)
+        handles, r = counted(eng, rt, prompts, 32)
+        runs[ws] = dict(r, waves=list(waves),
+                        streams=[h.tokens for h in handles])
+        del handles
+        print(f"{label} window run (decode_window_slice={ws}): 8 prompts of "
+              f"490 to 510 tokens x 32 new (positions 490 to 541), "
+              f"{r['groups']} admission group(s), {r['waves']} decode waves;"
+              f" K1 launches {r['launches']['engram_gather']}, K2 launches "
+              f"{r['launches']['gated_fuse']}; reads per step {r['pulls']}; "
+              f"no other sync")
+        print(f"{label} window run (decode_window_slice={ws}) [{smi}]: "
+              f"decode {r['tok_s']:.2f} tok/s, wave {r['wave_ms']:.2f} ms, "
+              f"mean TTFT {r['ttft_ms']:.2f} ms, run {r['run_s']:.2f} s; "
+              f"first stream {runs[ws]['streams'][0]}")
+        profile_waves(eng, rt, prompts, max_new=6,
+                      label=f"{label} profile (decode_window_slice={ws})")
+        del eng, rt, waves
+        gc.collect()
+    w = window_witness(runs)
+    same = runs[False]["streams"] == runs[True]["streams"]
+    where = "" if w["parted"] is None else (
+        f"; parted at wave {w['parted']['wave']} (rid {w['parted']['rid']})"
+        f" with a top-2 margin {w['parted']['margin']:.6f} within the "
+        f"tolerance {w['parted']['tol']:.4f}")
+    check(same or w["parted"] is not None, f"{label}: streams differ with no "
+          f"differing argmax in the recorded waves")
+    print(f"{label} window runs [{smi}]: streams "
+          f"{'identical' if same else 'differ'}; decode logits with and "
+          f"without decode_window_slice differ by at most {w['worst']:.6f},"
+          f" at most {w['share']:.3f} of the tolerance (16 bf16 ulps of "
+          f"the logit plus its row's RMS){where}")
+    del runs
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
+    print(f"{label} [{smi}]: peak device memory {peak:.2f} GB (weights, "
+          f"f32 head, tables in HBM, KV and work)")
+    del params
     return launches, k2
 
 
@@ -2419,6 +2811,7 @@ def main() -> int:
     check_agreement_overload(dev)
     check_agreement_tiers(dev)
     check_agreement_fleet(dev)
+    check_agreement_gemma(dev)
     params = draw_params(cfg, dev)
     launches, streams, serve7 = serve_full(cfg, params, dev, smi)
     prompts = serve_prompts(cfg)
@@ -2440,18 +2833,33 @@ def main() -> int:
         cfg, params, dev, smi, prompts, streams, serve7)
     del params
     k2_host = {}
-    for name in ("deepseek-coder-33b", "engram-40b"):
+    for name, kw in (("deepseek-coder-33b", {}),
+                     ("gemma2-27b", dict(max_new=16, reps=2)),
+                     ("engram-40b", {})):
         gc.collect()
         torch.cuda.empty_cache()
-        # coder-33b's tables have engram-27b's shape: its buffers are reused,
-        # then freed before engram-40b's 74 GB are registered
-        n, k2_host[name] = serve_host_model(name, dev, smi, host_tables)
-        host_tables = None
+        # coder-33b's and gemma2-27b's tables have engram-27b's shape: its
+        # buffers are reused, then freed before engram-40b's 74 GB are
+        # registered
+        if name == "engram-40b":
+            host_tables = None
+            gc.collect()
+        n, k2_host[name] = serve_host_model(name, dev, smi, host_tables,
+                                            **kw)
         for k in host_launches:
             host_launches[k] += n[k]
     for k, n in host_launches.items():
         launches[k] += n
     print(f"host: phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # phase 15: gemma3-1b, its tables in HBM
+    t15 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3_launches, k2_g3 = serve_gemma3(dev, smi)
+    for k, n in g3_launches.items():
+        launches[k] += n
+    print(f"gemma3-1b: phase 15 took {time.perf_counter() - t15:.1f} s")
 
     kernels = [
         dict(name="engram_gather", route="cuda",
@@ -2466,8 +2874,9 @@ def main() -> int:
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
           "(decode, and each unrolled verify step); launches summed over "
-          "the serve, long-prompt, chunked, spec, overload, tiers, fleet "
-          "and host-table runs; also measured (host rows: plain_ms is the "
+          "the serve, long-prompt, chunked, spec, overload, tiers, fleet, "
+          "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
+          "engram-40b) and gemma3-1b runs; also measured (host rows: plain_ms is the "
           "CPU gather and library_ms the reference's route, both on the "
           "host clock; bound at PCIe Gen5 x16's nominal 64 GB/s, link_GBps "
           "the rate measured in the run): "
@@ -2481,6 +2890,11 @@ def main() -> int:
                         k2_host["deepseek-coder-33b"][256],
                         "gated_fuse_d6144_T8": k2_host["engram-40b"][8],
                         "gated_fuse_d6144_T256": k2_host["engram-40b"][256],
+                        "gated_fuse_d4608_T8": k2_host["gemma2-27b"][8],
+                        "gated_fuse_d4608_T256": k2_host["gemma2-27b"][256],
+                        "gated_fuse_d1152_T8": k2_g3[8],
+                        "gated_fuse_d1152_T256": k2_g3[256],
+                        "gated_fuse_d1152_T2112": k2_g3[2112],
                         "engram_gather_2x512_verify_wave": k1["spec"],
                         "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],

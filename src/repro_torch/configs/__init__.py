@@ -1,10 +1,12 @@
-from .base import (ENGRAM_27B, ENGRAM_40B, EngramConfig, MLAConfig,
-                   MambaConfig, ModelConfig, MoEConfig, SpecConfig,
-                   StoreConfig, XLSTMConfig, engram_for, get_config,
-                   list_archs, register)
+from .base import (ENGRAM_27B, ENGRAM_40B, SHAPES, EngramConfig, MLAConfig,
+                   MambaConfig, ModelConfig, MoEConfig, ShapeConfig,
+                   SpecConfig, StoreConfig, XLSTMConfig, applicable_shapes,
+                   engram_for, get_config, list_archs, register,
+                   skipped_shapes)
 
 __all__ = [
-    "ENGRAM_27B", "ENGRAM_40B", "EngramConfig", "MLAConfig", "MambaConfig",
-    "ModelConfig", "MoEConfig", "SpecConfig", "StoreConfig", "XLSTMConfig",
-    "engram_for", "get_config", "list_archs", "register",
+    "ENGRAM_27B", "ENGRAM_40B", "SHAPES", "EngramConfig", "MLAConfig",
+    "MambaConfig", "ModelConfig", "MoEConfig", "ShapeConfig", "SpecConfig",
+    "StoreConfig", "XLSTMConfig", "applicable_shapes", "engram_for",
+    "get_config", "list_archs", "register", "skipped_shapes",
 ]

@@ -332,6 +332,47 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes (assigned input-shape set)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Shape applicability per the assignment rules."""
+    shapes = ["train_4k", "prefill_32k"]
+    if not cfg.is_encoder:
+        shapes.append("decode_32k")
+        # long_500k only for sub-quadratic (SSM / hybrid) archs
+        if cfg.family in ("ssm", "hybrid"):
+            shapes.append("long_500k")
+    return shapes
+
+
+def skipped_shapes(cfg: ModelConfig) -> dict[str, str]:
+    out = {}
+    if cfg.is_encoder:
+        out["decode_32k"] = "encoder-only arch has no decode step"
+        out["long_500k"] = "encoder-only arch has no decode step"
+    elif cfg.family not in ("ssm", "hybrid"):
+        out["long_500k"] = "pure full-attention arch (long_500k needs sub-quadratic)"
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -366,7 +407,7 @@ def _load_all():
     if _LOADED:
         return
     from . import (deepseek_7b, deepseek_coder_33b,  # noqa: F401
-                   engram_27b, engram_40b)
+                   engram_27b, engram_40b, gemma2_27b, gemma3_1b)
     _LOADED = True
 
 

@@ -7,8 +7,9 @@ row softmaxes to uniform weights instead of NaN), softmax, then the value
 product in the cache's dtype. A prefill longer than ``chunk_threshold``
 tokens takes ``_chunk_attn``: flash-style two-level chunking with an
 online softmax in f32 that never computes a KV block past the causal
-frontier. The reference has no attention kernel of its own; these are the
-counterparts of the XLA ops it uses.
+frontier, nor, on a sliding-window (``local``) layer, one wholly before
+the window. The reference has no attention kernel of its own; these are
+the counterparts of the XLA ops it uses.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, softcap
+from .layers import apply_rope, rmsnorm, softcap
 from .params import pd
 
 NEG_INF = -2.0 ** 30
@@ -25,31 +26,53 @@ NEG_INF = -2.0 ** 30
 
 def attn_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    defs = {
         "wq": pd(d, hq * hd, dtype=dtype, fan_in=fan_in),
         "wk": pd(d, hkv * hd, dtype=dtype, fan_in=fan_in),
         "wv": pd(d, hkv * hd, dtype=dtype, fan_in=fan_in),
         "wo": pd(hq * hd, d, dtype=dtype, fan_in=fan_in),
     }
+    if cfg.qk_norm:
+        defs["q_norm"] = {"scale": pd(hd, init="ones")}
+        defs["k_norm"] = {"scale": pd(hd, init="ones")}
+    return defs
 
 
-def _qkv(cfg: ModelConfig, params, h, positions):
+def _rope_theta(cfg: ModelConfig, kind: str) -> float:
+    if kind == "local" and cfg.rope_local_theta > 0:
+        return cfg.rope_local_theta
+    return cfg.rope_theta
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.window_size if kind == "local" else 0
+
+
+def _qkv(cfg: ModelConfig, params, h, positions, kind: str):
+    """q, k, v of h (B, S, d): the qk-norms (when the config has them),
+    then RoPE at the layer kind's base. positions (S,) or (B, S)."""
     B, S, _ = h.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (h @ params["wq"]).reshape(B, S, hq, hd)
     k = (h @ params["wk"]).reshape(B, S, hkv, hd)
     v = (h @ params["wv"]).reshape(B, S, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    theta = _rope_theta(cfg, kind)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
-def _mask(qpos, kpos, *, causal: bool):
-    """(..., Q, K) boolean validity mask from position vectors."""
+def _mask(qpos, kpos, *, causal: bool, window: int = 0):
+    """(..., Q, K) boolean validity mask from position vectors; with
+    ``window`` a key must also lie within ``window`` positions of the
+    query (``kpos > qpos - window``)."""
     m = torch.ones(qpos.shape[:-1] + (qpos.shape[-1], kpos.shape[-1]),
                    dtype=torch.bool, device=qpos.device)
     if causal:
         m &= kpos[..., None, :] <= qpos[..., :, None]
+    if window > 0:
+        m &= kpos[..., None, :] > qpos[..., :, None] - window
     return m
 
 
@@ -71,13 +94,17 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     return out.reshape(B, Q, hq, hd_v)
 
 
-def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
+def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *, window: int = 0,
                 q_chunk: int = 1024, kv_chunk: int = 1024):
     """Causal attention in (q chunk, kv chunk) blocks with a running max
     and sum per query (the online softmax), all in f32. KV blocks past a
-    q chunk's causal frontier are skipped. Padded query positions are -1
-    (they attend nothing and are sliced off); padded key positions are
-    2**30 (no query reaches them)."""
+    q chunk's causal frontier are skipped, and with ``window`` so are the
+    blocks below ``lo = max(0, (i*q_chunk - window) // kv_chunk)`` (the
+    reference's static window frontier; the mask still applies inside the
+    blocks computed). ``_chunk_attn.window_skipped`` counts the blocks the
+    window skipped. Padded query positions are -1 (they attend nothing and
+    are sliced off); padded key positions are 2**30 (no query reaches
+    them)."""
     B, S, hq, hd = q.shape
     hkv, hd_v = k.shape[2], v.shape[-1]
     g = hq // hkv
@@ -97,18 +124,20 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
     for i in range(nq):
         qs = slice(i * q_chunk, (i + 1) * q_chunk)
         qi = q[:, qs].reshape(B, q_chunk, hkv, g, hd).float()
-        # the causal KV frontier of this q chunk
+        # the causal KV frontier of this q chunk, and the window's
         hi = min(nk, -(-((i + 1) * q_chunk) // kv_chunk))
+        lo = max(0, (i * q_chunk - window) // kv_chunk) if window > 0 else 0
+        _chunk_attn.window_skipped += lo
         m_run = torch.full((B, hkv, g, q_chunk), NEG_INF, device=q.device)
         l_run = torch.zeros((B, hkv, g, q_chunk), device=q.device)
         acc = torch.zeros((B, hkv, g, q_chunk, hd_v), device=q.device)
-        for j in range(hi):
+        for j in range(lo, hi):
             ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
                              k[:, ks].float()) * scale
             s = softcap(s, cfg.attn_logit_softcap)
-            s = torch.where(_mask(qpos[qs], kpos[ks], causal=True), s,
-                            NEG_INF)
+            s = torch.where(_mask(qpos[qs], kpos[ks], causal=True,
+                                  window=window), s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(dim=-1))
             alpha = torch.exp(m_run - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -122,38 +151,45 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
     return torch.cat(outs, dim=1)[:, :S].to(q.dtype)
 
 
-def attention(cfg: ModelConfig, params, h, positions, *,
-              q_chunk: int = 1024, kv_chunk: int = 1024,
+_chunk_attn.window_skipped = 0
+
+
+def attention(cfg: ModelConfig, params, h, positions, kind: str = "global",
+              *, q_chunk: int = 1024, kv_chunk: int = 1024,
               chunk_threshold: int = 2048):
     """Prefill attention. h (B,S,d), positions (S,). Returns (out, kv).
-    More than ``chunk_threshold`` tokens take ``_chunk_attn``."""
+    ``local`` layers attend within ``cfg.window_size``. More than
+    ``chunk_threshold`` tokens take ``_chunk_attn``."""
     B, S, _ = h.shape
-    q, k, v = _qkv(cfg, params, h, positions)
+    q, k, v = _qkv(cfg, params, h, positions, kind)
+    window = _window(cfg, kind)
     if S <= chunk_threshold:
-        mask = _mask(positions, positions, causal=True)[None]
+        mask = _mask(positions, positions, causal=True, window=window)[None]
         out = _sdpa(cfg, q, k, v, mask)
     else:
-        out = _chunk_attn(cfg, q, k, v, positions, positions,
+        out = _chunk_attn(cfg, q, k, v, positions, positions, window=window,
                           q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], {"k": k, "v": v}
 
 
-def decode_attention(cfg: ModelConfig, params, h, cache, positions):
+def decode_attention(cfg: ModelConfig, params, h, cache, positions,
+                     kind: str = "global", *, window_slice: bool = False):
     """Single-token decode. h (B,1,d); cache {k,v}: (B,Smax,Hkv,D);
     positions (B,) current index per sequence. Returns (out, cache).
 
     The new k/v rows are written INTO ``cache`` at each row's position
     (clamped to the last row, as the reference's dynamic_update_slice
     clamps): an in-place scatter instead of the reference's functional copy
-    of the whole cache per layer per step."""
+    of the whole cache per layer per step.
+
+    ``window_slice``: a ``local`` layer attends a gathered window-sized
+    slice of the cache (rows ``start .. start + w - 1``, ``start`` clamped
+    into the cache) instead of masking the whole context; the gather's
+    indices stay on the device."""
     B = h.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ params["wq"]).reshape(B, 1, hq, hd)
-    k = (h @ params["wk"]).reshape(B, 1, hkv, hd)
-    v = (h @ params["wv"]).reshape(B, 1, hkv, hd)
-    q = apply_rope(q, positions[:, None], cfg.rope_theta)
-    k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    hq, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv(cfg, params, h, positions[:, None], kind)
 
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[1]
@@ -162,9 +198,19 @@ def decode_attention(cfg: ModelConfig, params, h, cache, positions):
     kc[rows, at] = k[:, 0].to(kc.dtype)
     vc[rows, at] = v[:, 0].to(vc.dtype)
 
-    kpos = torch.arange(S, device=h.device)[None]          # (1, S)
-    valid = kpos <= positions[:, None]
-    out = _sdpa(cfg, q, kc, vc, valid[:, None, :])
+    window = _window(cfg, kind)
+    if window_slice and 0 < window < S:
+        start = (positions - (window - 1)).clamp(0, S - window)
+        kpos = start[:, None] + torch.arange(window, device=h.device)
+        k_att, v_att = kc[rows[:, None], kpos], vc[rows[:, None], kpos]
+        valid = kpos <= positions[:, None]         # window via the slice
+    else:
+        k_att, v_att = kc, vc
+        kpos = torch.arange(S, device=h.device)[None]       # (1, S)
+        valid = kpos <= positions[:, None]
+        if window > 0:
+            valid &= kpos > positions[:, None] - window
+    out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :])
     out = out.reshape(B, 1, hq * hd)
     return out @ params["wo"], cache
 

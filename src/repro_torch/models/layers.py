@@ -2,6 +2,8 @@
 (PyTorch port of ``repro.models.layers``)."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -74,25 +76,40 @@ def embed_lookup(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["w"][tokens]
 
 
+def scale_embeddings(h: torch.Tensor, d_model: int) -> torch.Tensor:
+    """``h * sqrt(d_model)`` with the constant rounded to ``h.dtype`` first,
+    as JAX rounds the reference's weakly typed Python float (in bf16,
+    sqrt(4608) = 67.88 becomes 68.0)."""
+    return h * torch.tensor(math.sqrt(d_model), dtype=h.dtype).item()
+
+
 def with_f32_head(params: dict) -> dict:
     """Shallow copy of a param tree whose head also holds an f32 copy of its
-    weight (``head["w32"]``), made once: ``head_logits`` computes in f32,
+    weight (``w32``, (d, V)), made once: ``head_logits`` computes in f32,
     and casting a bf16 head per call would allocate the f32 copy on every
-    step. A tree that already holds ``w32`` comes back as it is, so engines
-    built from one prepared tree (the router's replicas) share one f32
-    head; an f32 head is shared, not copied (``.float()`` returns it)."""
-    head = params["head"]
+    step. A tree without a ``head`` is tied: its ``embed`` holds ``w32``,
+    the transposed f32 embedding. A tree that already holds ``w32`` comes
+    back as it is, so engines built from one prepared tree (the router's
+    replicas) share one f32 head; an f32 weight is shared, not copied
+    (``.float()`` returns it)."""
+    tied = "head" not in params
+    key = "embed" if tied else "head"
+    head = params[key]
     if "w32" in head:
         return params
+    w32 = head["w"].float()
     out = dict(params)
-    out["head"] = dict(head, w32=head["w"].float())
+    out[key] = dict(head, w32=w32.T if tied else w32)
     return out
 
 
-def head_logits(params, h: torch.Tensor, final_cap: float = 0.0
-                ) -> torch.Tensor:
-    """f32 logits ``h.float() @ W.float()`` (untied head)."""
+def head_logits(params, h: torch.Tensor, final_cap: float = 0.0,
+                tied: bool = False) -> torch.Tensor:
+    """f32 logits ``h.float() @ W.float()``; with ``tied``, ``params`` is
+    the embedding and ``W`` its transpose."""
     w = params.get("w32")
     if w is None:
         w = params["w"].float()
+        if tied:
+            w = w.T
     return softcap(h.float() @ w, final_cap)

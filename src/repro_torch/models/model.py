@@ -32,7 +32,7 @@ from ..core.engram import engram_defs, engram_fuse, retrieve
 from ..core.hashing import (decode_engram_indices, engram_indices,
                             update_last_tokens)
 from .layers import (embed_defs, embed_lookup, head_defs, head_logits,
-                     rmsnorm, rmsnorm_defs)
+                     rmsnorm, rmsnorm_defs, scale_embeddings)
 from .params import DTYPES, init_params  # noqa: F401  (re-exported)
 from .transformer import (RunFlags, apply_segment, check_supported,
                           init_segment_cache, segment_defs, segment_plan)
@@ -47,8 +47,9 @@ def model_defs(cfg: ModelConfig, dtype: str | None = None):
         "final_norm": rmsnorm_defs(cfg.d_model),
         "segments": [segment_defs(cfg, seg, dtype)
                      for seg in segment_plan(cfg)],
-        "head": head_defs(cfg.vocab_size, cfg.d_model, dtype),
     }
+    if not cfg.tie_embeddings:
+        defs["head"] = head_defs(cfg.vocab_size, cfg.d_model, dtype)
     if cfg.engram is not None and cfg.engram.enabled and cfg.engram_layers():
         defs["engram"] = engram_defs(cfg, dtype)
     return defs
@@ -66,7 +67,10 @@ def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
 
     mode prefill: positions (S,) default arange; decode: (B,)."""
     tokens = batch["tokens"]
-    h = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
+    h = embed_lookup(params["embed"], tokens)
+    if cfg.scale_embeddings:
+        h = scale_embeddings(h, cfg.d_model)
+    h = h.to(DTYPES[cfg.dtype])
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
 
@@ -85,10 +89,14 @@ def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
             h = engram_fuse(cfg, params["engram"]["layers"][si - 1], h,
                             rows[si - 1], use_kernel=True)
         c = caches[si] if caches is not None else None
-        h, nc = apply_segment(cfg, flags, params["segments"][si], h,
+        h, nc = apply_segment(cfg, flags, seg, params["segments"][si], h,
                               positions, c, mode)
         new_caches.append(nc)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), new_caches
+
+
+def _head_params(cfg: ModelConfig, params):
+    return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
 def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
@@ -128,8 +136,8 @@ def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):
                                  device=tokens.device)
         h_last = h.gather(1, (lengths - 1).view(B, 1, 1).expand(
             B, 1, h.shape[-1]))
-        logits = head_logits(params["head"], h_last[:, 0],
-                             cfg.final_logit_softcap)
+        logits = head_logits(_head_params(cfg, params), h_last[:, 0],
+                             cfg.final_logit_softcap, cfg.tie_embeddings)
         caches = _pad_caches_to(caches, max_len or S)
         no = (max(cfg.engram.orders) if cfg.engram_layers() else 1) - 1
         # the reference's dynamic_slice: start max(l - no, 0), clamped so
@@ -155,7 +163,8 @@ def _decode_one(cfg: ModelConfig, flags: RunFlags, params, state, token,
     h, new_caches = forward(cfg, flags, params, {"tokens": token[:, None]},
                             "decode", positions=positions.long(),
                             caches=state["caches"], engram_rows=rows)
-    logits = head_logits(params["head"], h[:, 0], cfg.final_logit_softcap)
+    logits = head_logits(_head_params(cfg, params), h[:, 0],
+                         cfg.final_logit_softcap, cfg.tie_embeddings)
     new_state = {
         "caches": new_caches,
         "positions": positions + 1,

@@ -6,8 +6,10 @@ the reference. The reference scans each segment's periodic tail over
 stacked leaves; here every segment is a plain list of per-layer blocks run
 as a Python loop, with per-layer parameter and cache lists.
 
-This slice ports the dense GQA path: ``attn`` mixers with ``dense`` SwiGLU
-FFNs. ``check_supported`` names the ROADMAP item for everything else.
+The port has the dense GQA path: ``attn`` mixers with ``dense`` SwiGLU or
+GeGLU FFNs, with the gemma2/gemma3 features (sliding-window ``local``
+layers, a second RoPE base, qk-norms, post-block norms, softcaps).
+``check_supported`` names the ROADMAP item for everything else.
 """
 from __future__ import annotations
 
@@ -24,7 +26,12 @@ from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 class RunFlags:
     """Runtime knobs that don't change parameters, only execution."""
     engram_strategy: str | None = None
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
     chunk_threshold: int = 2048
+    # local layers: slice the cache to the window during decode instead of
+    # masking the full context
+    decode_window_slice: bool = False
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -36,12 +43,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"non-GQA mixers (mla, mamba, xlstm): {other}")
     if any(f != "dense" for f in cfg.ffn_types):
         raise NotImplementedError(f"moe / ffn-less blocks: {other}")
-    if cfg.window_size > 0 or any(k != "global" for k in cfg.attn_kinds):
-        raise NotImplementedError(f"sliding-window layers: {other}")
-    if (cfg.qk_norm or cfg.post_block_norm or cfg.tie_embeddings
-            or cfg.scale_embeddings):
-        raise NotImplementedError(f"qk/post norms, tied or scaled "
-                                  f"embeddings: {other}")
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:
@@ -93,10 +94,17 @@ def _plan_one(cfg: ModelConfig, idxs: tuple[int, ...]) -> Segment:
 # ---------------------------------------------------------------------------
 
 def block_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
-    return {"ln1": rmsnorm_defs(cfg.d_model),
-            "mixer": attn_defs(cfg, dtype, fan_in),
-            "ln2": rmsnorm_defs(cfg.d_model),
-            "ffn": mlp_defs(cfg.d_model, cfg.d_ff, dtype, fan_in)}
+    """The reference's leaf order: ln1, mixer, post_ln1, ln2, ffn,
+    post_ln2 (the post-block norms only with ``cfg.post_block_norm``)."""
+    d = {"ln1": rmsnorm_defs(cfg.d_model),
+         "mixer": attn_defs(cfg, dtype, fan_in)}
+    if cfg.post_block_norm:
+        d["post_ln1"] = rmsnorm_defs(cfg.d_model)
+    d["ln2"] = rmsnorm_defs(cfg.d_model)
+    d["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff, dtype, fan_in)
+    if cfg.post_block_norm:
+        d["post_ln2"] = rmsnorm_defs(cfg.d_model)
+    return d
 
 
 def segment_defs(cfg: ModelConfig, seg: Segment, dtype: str) -> list:
@@ -107,19 +115,27 @@ def segment_defs(cfg: ModelConfig, seg: Segment, dtype: str) -> list:
             for j in range(len(seg.layers))]
 
 
-def apply_block(cfg: ModelConfig, flags: RunFlags, params, h, positions,
-                cache, mode: str):
-    """One transformer block. mode: prefill | decode. Returns (h, cache)."""
+def apply_block(cfg: ModelConfig, flags: RunFlags, kind: str, params, h,
+                positions, cache, mode: str):
+    """One transformer block of attention kind ``kind`` (global | local).
+    mode: prefill | decode. Returns (h, cache)."""
     pre = rmsnorm(params["ln1"], h, cfg.norm_eps)
     if mode == "decode":
-        out, new_cache = decode_attention(cfg, params["mixer"], pre, cache,
-                                          positions)
+        out, new_cache = decode_attention(
+            cfg, params["mixer"], pre, cache, positions, kind,
+            window_slice=flags.decode_window_slice)
     else:
-        out, new_cache = attention(cfg, params["mixer"], pre, positions,
-                                   chunk_threshold=flags.chunk_threshold)
+        out, new_cache = attention(
+            cfg, params["mixer"], pre, positions, kind, q_chunk=flags.q_chunk,
+            kv_chunk=flags.kv_chunk, chunk_threshold=flags.chunk_threshold)
+    if cfg.post_block_norm:
+        out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
     h = h + out
-    pre2 = rmsnorm(params["ln2"], h, cfg.norm_eps)
-    return h + mlp(params["ffn"], pre2, cfg.ffn_act), new_cache
+    out2 = mlp(params["ffn"], rmsnorm(params["ln2"], h, cfg.norm_eps),
+               cfg.ffn_act)
+    if cfg.post_block_norm:
+        out2 = rmsnorm(params["post_ln2"], out2, cfg.norm_eps)
+    return h + out2, new_cache
 
 
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
@@ -128,12 +144,13 @@ def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
             for _ in seg.layers]
 
 
-def apply_segment(cfg: ModelConfig, flags: RunFlags, params: list, h,
-                  positions, cache, mode: str):
+def apply_segment(cfg: ModelConfig, flags: RunFlags, seg: Segment,
+                  params: list, h, positions, cache, mode: str):
     """Returns (h, per-layer caches)."""
     new_cache = []
-    for j, p in enumerate(params):
+    for j, (li, p) in enumerate(zip(seg.layers, params)):
         c = cache[j] if cache is not None else None
-        h, nc = apply_block(cfg, flags, p, h, positions, c, mode)
+        h, nc = apply_block(cfg, flags, cfg.attn_kinds[li], p, h, positions,
+                            c, mode)
         new_cache.append(nc)
     return h, new_cache

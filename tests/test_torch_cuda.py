@@ -564,3 +564,99 @@ def test_engine_host_tables_card_equals_hbm(mode):
         assert launches == n_eng * (st.decode_steps + st.prefill_waves)
     else:
         assert launches > st.decode_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,T", [(4608, 8), (4608, 256), (1152, 8),
+                                 (1152, 256), (1152, 2112)])
+def test_gated_fuse_kernel_gemma_widths(d, T):
+    """K2 at gemma2-27b's width (4608: decode waves and admission groups)
+    and gemma3-1b's (1152, also a 2100-token prompt's 2112 rows), with
+    ENGRAM_27B's F = 2560, bf16: within one bf16 ulp of the plain version
+    and bit-identical across two calls."""
+    dev = _card()
+    F = 2560
+    rng = np.random.RandomState(d + T)
+    ops = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in (
+        rng.randn(T, d), rng.randn(T, F), rng.randn(d, d) / np.sqrt(d),
+        rng.randn(F, d) / np.sqrt(F))]
+    before = engram_gated_fuse.launches
+    first = engram_gated_fuse(*ops)
+    second = engram_gated_fuse(*ops)
+    torch.cuda.synchronize()
+    assert engram_gated_fuse.launches == before + 2
+    torch.testing.assert_close(first.float(), gated_fuse_ref(*ops).float(),
+                               **BF16_TOL)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_tied_tree_f32_head_made_once():
+    """A tied tree (reduced gemma3-1b, its embedding in bf16) on the card:
+    the router makes one f32 (d, V) head from the embedding, every
+    replica's engine holds that tensor, an engine over the prepared tree
+    keeps it, and the replicas serve the CPU's streams."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.models.layers import with_f32_head
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Engine, Router
+    dev = _card()
+    cfg = gemma3_1b.reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    params["embed"]["w"] = params["embed"]["w"].bfloat16()
+    kw = dict(replicas=2, pool="CXL", max_batch=2, max_len=64,
+              prompt_bucket=8)
+    prompts = [[5, 17, 42] * 6, [7, 8, 9, 10] * 5]
+    seen = []
+    for device, p in (("cpu", params),
+                      (dev, tree_map(lambda t: t.to(dev), params))):
+        router = Router(cfg, params=p, device=device, **kw)
+        w32 = [rt.engine.params["embed"]["w32"] for rt in router.replicas]
+        assert w32[0] is w32[1] and w32[0].dtype == torch.float32
+        assert tuple(w32[0].shape) == (cfg.d_model, cfg.vocab_size)
+        assert "w32" not in p["embed"]
+        prepared = with_f32_head(p)
+        eng = Engine(cfg, params=prepared, device=device, max_batch=2,
+                     max_len=64, prompt_bucket=8)
+        assert eng.params["embed"]["w32"] is prepared["embed"]["w32"]
+        hs = [router.submit(q, max_new=6) for q in prompts]
+        router.drain()
+        seen.append([h.tokens for h in hs])
+    assert seen[0] == seen[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_slice", [False, True])
+@pytest.mark.parametrize("name", ["gemma2-27b", "gemma3-1b"])
+def test_gemma_engine_card_equals_cpu(name, window_slice):
+    """Reduced gemma2-27b and gemma3-1b (f32, a 16-token window), pool CXL,
+    prompts of 18 to 30 tokens and 12 new ones, ``decode_window_slice``
+    off and on: the card (kernels) emits the CPU's streams, with K1 once
+    per decode wave."""
+    import importlib
+
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine
+    dev = _card()
+    mod = importlib.import_module(
+        f"repro_torch.configs.{name.replace('-', '_')}")
+    cfg = mod.reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(5)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
+               for n in (18, 23, 30)]
+    seen = []
+    for device, p in (("cpu", params),
+                      (dev, tree_map(lambda t: t.to(dev), params))):
+        eng = Engine(cfg, params=p, device=device, pool="CXL", max_batch=2,
+                     max_len=64, prompt_bucket=8,
+                     flags=RunFlags(decode_window_slice=window_slice))
+        before = gather_rows.launches
+        rids = [eng.submit(q, max_new=12) for q in prompts]
+        eng.run()
+        seen.append([eng.done[r].out for r in rids])
+    assert gather_rows.launches - before == eng.stats.decode_steps
+    assert seen[0] == seen[1]

@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX reference: configs, layers, both attention paths,
 prefill/decode logits and greedy streams, on the tiny serving config and
-the reduced engram-27b config, in float32.
+the reduced engram-27b, gemma2-27b and gemma3-1b configs, in float32.
 
 Parameters come from the reference's ``init_params`` (``jax.random`` cannot
 be reproduced in torch) bridged with ``from_jax``; other inputs are drawn
@@ -18,6 +18,8 @@ import numpy as np  # noqa: E402
 
 from repro.configs import deepseek_7b as ref_deepseek_7b  # noqa: E402
 from repro.configs import engram_27b as ref_engram_27b  # noqa: E402
+from repro.configs import gemma2_27b as ref_gemma2_27b  # noqa: E402
+from repro.configs import gemma3_1b as ref_gemma3_1b  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.core import engram as ref_engram  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
@@ -25,6 +27,7 @@ from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.models.transformer import RunFlags as RefFlags  # noqa: E402
 from repro_torch.configs import deepseek_7b, engram_27b  # noqa: E402
+from repro_torch.configs import gemma2_27b, gemma3_1b  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import engram as port_engram  # noqa: E402
 from repro_torch.models import attention as port_attn  # noqa: E402
@@ -54,6 +57,8 @@ def _tiny(mod):
 CONFIGS = {
     "tiny": (_tiny(deepseek_7b), _tiny(ref_deepseek_7b)),
     "engram-27b-reduced": (engram_27b.reduced(), ref_engram_27b.reduced()),
+    "gemma2-27b-reduced": (gemma2_27b.reduced(), ref_gemma2_27b.reduced()),
+    "gemma3-1b-reduced": (gemma3_1b.reduced(), ref_gemma3_1b.reduced()),
 }
 
 
@@ -73,7 +78,8 @@ def _t(a):
 # ------------------------------------------------------------------ configs
 
 @pytest.mark.parametrize("name", ["engram-27b", "deepseek-7b", "engram-40b",
-                                  "deepseek-coder-33b"])
+                                  "deepseek-coder-33b", "gemma2-27b",
+                                  "gemma3-1b"])
 def test_configs_identical(name):
     cfg, rcfg = get_config(name), ref_get_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
@@ -322,9 +328,12 @@ def test_init_params_mirrors_reference_tree(bridged):
 
 
 def test_unported_config_features_raise():
+    """MLA, MoE, Mamba and xLSTM name their ROADMAP item (windows and
+    qk-norms, once here, are ported: tests/test_torch_gemma.py)."""
     cfg = engram_27b.reduced()
-    for bad in (dict(window_size=8, attn_kinds=("local",) * 6),
-                dict(attn_impl="mla"), dict(qk_norm=True)):
+    for bad in (dict(attn_impl="mla"), dict(ffn_types=("moe",) * 6),
+                dict(layer_types=("mamba",) * 6),
+                dict(layer_types=("mlstm",) * 6)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_model.model_defs(dataclasses.replace(cfg, **bad))
 
