@@ -44,7 +44,10 @@ result lines are printed):
               CPU: monolithic, chunked with a PrefixKVCache and scripted
               speculation, identical streams; teacher-forced logits over
               48 positions past the window (decode_window_slice off and
-              on) within 1e-3.
+              on) within 1e-3. And deepseek-v2-236b-reduced and
+              deepseek-v3-671b-reduced (MLA with its latent KV cache, MoE
+              with shared experts) the same three ways, with StoreStats
+              and PrefixCacheStats, and teacher-forced logits within 1e-3.
   7. serve    engram-27b at full width and full depth (36 layers, 22.9 B
               parameters, seeded random bf16 weights drawn on the card,
               shared by phases 7 to 10) behind ``Engine(pool="CXL",
@@ -136,9 +139,28 @@ result lines are printed):
               16 bf16 ulps of each logit plus its row's RMS, the streams
               compared (where they part, the top-2 margin must be within
               that tolerance); each run's steady waves profiled.
+ 16. deepseek deepseek-v2-236b at full width (d 5120, 128 heads, MLA ranks
+              1536 and 512, 160 routed experts top-6 and 2 shared of width
+              1536, a 102,400-word vocabulary) cut to 9 layers (layer 0
+              dense), 33.24 B parameters on the card, its ENGRAM_40B
+              tables (layers 2 and 4) drawn into phase 14(d)'s registered
+              host buffers, pooled_host; run right after 14(d): (a) K2
+              at d = 5120, K1 bit-equal on its host tables, peak device
+              memory under 80 GB; (b) phase 7's mix, 16 new tokens, twice
+              after a warm-up: identical streams, K1, K2 and grouped-GEMM
+              launch budgets, one read per steady wave, no other sync,
+              then a profile listing the grouped GEMMs and the routing
+              kernels; (c) a MoE layer at T = 8 and 256 against its
+              plain per-expert loop (each grouped GEMM within one bf16
+              ulp, the layer against an f32 evaluation), timed beside its
+              byte bound, and the absorbed MLA decode timed; (d) MLA's
+              absorbed decode held to its decompressed prefill on layers
+              0 and 1's own weights (16 bf16 ulps of |out| + row RMS),
+              a stacked layer's and the whole model's difference printed;
+              (e) a 2100-token prompt at ``max_len=4096``, TTFT.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 15); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 16); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -812,8 +834,8 @@ def check_agreement_fleet(dev) -> None:
 
 
 def forced_logits(cfg, params, device, window_slice: bool) -> list:
-    """Teacher-forced logits of the reduced gemma configs over 48
-    positions past their 16-token window: a 2-row prefill (16 and 11
+    """Teacher-forced logits of a reduced config over 48 positions (past
+    the reduced gemma configs' 16-token window): a 2-row prefill (16 and 11
     tokens) through chunked attention (8-token chunks, so local layers
     skip KV blocks), then 48 decode steps of seeded tokens at
     ``max_len=64``. Returns the prefill's and every step's logits."""
@@ -837,22 +859,26 @@ def forced_logits(cfg, params, device, window_slice: bool) -> list:
     return [t.cpu() for t in out]
 
 
-def check_agreement_gemma(dev) -> None:
-    """gemma2-27b-reduced and gemma3-1b-reduced (f32, pool CXL, a 16-token
-    window: sliding-window layers, softcaps, qk-norms, post-block norms,
-    tied and scaled embeddings) on the card and on the CPU: monolithic
-    serving of three prompts of 18 to 30 tokens, chunked admission
+def check_agreement_models(dev, mods, slices=(False,)) -> None:
+    """The reduced configs of ``mods`` (f32, pool CXL at the emulated
+    operating point) on the card and on the CPU: monolithic serving of
+    three prompts of 18 to 30 tokens, chunked admission
     (``prefill_chunk=8``) with a PrefixKVCache over three prompts sharing
     a 16-token head, served one at a time, and speculation with a
-    ScriptedProposer over the monolithic streams: identical streams, the
-    speculative ones equal to the monolithic, every draft accepted, prefix
-    blocks restored. Random weights make flat streams, so the
-    teacher-forced logits over 48 positions past the window
-    (``forced_logits``, ``decode_window_slice`` off and on) must also agree
-    within 1e-3."""
+    ScriptedProposer over the monolithic streams: identical streams,
+    StoreStats and PrefixCacheStats, the speculative streams equal to the
+    monolithic, every draft accepted, prefix blocks restored. Random
+    weights make flat streams, so the teacher-forced logits over 48
+    positions (``forced_logits``, chunked prefill attention, each
+    ``decode_window_slice`` of ``slices``) must also agree within 1e-3.
+    gemma2-27b and gemma3-1b (a 16-token window: sliding-window layers,
+    softcaps, qk-norms, post-block norms, tied and scaled embeddings) run
+    with the slice off and on; deepseek-v2-236b and deepseek-v3-671b (MLA
+    latents in the KV cache, MoE) without it."""
+    import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs import SpecConfig, gemma2_27b, gemma3_1b
+    from repro_torch.configs import SpecConfig
     from repro_torch.models.model import init_params
     from repro_torch.models.params import tree_map
     from repro_torch.pool.cache import PrefixKVCache
@@ -868,7 +894,7 @@ def check_agreement_gemma(dev) -> None:
         eng.run()
         return [eng.done[r].out for r in rids]
 
-    for mod in (gemma2_27b, gemma3_1b):
+    for mod in mods:
         cfg = mod.reduced()
         params_cpu = init_params(cfg, seed=0, device="cpu")
         params_dev = tree_map(lambda t: t.to(dev), params_cpu)
@@ -878,11 +904,12 @@ def check_agreement_gemma(dev) -> None:
         head = list(rng.randint(1, cfg.vocab_size, size=16))
         shared = [head + list(rng.randint(1, cfg.vocab_size, size=n))
                   for n in (3, 7, 12)]
-        kw = dict(pool="CXL", max_batch=2, max_len=64, prompt_bucket=8)
+        kw = dict(pool="CXL", max_batch=2, max_len=64, prompt_bucket=8,
+                  emulate_step_s=5e-5)
         seen, script = [], None
         for device, params in (("cpu", params_cpu), (dev, params_dev)):
-            mono = run(Engine(cfg, params=params, device=device, **kw),
-                       prompts)
+            mono_eng = Engine(cfg, params=params, device=device, **kw)
+            mono = run(mono_eng, prompts)
             script = script or [p + o for p, o in zip(prompts, mono)]
             chunked = Engine(cfg, params=params, device=device,
                              prefill_chunk=8,
@@ -896,7 +923,10 @@ def check_agreement_gemma(dev) -> None:
             seen.append(dict(
                 mono=mono, chunked=chunked_out, spec=spec_out,
                 hits=chunked.stats.prefix_hit_blocks,
-                drafts=(st.proposed_tokens, st.accepted_tokens)))
+                drafts=(st.proposed_tokens, st.accepted_tokens),
+                store=[dataclasses.asdict(e.store.stats())
+                       for e in (mono_eng, chunked, spec)],
+                prefix=dataclasses.asdict(chunked.prefix_cache.stats())))
         cpu, card = seen
         for key in cpu:
             check(cpu[key] == card[key],
@@ -909,7 +939,7 @@ def check_agreement_gemma(dev) -> None:
         check(accepted == proposed > 0, f"{cfg.name} agreement: "
               f"{accepted} of {proposed} scripted drafts accepted")
         worst = {}
-        for ws in (False, True):
+        for ws in slices:
             ref = forced_logits(cfg, params_cpu, "cpu", ws)
             got = forced_logits(cfg, params_dev, dev, ws)
             for a, b in zip(got, ref):
@@ -917,14 +947,18 @@ def check_agreement_gemma(dev) -> None:
                 torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
             worst[ws] = max((a - b).abs().max().item()
                             for a, b in zip(got, ref))
-        print(f"agree {cfg.name} (f32, pool=CXL, window "
-              f"{cfg.window_size}): monolithic, chunked with a prefix cache "
-              f"({card['hits']} blocks restored) and scripted speculation "
+        print(f"agree {cfg.name} (f32, pool=CXL, emulated step 5e-5 s"
+              + (f", window {cfg.window_size}" if cfg.window_size else "")
+              + f"): monolithic, chunked with a prefix cache "
+              f"({card['hits']} blocks restored, {card['prefix']['bytes']} "
+              f"snapshot bytes held) and scripted speculation "
               f"({accepted}/{proposed} drafts accepted, streams equal to the "
-              f"monolithic) identical on card and CPU; teacher-forced logits "
-              f"over 48 positions past the window, max|card - cpu| "
-              f"{worst[False]:.2e} masked, {worst[True]:.2e} with "
-              f"decode_window_slice")
+              f"monolithic) identical on card and CPU, with StoreStats and "
+              f"PrefixCacheStats; teacher-forced logits over 48 positions, "
+              f"max|card - cpu| "
+              + ", ".join(f"{v:.2e}" + (f" (decode_window_slice={ws})"
+                                        if len(slices) > 1 else "")
+                          for ws, v in worst.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -1071,12 +1105,13 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> tuple:
 
 
 def profile_waves(eng, rt, prompts, max_new: int = 6,
-                  label: str = "profile") -> None:
+                  label: str = "profile", groups=None) -> None:
     """Where a steady decode (or verify) wave's time goes, from a short
     extra run after the counted one: wall time per wave, device time per
-    wave (CUPTI, all kernels summed) and the kernels that take most of it.
-    The first step (admission, and in chunked mode the chunk waves) is not
-    profiled."""
+    wave (CUPTI, all kernels summed) and the kernels that take most of it;
+    with ``groups`` ({label: predicate on a kernel's name}) also each
+    group's device time and operations per wave. The first step
+    (admission, and in chunked mode the chunk waves) is not profiled."""
     import torch
     for p in prompts:
         rt.submit(p, max_new=max_new)
@@ -1107,21 +1142,33 @@ def profile_waves(eng, rt, prompts, max_new: int = 6,
     for name, (calls, us) in top:
         print(f"{label}:   {us / 1e3 / n:9.4f} ms/wave  {calls / n:6.1f} "
               f"calls/wave  {name[:90]}")
+    for g, pred in (groups or {}).items():
+        hit = [(c, us) for name, (c, us) in by_name.items() if pred(name)]
+        print(f"{label}: {g}: {sum(us for _, us in hit) / 1e3 / n:.4f} "
+              f"ms/wave in {sum(c for c, _ in hit) / n:.1f} device "
+              f"operations/wave ({len(hit)} kernel names)")
 
 
-def serve_long_prompt(cfg, params, dev, smi: str) -> dict:
+def serve_long_prompt(cfg, params, dev, smi: str, flags=None,
+                      label: str = "long prompt") -> dict:
     """One 2100-token prompt (padded to 2112) through monolithic admission
     with ``max_len=4096``: every layer's prefill attention is chunked.
     After a warm-up with another prompt of that length, one counted run
-    with 8 new tokens; returns the kernels' launches over it."""
+    with 8 new tokens; returns the kernels' launches over it. With
+    pooled_host ``flags`` K1 also launches once per Engram layer for the
+    admission group."""
     import numpy as np
     import torch
     from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import RunFlags
     from repro_torch.serving import Engine
 
+    flags = flags or RunFlags()
+    n_host = len(cfg.engram_layers()) \
+        if flags.engram_strategy == "pooled_host" else 0
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=4096,
-                 prompt_bucket=32, device=dev)
+    eng = Engine(cfg, params=params, flags=flags, pool="CXL", max_batch=8,
+                 max_len=4096, prompt_bucket=32, device=dev)
     rng = np.random.RandomState(3)
     warm, prompt = (list(rng.randint(1, cfg.vocab_size, size=2100))
                     for _ in range(2))
@@ -1135,23 +1182,24 @@ def serve_long_prompt(cfg, params, dev, smi: str) -> dict:
     st = eng.stats
     check(h.finished and len(h.tokens) == 8
           and all(0 <= t < cfg.vocab_size for t in h.tokens),
-          f"long prompt: {h.tokens} is not 8 tokens of the vocabulary")
-    check(launches["engram_gather"] == st.decode_steps == 7,
-          f"long prompt: K1 launches {launches['engram_gather']} != one "
-          f"per {st.decode_steps} decode waves")
+          f"{label}: {h.tokens} is not 8 tokens of the vocabulary")
+    check(st.decode_steps == 7 and launches["engram_gather"]
+          == st.decode_steps + n_host * st.prefill_waves,
+          f"{label}: K1 launches {launches['engram_gather']} != one per "
+          f"{st.decode_steps} decode waves + {n_host} per prefill group")
     check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
-          f"long prompt: K2 launches {launches['gated_fuse']} != 2 x "
+          f"{label}: K2 launches {launches['gated_fuse']} != 2 x "
           f"({st.prefill_waves} prefill groups + {st.decode_steps} waves)")
     check(pulls == [3] + [1] * (st.decode_steps - 1),
-          f"long prompt: device->host reads per step {pulls}")
+          f"{label}: device->host reads per step {pulls}")
     kv = sum(t.numel() * t.element_size()
              for t in tree_leaves(eng.state["caches"]))
     peak = torch.cuda.max_memory_allocated()
-    print(f"long prompt: 2100 tokens (bucket 2112) + 8 new, monolithic "
+    print(f"{label}: 2100 tokens (bucket 2112) + 8 new, monolithic "
           f"admission, chunked attention in all {cfg.n_layers} layers; K1 "
           f"launches {launches['engram_gather']}, K2 launches "
           f"{launches['gated_fuse']}; reads per step {pulls}; no other sync")
-    print(f"long prompt [{smi}]: TTFT {st.mean_ttft_s * 1e3:.2f} ms, run "
+    print(f"{label} [{smi}]: TTFT {st.mean_ttft_s * 1e3:.2f} ms, run "
           f"{run_s:.3f} s, peak memory {peak / 1e9:.2f} GB, KV cache "
           f"{kv / 1e9:.2f} GB (max_batch 8 x max_len 4096)")
     return launches
@@ -2439,34 +2487,39 @@ def record_waves(eng, keep: bool = True) -> list:
     return waves
 
 
-def serve_host_model(name: str, dev, smi: str, host_tables=None,
-                     max_new: int = 8, reps: int = 1) -> tuple:
-    """(c), (d) and (e): a model whose tables do not fit beside its weights
-    on the card, at full width and depth: K2 held at its d (T = 8 and
-    256) first, then the weights drawn on the card and the tables drawn on
-    the card chunk by chunk into registered host buffers (``host_tables``
-    reused when given), then 8 prompts x ``max_new`` new tokens behind
-    ``Engine(pool="CXL", max_batch=8, max_len=512)`` with pooled_host,
-    ``reps`` counted runs after a warm-up, whose streams must be
-    identical. K1 bit-equal on the model's host tables
+def serve_host_model(cfg, dev, smi: str, host_tables=None,
+                     max_new: int = 8, reps: int = 1, after=None,
+                     profile_groups=None) -> tuple:
+    """(c), (d) and (e) of phase 14, and phase 16: a model whose tables do
+    not fit beside its weights on the card, at full width: K2 held at its
+    d (T = 8 and 256) first, then the weights drawn on the card and the
+    tables drawn on the card chunk by chunk into registered host buffers
+    (``host_tables`` reused when given), then 8 prompts x ``max_new`` new
+    tokens behind ``Engine(pool="CXL", max_batch=8, max_len=512)`` with
+    pooled_host, ``reps`` counted runs after a warm-up, whose streams must
+    be identical. K1 bit-equal on the model's host tables
     (``check_host_rows``), then K1 once per decode wave and once per
-    Engram layer per admission group, K2 twice per wave and group, one
-    read per steady wave and no other sync, tokens in the vocabulary,
-    finite prefill logits (with a final softcap: every prefill and decode
-    logit within it), peak device memory under 80 GB; then a profile of
-    its steady decode waves. Returns the launches of the counted runs and
-    K2's timings."""
+    Engram layer per admission group, K2 twice per wave and group, the
+    grouped GEMM twice per MoE layer per wave and group (none without
+    MoE), one read per steady wave and no other sync, tokens in the
+    vocabulary, finite prefill logits (with a final softcap: every
+    prefill and decode logit within it), peak device memory under 80 GB;
+    then a profile of its steady decode waves (``profile_groups`` as in
+    ``profile_waves``). ``after(eng, params)`` runs on the served engine
+    before it is freed. Returns the launches of the counted runs, K2's
+    timings, the host tables (for the next model of their shape) and
+    what ``after`` returned."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.engram_gather.host import host_empty
+    from repro_torch.models import moe
     from repro_torch.models.model import init_params, model_defs
     from repro_torch.models.params import DTYPES, tree_leaves
     from repro_torch.models.transformer import RunFlags
     from repro_torch.serving import Engine
 
-    cfg = get_config(name)
     e = cfg.engram
-    label = f"host run {name}"
+    label = f"host run {cfg.name}"
+    n_moe = sum(f == "moe" for f in cfg.ffn_types)
     gen = torch.Generator(device=dev).manual_seed(3)
     k2 = {n_t: time_k2(gen, dev, n_t, cfg.d_model,
                        len(e.orders) * e.emb_dim) for n_t in (8, 256)}
@@ -2481,7 +2534,7 @@ def serve_host_model(name: str, dev, smi: str, host_tables=None,
     params = init_params(cfg, seed=0, device=dev, table_memory="pinned_host",
                          host_tables=host_tables)
     reg_s, draw_s = t1 - t0, time.perf_counter() - t1
-    del host_tables
+    host_tables = [layer["tables"] for layer in params["engram"]["layers"]]
     leaves = list(tree_leaves(params))
     on_card = sum(t.numel() for t in leaves if t.device.type == "cuda")
     on_host = sum(t.numel() * t.element_size() for t in leaves
@@ -2511,9 +2564,11 @@ def serve_host_model(name: str, dev, smi: str, host_tables=None,
         n_steps0 = len(eng._step_times)
         top.clear()
         reset_launches()
+        moe.grouped_mm.launches = 0
         handles = [rt.submit(p, max_new=max_new) for p in prompts]
         pulls, run_s = drive(eng, rt)
         got = read_launches()
+        gmm = moe.grouped_mm.launches
         st = eng.stats
         streams = [h.tokens for h in handles]
         first = first or streams
@@ -2530,6 +2585,9 @@ def serve_host_model(name: str, dev, smi: str, host_tables=None,
               f"{st.decode_steps} + {n_eng} x {st.prefill_waves}")
         check(got["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
               f"{label}: K2 launches {got['gated_fuse']}")
+        check(gmm == 2 * n_moe * (st.prefill_waves + st.decode_steps),
+              f"{label}: {gmm} grouped GEMMs != 2 x {n_moe} MoE layers x "
+              f"({st.prefill_waves} groups + {st.decode_steps} waves)")
         check(len(pulls) == st.decode_steps
               and all(p == 1 for p in pulls[1:]),
               f"{label}: device->host reads per step {pulls}")
@@ -2543,8 +2601,9 @@ def serve_host_model(name: str, dev, smi: str, host_tables=None,
         print(f"{label} run {rep + 1}: pooled_host, pool=CXL, 8 requests x "
               f"{max_new} tokens, {st.prefill_waves} admission group(s), "
               f"{st.decode_steps} decode waves; K1 launches "
-              f"{got['engram_gather']}, K2 launches {got['gated_fuse']}; "
-              f"reads per step {pulls}; no other sync"
+              f"{got['engram_gather']}, K2 launches {got['gated_fuse']}"
+              + (f", grouped GEMMs {gmm}" if n_moe else "")
+              + f"; reads per step {pulls}; no other sync"
               + (f"; streams equal to run 1's" if rep else ""))
         print(f"{label} run {rep + 1} [{smi}]: decode "
               f"{tokens / decode_s:.2f} tok/s, wave "
@@ -2566,13 +2625,16 @@ def serve_host_model(name: str, dev, smi: str, host_tables=None,
               f"{label}: a prefill logit beyond the final softcap {cap}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
-    profile_waves(eng, rt, prompts, label=f"{label} profile")
+    profile_waves(eng, rt, prompts, label=f"{label} profile",
+                  groups=profile_groups)
     print(f"{label} [{smi}]: peak device memory {peak:.2f} GB; prefill "
           f"logits of the 8 prompts finite, max |logit| "
           f"{logits.abs().max().item():.4f}; first stream {first[0]}; "
           + host_status("host"))
-    del eng, rt, logits
-    return launches, k2
+    del rt, logits
+    extra = after(eng, dict(streams=first, peak_gb=peak)) if after else None
+    del eng
+    return launches, k2, host_tables, extra
 
 
 # ---------------------------------------------------------------------------
@@ -2770,6 +2832,262 @@ def serve_gemma3(dev, smi: str) -> tuple:
     return launches, k2
 
 
+# ---------------------------------------------------------------------------
+# phase 16: deepseek-v2-236b (MLA + MoE), 9 layers, tables on the host
+# ---------------------------------------------------------------------------
+
+def deepseek_v2_cut():
+    """deepseek-v2-236b at full width cut to 9 layers: layer 0 dense (the
+    config's one first dense layer), layers 1 to 8 MoE, ENGRAM_40B tables
+    at layers (2, 4) (``engram_for(9, ENGRAM_40B)``)."""
+    from repro_torch.configs import ENGRAM_40B, engram_for
+    from repro_torch.configs.deepseek_v2_236b import full
+    L = 9
+    return dataclasses.replace(full(), n_layers=L, layer_types=("attn",) * L,
+                               attn_kinds=("global",) * L,
+                               ffn_types=("dense",) + ("moe",) * (L - 1),
+                               engram=engram_for(L, ENGRAM_40B))
+
+
+def moe_on_card(cfg, params, dev, smi: str) -> dict:
+    """(c) Layer 1's MoE FFN at full width (160 experts top-6 and 2 shared
+    of width 1536, d 5120) on bf16 inputs at T = 8 and 256, the grouped
+    GEMM path against its plain per-expert loop (``grouped_mm_ref`` in
+    ``grouped_mm``'s place) on the same inputs. Identical expert ids.
+    Each of the layer's two grouped GEMMs, on the layer's own sorted rows,
+    within chip_smoke's BF16_TOL scaled to its product (rtol 2^-7, atol
+    1e-3 x max|product|): one rounding of an f32 sum each. The whole layer
+    rounds to bf16 five times (both products, the activation, the
+    weighted rows, the shared experts' sum), so its two paths part by a
+    few ulps of the terms they sum; each is held to an f32 evaluation of
+    the same function on the same bf16 weights and inputs (the per-expert
+    loop in f32), and the grouped path's largest error must be within
+    twice the plain loop's. Both paths' device times beside the layer's
+    bound: the bytes of the experts the ids touch (gate+up and down), the
+    shared experts, the router, the input and the output, over 3.35 TB/s.
+    Also layer 1's absorbed MLA decode at batch 8 over a 512-position
+    latent cache, device-timed. Returns the times."""
+    import torch
+    from repro_torch.models import mla, moe
+    layer = params["segments"][0][1]
+    p, m, d = layer["ffn"], cfg.moe, cfg.d_model
+    check("w_gu" in p, "phase 16: layer 1 is not a MoE layer")
+    print(f"deepseek-v2 moe: torch {torch.__version__} has "
+          f"torch._grouped_mm: {hasattr(torch, '_grouped_mm')}")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dt = p["w_gu"].dtype
+    f = m.d_ff_expert
+    out = {}
+    fn = lambda a: moe.moe_ffn(cfg, p, a)[0]              # noqa: E731
+
+    def loop32(rows, w, offs):
+        """The per-expert loop in f32, one expert's weights upcast at a
+        time."""
+        r = rows.new_zeros((rows.shape[0], w.shape[-1]), dtype=torch.float32)
+        ends = offs.tolist()
+        for g, (a, b) in enumerate(zip([0] + ends[:-1], ends)):
+            if b > a:
+                r[a:b] = rows[a:b].float() @ w[g].float()
+        return r
+
+    p32 = dict(p, shared={k: v.float() for k, v in p["shared"].items()})
+    for T in (8, 256):
+        xs = [(torch.randn(1, T, d, generator=gen, device=dev).to(dt),)
+              for _ in range(4)]
+        x = xs[0][0]
+        eids = moe._route(m, p, x[0])[0]
+        got = fn(x)
+        # the layer's two products on its own sorted rows
+        se, order = torch.sort(eids.reshape(-1), stable=True)
+        offs = torch.searchsorted(se, torch.arange(1, m.n_experts + 1,
+                                                   device=dev),
+                                  out_int32=True)
+        rows = x[0].index_select(0, order // m.top_k)
+        act = moe._act(moe.grouped_mm(rows, p["w_gu"], offs)[:, :f],
+                       cfg.ffn_act)
+        gemm_err = 0.0
+        for a, w in ((rows, p["w_gu"]), (act, p["w_down"])):
+            g_out = moe.grouped_mm(a, w, offs).float()
+            l_out = moe.grouped_mm_ref(a, w, offs).float()
+            torch.testing.assert_close(
+                g_out, l_out, rtol=BF16_TOL["rtol"],
+                atol=BF16_TOL["atol"] * l_out.abs().max().item())
+            gemm_err = max(gemm_err, (g_out - l_out).abs().max().item())
+        grouped = moe.grouped_mm
+        moe.grouped_mm = moe.grouped_mm_ref
+        try:
+            eids_plain = moe._route(m, p, x[0])[0]
+            want = fn(x)
+            plain_ms = device_ms(fn, xs, warmup=1)
+            moe.grouped_mm = loop32
+            exact = moe.moe_ffn(cfg, p32, x.float())[0]
+        finally:
+            moe.grouped_mm = grouped
+        check(torch.equal(eids, eids_plain), f"moe T={T}: expert ids differ")
+        err = (got.float() - exact).abs().max().item()
+        err_plain = (want.float() - exact).abs().max().item()
+        check(err <= 2 * err_plain, f"moe T={T}: the grouped path is "
+              f"{err:.4e} from the f32 evaluation, the plain loop "
+              f"{err_plain:.4e}")
+        ms = device_ms(fn, xs, warmup=1)
+        touched = sum(int(torch.unique(moe._route(m, p, a[0])[0]).numel())
+                      for (a,) in xs) / len(xs)
+        per_expert = 3 * d * f * 2
+        nbytes = (touched * per_expert + m.n_shared * per_expert
+                  + d * m.n_experts * 4 + 2 * T * d * 2)
+        flops = 2 * T * (m.top_k + m.n_shared) * 3 * d * f \
+            + 2 * T * d * m.n_experts
+        b_ms, b_by = bound(nbytes, flops)
+        out[T] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, max_abs_err=gemm_err, touched=touched,
+                      layer_err=err, layer_err_plain=err_plain)
+        print(f"deepseek-v2 moe T={T} [{smi}]: expert ids identical; each "
+              f"grouped GEMM within BF16_TOL x max|product| of its plain "
+              f"loop (max|diff| {gemm_err:.4e}); the layer: max|out| "
+              f"{exact.abs().max().item():.4f}, grouped path {err:.4e} and "
+              f"plain loop {err_plain:.4e} from the f32 evaluation, paths "
+              f"{(got.float() - want.float()).abs().max().item():.4e} "
+              f"apart; device ms: grouped {ms:.5f}, plain loop "
+              f"{plain_ms:.5f}, bound {b_ms:.5f} ({b_by}: {touched:.1f} of "
+              f"{m.n_experts} experts touched, {nbytes / 1e9:.3f} GB; "
+              f"{100 * b_ms / ms:.1f} % of bound)")
+    B, S = 8, 512
+    cache = {"c_kv": torch.randn(B, S, cfg.mla.kv_lora_rank, generator=gen,
+                                 device=dev).to(dt),
+             "k_rope": torch.randn(B, S, cfg.mla.qk_rope_head_dim,
+                                   generator=gen, device=dev).to(dt)}
+    pos = torch.full((B,), S - 1, dtype=torch.long, device=dev)
+    hs = [(torch.randn(B, 1, d, generator=gen, device=dev).to(dt),)
+          for _ in range(4)]
+    out["mla_ms"] = device_ms(
+        lambda h: mla.mla_decode(cfg, layer["mixer"], h, cache, pos)[0], hs,
+        warmup=1)
+    n_moe = sum(f == "moe" for f in cfg.ffn_types)
+    print(f"deepseek-v2 layers [{smi}]: absorbed MLA decode, batch 8 over "
+          f"{S} latent positions: {out['mla_ms']:.5f} device ms a layer, "
+          f"{cfg.n_layers * out['mla_ms']:.4f} a wave of {cfg.n_layers}; MoE "
+          f"at T = 8: {out[8]['ms']:.5f} a layer, "
+          f"{n_moe * out[8]['ms']:.4f} a wave of {n_moe}")
+    return out
+
+
+def mla_paths_agree(cfg, params, flags, dev, smi: str, n: int = 12) -> dict:
+    """(d) MLA's absorbed decode against its decompressed prefill at full
+    width, on each layer's own weights and the same bf16 inputs (two rows
+    of 20 + ``n`` positions, RMS 1 as the block's normed input): the
+    first 20 positions prefilled (their latents padded to 64 positions),
+    then ``n`` absorbed decode steps, each output against one
+    decompressed pass over all positions at the same position, within 16
+    bf16 ulps of the output plus its row's RMS, ``|a - b| <= 16 * 2^-8 *
+    (|b| + rms(row))`` (``window_witness``'s tolerance), on layers 0 and
+    1. Layers the reference stacks draw their weights at
+    1/sqrt(n_periods) (its fan-in rule), so their attention scores have
+    an RMS in the hundreds:
+    the softmax picks one key, and a bf16 rounding in either path flips
+    near-tied keys. Layer 4's (periods of 5) difference and both layers'
+    score RMS are printed beside the held layers', not held; so is what
+    that does to the whole model: the last prompt position's logits of a
+    20-token prefill against a 32-token one (the same decompressed path,
+    other row counts). Returns the largest share of the tolerance per
+    layer."""
+    import math as _m
+    import torch
+    from repro_torch.models.layers import head_logits
+    from repro_torch.models.mla import _latents, mla_attention, mla_decode
+    from repro_torch.models.model import build_prefill_step, forward, pad_kv
+    P, rel, res = 20, 16 * 2.0 ** -8, {}
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for li, (si, j), held in ((0, (0, 0), True), (1, (0, 1), True),
+                              (4, (2, 0), False)):
+        p = params["segments"][si][j]["mixer"]
+        h = torch.randn(2, P + n, cfg.d_model, generator=gen,
+                        device=dev).to(p["wo"].dtype)
+        pos = torch.arange(P + n, device=dev)
+        full, _ = mla_attention(cfg, p, h, pos)
+        _, cache = mla_attention(cfg, p, h[:, :P], pos[:P])
+        cache = {k: pad_kv(v, 64) for k, v in cache.items()}
+        share, worst = 0.0, 0.0
+        for t in range(P, P + n):
+            out, cache = mla_decode(cfg, p, h[:, t:t + 1], cache,
+                                    torch.full((2,), t, device=dev))
+            b = full[:, t].float()
+            rms = b.square().mean(dim=-1, keepdim=True).sqrt()
+            diff = (out[:, 0].float() - b).abs()
+            share = max(share, (diff / (rel * (b.abs() + rms))).max().item())
+            worst = max(worst, diff.max().item())
+        q_nope, q_rope, c_kv, k_rope = _latents(cfg, p, h, pos)
+        m = cfg.mla
+        k = torch.cat([(c_kv @ p["wuk"]).view(2, P + n, cfg.n_heads,
+                                              m.qk_nope_head_dim),
+                       k_rope.expand(-1, -1, cfg.n_heads, -1)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+            / _m.sqrt(q.shape[-1])
+        srms = scores.square().mean().sqrt().item()
+        res[li] = share
+        if held:
+            check(share <= 1.0, f"MLA paths, layer {li}: outputs differ by "
+                  f"up to {share:.2f} x the tolerance")
+        print(f"deepseek-v2 MLA paths, layer {li} [{smi}]: 2 rows, {P} "
+              f"prefilled + {n} absorbed decode steps against one "
+              f"decompressed pass: max|diff| {worst:.4e}, {share:.3f} of "
+              f"the tolerance (16 bf16 ulps of |out| + row RMS; "
+              f"{'held' if held else 'not held: stacked weights'}); "
+              f"attention score RMS {srms:.2f}")
+    toks = torch.randint(1, cfg.vocab_size, (2, P + n), generator=gen,
+                         device=dev)
+    h, _ = forward(cfg, flags, params, {"tokens": toks}, "prefill")
+    b = head_logits(params["head"], h[:, P - 1]).float()
+    a = build_prefill_step(cfg, flags)(params, {"tokens": toks[:, :P]})[0]
+    rms = b.square().mean(dim=-1, keepdim=True).sqrt()
+    model = ((a.float() - b).abs() / (rel * (b.abs() + rms))).max().item()
+    print(f"deepseek-v2 model [{smi}]: position {P - 1}'s logits from a "
+          f"{P}-token prefill and from a {P + n}-token one differ by up to "
+          f"{model:.2f} x that tolerance (max |logit| "
+          f"{b.abs().max().item():.2f}); not held")
+    res["model"] = model
+    return res
+
+
+def serve_deepseek_v2(dev, smi: str, host_tables) -> tuple:
+    """deepseek-v2-236b at full width (d 5120, 128 heads, MLA ranks 1536 and
+    512, 160 routed experts top-6 and 2 shared of width 1536, a 102,400-word
+    vocabulary), cut to 9 layers (``deepseek_v2_cut``): 33.24 B parameters
+    drawn on the card, its ENGRAM_40B tables drawn into ``host_tables``
+    (engram-40b's registered buffers, the same shapes), pooled_host.
+    (a), (b) through ``serve_host_model``: K2 at d = 5120, K1 bit-equal on
+    the host tables, peak under 80 GB, phase 7's mix with 16 new tokens
+    twice after a warm-up (identical streams; K1, K2 and grouped-GEMM
+    budgets; one read per steady wave, no other sync), a profile with
+    the grouped GEMMs and the routing kernels listed; then (c)
+    ``moe_on_card``, (d) ``mla_paths_agree`` and (e) one 2100-token prompt
+    through monolithic admission at ``max_len=4096`` (MLA prefill through
+    ``_chunk_attn``, Dk 192 and Dv 128). Returns the counted launches,
+    K2's timings and (c)'s."""
+    from repro_torch.models.transformer import RunFlags
+    cfg = deepseek_v2_cut()
+    groups = {"grouped GEMMs (torch._grouped_mm)":
+              lambda n: "GroupProblemShape" in n or "grouped" in n.lower(),
+              "MoE routing (sort, top-k, searchsorted)":
+              lambda n: any(k in n.lower() for k in ("sort", "topk",
+                                                     "searchsorted"))}
+
+    def after(eng, served):
+        moe = moe_on_card(cfg, eng.params, dev, smi)
+        mla = mla_paths_agree(cfg, eng.params, eng.flags, dev, smi)
+        long = serve_long_prompt(cfg, eng.params, dev, smi,
+                                 flags=RunFlags(engram_strategy="pooled_host"),
+                                 label="deepseek-v2 long prompt")
+        return dict(moe=moe, mla=mla, long=long)
+
+    launches, k2, _, extra = serve_host_model(
+        cfg, dev, smi, host_tables, max_new=16, reps=2, after=after,
+        profile_groups=groups)
+    for k in launches:
+        launches[k] += extra["long"][k]
+    return launches, k2, extra["moe"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2780,7 +3098,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import (deepseek_v2_236b, deepseek_v3_671b,
+                                     gemma2_27b, gemma3_1b, get_config)
     from repro_torch.kernels.build import build
 
     dev = torch.device("cuda", 0)
@@ -2811,7 +3130,8 @@ def main() -> int:
     check_agreement_overload(dev)
     check_agreement_tiers(dev)
     check_agreement_fleet(dev)
-    check_agreement_gemma(dev)
+    check_agreement_models(dev, (gemma2_27b, gemma3_1b), (False, True))
+    check_agreement_models(dev, (deepseek_v2_236b, deepseek_v3_671b))
     params = draw_params(cfg, dev)
     launches, streams, serve7 = serve_full(cfg, params, dev, smi)
     prompts = serve_prompts(cfg)
@@ -2844,13 +3164,24 @@ def main() -> int:
         if name == "engram-40b":
             host_tables = None
             gc.collect()
-        n, k2_host[name] = serve_host_model(name, dev, smi, host_tables,
-                                            **kw)
+        n, k2_host[name], host_tables, _ = serve_host_model(
+            get_config(name), dev, smi, host_tables, **kw)
         for k in host_launches:
             host_launches[k] += n[k]
     for k, n in host_launches.items():
         launches[k] += n
     print(f"host: phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # phase 16: deepseek-v2-236b, 9 layers, in engram-40b's host buffers
+    t16 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, k2_v2, v2 = serve_deepseek_v2(dev, smi, host_tables)
+    del host_tables
+    gc.collect()
+    for k in launches:
+        launches[k] += n[k]
+    print(f"deepseek-v2: phase 16 took {time.perf_counter() - t16:.1f} s")
 
     # phase 15: gemma3-1b, its tables in HBM
     t15 = time.perf_counter()
@@ -2876,7 +3207,9 @@ def main() -> int:
           "(decode, and each unrolled verify step); launches summed over "
           "the serve, long-prompt, chunked, spec, overload, tiers, fleet, "
           "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
-          "engram-40b) and gemma3-1b runs; also measured (host rows: plain_ms is the "
+          "engram-40b), deepseek-v2-236b (9 layers) and gemma3-1b runs; also "
+          "measured (deepseek-v2's MoE layer: ms the grouped-GEMM path, "
+          "plain_ms the per-expert loop; host rows: plain_ms is the "
           "CPU gather and library_ms the reference's route, both on the "
           "host clock; bound at PCIe Gen5 x16's nominal 64 GB/s, link_GBps "
           "the rate measured in the run): "
@@ -2892,6 +3225,12 @@ def main() -> int:
                         "gated_fuse_d6144_T256": k2_host["engram-40b"][256],
                         "gated_fuse_d4608_T8": k2_host["gemma2-27b"][8],
                         "gated_fuse_d4608_T256": k2_host["gemma2-27b"][256],
+                        "gated_fuse_d5120_T8_deepseek_v2": k2_v2[8],
+                        "gated_fuse_d5120_T256_deepseek_v2": k2_v2[256],
+                        "moe_layer_deepseek_v2_T8": v2[8],
+                        "moe_layer_deepseek_v2_T256": v2[256],
+                        "mla_decode_layer_deepseek_v2_B8_S512_ms":
+                        v2["mla_ms"],
                         "gated_fuse_d1152_T8": k2_g3[8],
                         "gated_fuse_d1152_T256": k2_g3[256],
                         "gated_fuse_d1152_T2112": k2_g3[2112],

@@ -407,7 +407,8 @@ def _load_all():
     if _LOADED:
         return
     from . import (deepseek_7b, deepseek_coder_33b,  # noqa: F401
-                   engram_27b, engram_40b, gemma2_27b, gemma3_1b)
+                   deepseek_v2_236b, deepseek_v3_671b, engram_27b,
+                   engram_40b, gemma2_27b, gemma3_1b)
     _LOADED = True
 
 

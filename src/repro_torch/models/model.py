@@ -113,13 +113,21 @@ def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
     }
 
 
+def pad_kv(t: torch.Tensor, max_len: int) -> torch.Tensor:
+    """A KV leaf zero-padded along its sequence axis, axis 1 (k/v are
+    (B, S, H, D), the MLA latents c_kv/k_rope (B, S, R)), out to
+    ``max_len`` positions."""
+    n = max_len - t.shape[1]
+    if n <= 0:
+        return t
+    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, n))
+
+
 def _pad_caches_to(caches, max_len: int):
-    """Pad prefill k/v caches (B, S, H, D) out to decode capacity."""
-    def pad(kv):
-        return {n: torch.nn.functional.pad(
-                    t, (0, 0, 0, 0, 0, max_len - t.shape[1]))
-                if t.shape[1] < max_len else t for n, t in kv.items()}
-    return [[pad(kv) for kv in seg] for seg in caches]
+    """Pad the prefill caches (every leaf a KV leaf) out to decode
+    capacity."""
+    return [[{n: pad_kv(t, max_len) for n, t in kv.items()} for kv in seg]
+            for seg in caches]
 
 
 def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):

@@ -6,10 +6,11 @@ the reference. The reference scans each segment's periodic tail over
 stacked leaves; here every segment is a plain list of per-layer blocks run
 as a Python loop, with per-layer parameter and cache lists.
 
-The port has the dense GQA path: ``attn`` mixers with ``dense`` SwiGLU or
-GeGLU FFNs, with the gemma2/gemma3 features (sliding-window ``local``
-layers, a second RoPE base, qk-norms, post-block norms, softcaps).
-``check_supported`` names the ROADMAP item for everything else.
+The port has ``attn`` mixers, GQA (with the gemma2/gemma3 features:
+sliding-window ``local`` layers, a second RoPE base, qk-norms, post-block
+norms, softcaps) or MLA (``attn_impl="mla"``), each followed by a
+``dense`` SwiGLU or GeGLU FFN or a ``moe`` FFN. ``check_supported`` names
+the ROADMAP item for everything else.
 """
 from __future__ import annotations
 
@@ -20,11 +21,14 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import attention, attn_defs, decode_attention, init_kv_cache
 from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from .mla import init_mla_cache, mla_attention, mla_decode, mla_defs
+from .moe import moe_defs, moe_ffn
 
 
 @dataclass(frozen=True)
 class RunFlags:
     """Runtime knobs that don't change parameters, only execution."""
+    moe_strategy: str = "gather"     # dense | ragged | gather | alltoall
     engram_strategy: str | None = None
     q_chunk: int = 1024
     kv_chunk: int = 1024
@@ -39,10 +43,10 @@ def check_supported(cfg: ModelConfig) -> None:
     other = "ROADMAP queue 1, item 8 (the other architecture families)"
     if cfg.is_encoder or cfg.frontend is not None:
         raise NotImplementedError(f"encoder/frontend archs: {other}")
-    if cfg.attn_impl != "gqa" or any(t != "attn" for t in cfg.layer_types):
-        raise NotImplementedError(f"non-GQA mixers (mla, mamba, xlstm): {other}")
-    if any(f != "dense" for f in cfg.ffn_types):
-        raise NotImplementedError(f"moe / ffn-less blocks: {other}")
+    if any(t != "attn" for t in cfg.layer_types):
+        raise NotImplementedError(f"recurrent mixers (mamba, xlstm): {other}")
+    if any(f == "none" for f in cfg.ffn_types):
+        raise NotImplementedError(f"ffn-less blocks: {other}")
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:
@@ -93,15 +97,18 @@ def _plan_one(cfg: ModelConfig, idxs: tuple[int, ...]) -> Segment:
 # per-block defs / apply
 # ---------------------------------------------------------------------------
 
-def block_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
-    """The reference's leaf order: ln1, mixer, post_ln1, ln2, ffn,
-    post_ln2 (the post-block norms only with ``cfg.post_block_norm``)."""
+def block_defs(cfg: ModelConfig, i: int, dtype: str, fan_in: int = 0):
+    """Layer ``i``'s leaves in the reference's order: ln1, mixer (GQA or
+    MLA), post_ln1, ln2, ffn (dense or MoE), post_ln2 (the post-block
+    norms only with ``cfg.post_block_norm``)."""
+    mixer = mla_defs if cfg.attn_impl == "mla" else attn_defs
     d = {"ln1": rmsnorm_defs(cfg.d_model),
-         "mixer": attn_defs(cfg, dtype, fan_in)}
+         "mixer": mixer(cfg, dtype, fan_in)}
     if cfg.post_block_norm:
         d["post_ln1"] = rmsnorm_defs(cfg.d_model)
     d["ln2"] = rmsnorm_defs(cfg.d_model)
-    d["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff, dtype, fan_in)
+    d["ffn"] = moe_defs(cfg, dtype, fan_in) if cfg.ffn_types[i] == "moe" \
+        else mlp_defs(cfg.d_model, cfg.d_ff, dtype, fan_in)
     if cfg.post_block_norm:
         d["post_ln2"] = rmsnorm_defs(cfg.d_model)
     return d
@@ -110,29 +117,38 @@ def block_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
 def segment_defs(cfg: ModelConfig, seg: Segment, dtype: str) -> list:
     """One block def per layer. Layers the reference stacks (its periodic
     tail) take the stacked leaf's fan-in, ``n_periods``."""
-    return [block_defs(cfg, dtype,
+    return [block_defs(cfg, li, dtype,
                        0 if j < seg.prefix_len else seg.n_periods)
-            for j in range(len(seg.layers))]
+            for j, li in enumerate(seg.layers)]
 
 
-def apply_block(cfg: ModelConfig, flags: RunFlags, kind: str, params, h,
+def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
                 positions, cache, mode: str):
-    """One transformer block of attention kind ``kind`` (global | local).
-    mode: prefill | decode. Returns (h, cache)."""
+    """Layer ``i``'s block. mode: prefill | decode. Returns (h, cache);
+    a MoE FFN's aux loss is dropped (serving has no use for it)."""
+    kind = cfg.attn_kinds[i]
     pre = rmsnorm(params["ln1"], h, cfg.norm_eps)
-    if mode == "decode":
+    mla = cfg.attn_impl == "mla"
+    if mode == "decode" and mla:
+        out, new_cache = mla_decode(cfg, params["mixer"], pre, cache,
+                                    positions)
+    elif mode == "decode":
         out, new_cache = decode_attention(
             cfg, params["mixer"], pre, cache, positions, kind,
             window_slice=flags.decode_window_slice)
     else:
-        out, new_cache = attention(
+        out, new_cache = (mla_attention if mla else attention)(
             cfg, params["mixer"], pre, positions, kind, q_chunk=flags.q_chunk,
             kv_chunk=flags.kv_chunk, chunk_threshold=flags.chunk_threshold)
     if cfg.post_block_norm:
         out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
     h = h + out
-    out2 = mlp(params["ffn"], rmsnorm(params["ln2"], h, cfg.norm_eps),
-               cfg.ffn_act)
+    pre2 = rmsnorm(params["ln2"], h, cfg.norm_eps)
+    if cfg.ffn_types[i] == "moe":
+        out2, _ = moe_ffn(cfg, params["ffn"], pre2,
+                          strategy=flags.moe_strategy)
+    else:
+        out2 = mlp(params["ffn"], pre2, cfg.ffn_act)
     if cfg.post_block_norm:
         out2 = rmsnorm(params["post_ln2"], out2, cfg.norm_eps)
     return h + out2, new_cache
@@ -140,8 +156,8 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, kind: str, params, h,
 
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
                        max_len: int, dtype: torch.dtype, device) -> list:
-    return [init_kv_cache(cfg, batch, max_len, dtype, device)
-            for _ in seg.layers]
+    init = init_mla_cache if cfg.attn_impl == "mla" else init_kv_cache
+    return [init(cfg, batch, max_len, dtype, device) for _ in seg.layers]
 
 
 def apply_segment(cfg: ModelConfig, flags: RunFlags, seg: Segment,
@@ -150,7 +166,6 @@ def apply_segment(cfg: ModelConfig, flags: RunFlags, seg: Segment,
     new_cache = []
     for j, (li, p) in enumerate(zip(seg.layers, params)):
         c = cache[j] if cache is not None else None
-        h, nc = apply_block(cfg, flags, cfg.attn_kinds[li], p, h, positions,
-                            c, mode)
+        h, nc = apply_block(cfg, flags, li, p, h, positions, c, mode)
         new_cache.append(nc)
     return h, new_cache

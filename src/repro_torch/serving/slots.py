@@ -5,8 +5,9 @@ of ``repro.serving.slots``: ``update_slots``, ``select_slots``,
 
 The port's decode state is a nested dict/list of tensors whose batch axis
 is always axis 0 (per-layer caches, no stacked layer axes), and whose KV
-leaves (``k``/``v``, shape (B, S, H, D)) have their sequence axis at 1, so
-no per-leaf axis bookkeeping is needed. Slot ids are host integers: the
+leaves (``k``/``v``, shape (B, S, H, D); MLA's latents ``c_kv``/``k_rope``,
+(B, S, R)) have their sequence axis at 1, so no per-leaf axis bookkeeping
+is needed. Slot ids are host integers: the
 reference lets pad rows scatter to the out-of-bounds slot ``B`` and relies
 on JAX dropping the write; here those rows are dropped on the host before
 the scatter.
@@ -41,10 +42,11 @@ import numpy as np
 import torch
 
 from ..device import upload
+from ..models.model import pad_kv
 from ..models.params import tree_leaves, tree_map
 
 # KV-cache leaves: positional, masked by ``positions`` (sequence axis 1)
-KV_KEYS = frozenset({"k", "v"})
+KV_KEYS = frozenset({"k", "v", "c_kv", "k_rope"})
 
 
 def _zip_leaves(a, b):
@@ -171,9 +173,6 @@ def restore_prefix(snapshot, max_len: int, device: torch.device):
     positions (masked by ``positions`` until overwritten)."""
     def one(name, leaf):
         t = upload(leaf, device)
-        if name in KV_KEYS and t.shape[1] < max_len:
-            t = torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, max_len - t.shape[1]))
-        return t
+        return pad_kv(t, max_len) if name in KV_KEYS else t
 
     return _map_named(one, snapshot)

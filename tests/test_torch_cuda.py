@@ -660,3 +660,46 @@ def test_gemma_engine_card_equals_cpu(name, window_slice):
         seen.append([eng.done[r].out for r in rids])
     assert gather_rows.launches - before == eng.stats.decode_steps
     assert seen[0] == seen[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 256])
+def test_grouped_mm_matches_plain_loop_without_sync(T):
+    """The MoE path's grouped GEMM (``torch._grouped_mm``) over T x 6 bf16
+    rows in 64 expert groups (at T = 8 most are empty), against its plain
+    per-expert loop within one bf16 ulp; the offsets and the call, and a
+    whole bf16 MoE layer (route, sort, both GEMMs, combine), make no
+    sync."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_init
+    dev = _card()
+    E, k, d, n = 64, 6, 512, 384
+    gen = torch.Generator(device=dev).manual_seed(T)
+    se, _ = torch.sort(torch.randint(0, E, (T * k,), device=dev,
+                                     generator=gen))
+    rows = torch.randn(T * k, d, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(E, d, n, device=dev, generator=gen)
+         / d ** 0.5).bfloat16()
+    cfg = ModelConfig(name="moe-card", family="moe", n_layers=1,
+                      d_model=d, vocab_size=97, n_heads=4, n_kv_heads=4,
+                      head_dim=128, d_ff=1024, dtype="bfloat16",
+                      moe=MoEConfig(n_experts=E, top_k=k, n_shared=2,
+                                    d_ff_expert=n // 2),
+                      ffn_types=("moe",))
+    params = tree_init(moe.moe_defs(cfg, "bfloat16"), 0, dev)
+    x = torch.randn(1, T, d, device=dev, generator=gen).bfloat16()
+    torch.cuda.synchronize()
+    before = moe.grouped_mm.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        offs = torch.searchsorted(se, torch.arange(1, E + 1, device=dev),
+                                  out_int32=True)
+        got = moe.grouped_mm(rows, w, offs)
+        out, _ = moe.moe_ffn(cfg, params, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert moe.grouped_mm.launches == before + 3
+    torch.testing.assert_close(got, moe.grouped_mm_ref(rows, w, offs),
+                               **BF16_TOL)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())

@@ -328,11 +328,11 @@ def test_init_params_mirrors_reference_tree(bridged):
 
 
 def test_unported_config_features_raise():
-    """MLA, MoE, Mamba and xLSTM name their ROADMAP item (windows and
-    qk-norms, once here, are ported: tests/test_torch_gemma.py)."""
+    """Mamba and xLSTM name their ROADMAP item (windows and qk-norms are
+    ported: tests/test_torch_gemma.py; MLA and MoE:
+    tests/test_torch_mla.py and tests/test_torch_moe.py)."""
     cfg = engram_27b.reduced()
-    for bad in (dict(attn_impl="mla"), dict(ffn_types=("moe",) * 6),
-                dict(layer_types=("mamba",) * 6),
+    for bad in (dict(layer_types=("mamba",) * 6),
                 dict(layer_types=("mlstm",) * 6)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_model.model_defs(dataclasses.replace(cfg, **bad))
