@@ -48,6 +48,14 @@ result lines are printed):
               deepseek-v3-671b-reduced (MLA with its latent KV cache, MoE
               with shared experts) the same three ways, with StoreStats
               and PrefixCacheStats, and teacher-forced logits within 1e-3.
+              And jamba-1.5-large-398b-reduced and xlstm-125m-reduced
+              (Mamba, mLSTM and sLSTM state): monolithic with the prompts
+              padded to their bucket (the pads reach the recurrent state,
+              as in the reference: ROADMAP F11), chunked with a
+              PrefixKVCache, and speculation with an always-wrong and an
+              n-gram proposer, identical streams, StoreStats and
+              PrefixCacheStats; teacher-forced logits within 0.5 % of the
+              largest (``RECURRENT_FORCED_TOL``).
   7. serve    engram-27b at full width and full depth (36 layers, 22.9 B
               parameters, seeded random bf16 weights drawn on the card,
               shared by phases 7 to 10) behind ``Engine(pool="CXL",
@@ -158,9 +166,38 @@ result lines are printed):
               0 and 1's own weights (16 bf16 ulps of |out| + row RMS),
               a stacked layer's and the whole model's difference printed;
               (e) a 2100-token prompt at ``max_len=4096``, TTFT.
+ 17. jamba    jamba-1.5-large-398b at full width (d 8192, Mamba d_inner
+              16384 with 16 states, 16 experts top-2 of width 24576)
+              cut to 7 layers (mamba x 3, attn, mamba x 3; FFNs dense and
+              MoE alternating; no layer stacked), 70.67 GB of weights on
+              the card, its ENGRAM_40B tables (layers 2 and 3) drawn into
+              phase 14(d)'s registered host buffers, pooled_host; run
+              right after 16: (a) K2 at d = 8192, K1 bit-equal on its host
+              tables, peak under 80 GB; (b) phase 7's mix, 16 new tokens,
+              twice after a warm-up: identical streams, K1, K2 and
+              grouped-GEMM budgets, one read per steady wave, no other
+              sync, a profile; K1 timed on its host rows; (c) Mamba layer
+              0 on its own weights: a decode step at B = 8 against an f32
+              evaluation (``recurrent_layer``), a 32-token prefill against
+              32 decode steps, timed beside its byte bound, and the Mamba
+              layers' share of a wave's device time; (d) chunked
+              (``prefill_chunk=16``) against monolithic admission on a
+              32-token prompt: first-token logits within 16 bf16 ulps of
+              |logit| + row RMS, where the streams part printed; (e) a
+              2100-token prompt at ``max_len=4096``, TTFT beside the
+              selective scan's host time.
+ 18. xlstm    xlstm-125m at full width and depth (12 layers, d 768, mLSTM
+              and one sLSTM, no FFN, a tied head), tables in HBM (13.92
+              GB, rows of 96 bf16), ``pool="CXL"``: K2 at d = 768 (T = 8,
+              256), K1 bit-equal and timed at 192-byte rows; serve's mix
+              twice, identical streams, every decode logit finite, phase
+              7's budgets, a profile; the unstacked mLSTM layer 6 and the
+              sLSTM layer 7 held and timed as in 17(c), with the xLSTM
+              steps' share of a wave; 17(d)'s chunked check; a 512-token
+              prompt's TTFT.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 16); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 18); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -184,6 +221,13 @@ BF16_FLOP_PER_S = 989e12
 
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)   # one bf16 ulp (8-bit mantissa)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)         # f32 sums in another order
+# f32 teacher-forced logits of the reduced recurrent configs over 48 steps
+# (``forced_logits``), as a share of the largest logit: the stacked
+# layers' states carry f32 rounding through the steps, and the port and
+# the reference part by up to 0.23 % of it on the CPU (xLSTM; 0.02 % on
+# jamba), a share tests/test_torch_mamba.py and tests/test_torch_xlstm.py
+# hold
+RECURRENT_FORCED_TOL = 5e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -218,6 +262,12 @@ def call_ms(fn, args_list, warmup: int = 3) -> float:
 
 CUPTI_PRIME = 1024
 CUPTI_LOST: list = []
+CUPTI_ATTEMPTS = 3
+
+
+class LostMarker(RuntimeError):
+    """The profiler lost a session's marker record, so the session's
+    device records cannot be told from its priming ones."""
 
 
 @contextlib.contextmanager
@@ -225,11 +275,12 @@ def cupti_session(ops: list):
     """A CUDA-only profiler (CUPTI) session that appends to ``ops``, when
     it closes, every kernel, copy and fill that started on the card after
     its marker. The profiler loses the first device records of a session
-    (on an H100 with torch 2.11: none to 134 of them, more as the process
-    goes on), so a session first runs ``CUPTI_PRIME`` throwaway kernels
-    and then a spin kernel as its marker, and raises if the marker's
-    record was lost too. How many priming records each session
-    lost goes to ``CUPTI_LOST``."""
+    (on an H100 with torch 2.11: none to 297 of them, more as the process
+    goes on, and once every one), so a session first runs ``CUPTI_PRIME``
+    throwaway kernels and then a spin kernel as its marker, and raises
+    ``LostMarker`` if the marker's record was lost too: its caller
+    measures again in a new session (``CUPTI_ATTEMPTS`` in all). How many
+    priming records each session lost goes to ``CUPTI_LOST``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -244,7 +295,9 @@ def cupti_session(ops: list):
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     mark = [e for e in dev if "spin_kernel" in e.name]
-    check(len(mark) == 1, "the profiler lost its marker record")
+    if len(mark) != 1:
+        CUPTI_LOST.append(CUPTI_PRIME + 1)
+        raise LostMarker("the profiler lost its marker record")
     end = mark[0].time_range.end
     CUPTI_LOST.append(CUPTI_PRIME + 1 - sum(e.time_range.start < end
                                             for e in dev))
@@ -261,10 +314,18 @@ def device_ms(fn, args_list, warmup: int = 3,
     import torch
     for a in args_list[:warmup]:
         fn(*a)
-    ops = []
-    with cupti_session(ops):
-        for a in args_list:
-            fn(*a)
+    for attempt in range(CUPTI_ATTEMPTS):
+        ops = []
+        try:
+            with cupti_session(ops):
+                for a in args_list:
+                    fn(*a)
+            break
+        except LostMarker:
+            if attempt == CUPTI_ATTEMPTS - 1:
+                raise
+            # the lost attempt warmed the 50 MB L2 with the inputs: evict
+            torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
     us = sum(e.time_range.elapsed_us() for e in ops)
     check(us > 0, "the profiler recorded no device time")
     if ops_per_call is not None:
@@ -859,7 +920,8 @@ def forced_logits(cfg, params, device, window_slice: bool) -> list:
     return [t.cpu() for t in out]
 
 
-def check_agreement_models(dev, mods, slices=(False,)) -> None:
+def check_agreement_models(dev, mods, slices=(False,),
+                           recurrent: bool = False) -> None:
     """The reduced configs of ``mods`` (f32, pool CXL at the emulated
     operating point) on the card and on the CPU: monolithic serving of
     three prompts of 18 to 30 tokens, chunked admission
@@ -874,7 +936,15 @@ def check_agreement_models(dev, mods, slices=(False,)) -> None:
     gemma2-27b and gemma3-1b (a 16-token window: sliding-window layers,
     softcaps, qk-norms, post-block norms, tied and scaled embeddings) run
     with the slice off and on; deepseek-v2-236b and deepseek-v3-671b (MLA
-    latents in the KV cache, MoE) without it."""
+    latents in the KV cache, MoE) without it. The logits are held within
+    1e-3, or with ``recurrent`` within ``RECURRENT_FORCED_TOL`` of the
+    largest logit. With ``recurrent``
+    (jamba-1.5-large-398b and xlstm-125m: Mamba, mLSTM and sLSTM state)
+    speculation runs twice instead, with an always-wrong proposer (every
+    draft rejected, the recurrent state rolled back each wave) and the
+    n-gram proposer, each emitting the monolithic streams; the monolithic
+    prompts are padded to their bucket of 8, so the pad tokens reach the
+    recurrent state on both devices (ROADMAP F11)."""
     import dataclasses
     import numpy as np
     import torch
@@ -883,7 +953,8 @@ def check_agreement_models(dev, mods, slices=(False,)) -> None:
     from repro_torch.models.params import tree_map
     from repro_torch.pool.cache import PrefixKVCache
     from repro_torch.serving import Engine
-    from repro_torch.spec import ScriptedProposer
+    from repro_torch.spec import (ConstantProposer, NGramProposer,
+                                  ScriptedProposer)
 
     def run(eng, prompts, one_at_a_time=False):
         rids = []
@@ -915,47 +986,58 @@ def check_agreement_models(dev, mods, slices=(False,)) -> None:
                              prefill_chunk=8,
                              prefix_cache=PrefixKVCache(64 << 20, 8), **kw)
             chunked_out = run(chunked, shared, one_at_a_time=True)
-            spec = Engine(cfg, params=params, device=device,
-                          spec=SpecConfig(),
-                          proposer=ScriptedProposer(script), **kw)
-            spec_out = run(spec, prompts)
-            st = spec.stats
+            proposers = ({"wrong": ConstantProposer(-1),
+                          "ngram": NGramProposer(4)} if recurrent else
+                         {"scripted": ScriptedProposer(script)})
+            specs = {k: Engine(cfg, params=params, device=device,
+                               spec=SpecConfig(max_draft=3), proposer=pr,
+                               **kw) for k, pr in proposers.items()}
             seen.append(dict(
-                mono=mono, chunked=chunked_out, spec=spec_out,
+                mono=mono, chunked=chunked_out,
+                spec={k: run(e, prompts) for k, e in specs.items()},
                 hits=chunked.stats.prefix_hit_blocks,
-                drafts=(st.proposed_tokens, st.accepted_tokens),
+                drafts={k: (e.stats.proposed_tokens, e.stats.accepted_tokens)
+                        for k, e in specs.items()},
                 store=[dataclasses.asdict(e.store.stats())
-                       for e in (mono_eng, chunked, spec)],
+                       for e in (mono_eng, chunked, *specs.values())],
                 prefix=dataclasses.asdict(chunked.prefix_cache.stats())))
         cpu, card = seen
         for key in cpu:
             check(cpu[key] == card[key],
                   f"{cfg.name} agreement: {key} differs: cpu {cpu[key]} vs "
                   f"card {card[key]}")
-        check(card["spec"] == card["mono"], f"{cfg.name} agreement: "
-              f"speculative streams differ from the monolithic")
+        for k, out in card["spec"].items():
+            check(out == card["mono"], f"{cfg.name} agreement: speculative "
+                  f"streams ({k} proposer) differ from the monolithic")
         check(card["hits"] > 0, f"{cfg.name} agreement: no prefix hit")
-        proposed, accepted = card["drafts"]
-        check(accepted == proposed > 0, f"{cfg.name} agreement: "
-              f"{accepted} of {proposed} scripted drafts accepted")
+        drafts = "; ".join(f"{k}: {a}/{p} drafts accepted"
+                           for k, (p, a) in card["drafts"].items())
+        for k, (proposed, accepted) in card["drafts"].items():
+            want = {"scripted": proposed, "wrong": 0}.get(k, accepted)
+            check(proposed > 0 and accepted == want, f"{cfg.name} "
+                  f"agreement: {accepted} of {proposed} {k} drafts accepted")
         worst = {}
         for ws in slices:
             ref = forced_logits(cfg, params_cpu, "cpu", ws)
             got = forced_logits(cfg, params_dev, dev, ws)
+            # f32 sums in another order on the card, through the stack;
+            # the recurrent configs' states carry that through 48 steps
+            top = max(b.abs().max().item() for b in ref)
+            atol = RECURRENT_FORCED_TOL * top if recurrent else 1e-3
             for a, b in zip(got, ref):
-                # f32 sums in another order on the card, through the stack
-                torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+                torch.testing.assert_close(a, b, rtol=1e-3, atol=atol)
             worst[ws] = max((a - b).abs().max().item()
                             for a, b in zip(got, ref))
         print(f"agree {cfg.name} (f32, pool=CXL, emulated step 5e-5 s"
               + (f", window {cfg.window_size}" if cfg.window_size else "")
               + f"): monolithic, chunked with a prefix cache "
               f"({card['hits']} blocks restored, {card['prefix']['bytes']} "
-              f"snapshot bytes held) and scripted speculation "
-              f"({accepted}/{proposed} drafts accepted, streams equal to the "
-              f"monolithic) identical on card and CPU, with StoreStats and "
+              f"snapshot bytes held) and speculation ({drafts}; streams "
+              f"equal to the monolithic) identical on card and CPU, with "
+              f"StoreStats and "
               f"PrefixCacheStats; teacher-forced logits over 48 positions, "
-              f"max|card - cpu| "
+              + (f"held within {atol:.2e}, " if recurrent else "")
+              + f"max|card - cpu| "
               + ", ".join(f"{v:.2e}" + (f" (decode_window_slice={ws})"
                                         if len(slices) > 1 else "")
                           for ws, v in worst.items()))
@@ -1111,22 +1193,29 @@ def profile_waves(eng, rt, prompts, max_new: int = 6,
     wave (CUPTI, all kernels summed) and the kernels that take most of it;
     with ``groups`` ({label: predicate on a kernel's name}) also each
     group's device time and operations per wave. The first step
-    (admission, and in chunked mode the chunk waves) is not profiled."""
+    (admission, and in chunked mode the chunk waves) is not profiled.
+    Returns the wall and device ms and the device operations per wave."""
     import torch
-    for p in prompts:
-        rt.submit(p, max_new=max_new)
-    rt.step()                        # admission + the post-admission wave
-    while eng._prefill_jobs:         # chunked: the rest of the prompts
-        rt.step()
-    torch.cuda.synchronize()
-    waves0 = eng.stats.decode_steps
-    ops = []
-    with cupti_session(ops):
-        t0 = time.perf_counter()
-        while eng.busy:
+    for attempt in range(CUPTI_ATTEMPTS):
+        for p in prompts:
+            rt.submit(p, max_new=max_new)
+        rt.step()                    # admission + the post-admission wave
+        while eng._prefill_jobs:     # chunked: the rest of the prompts
             rt.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        waves0 = eng.stats.decode_steps
+        ops = []
+        try:
+            with cupti_session(ops):
+                t0 = time.perf_counter()
+                while eng.busy:
+                    rt.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            break
+        except LostMarker:           # the requests ran to their end
+            if attempt == CUPTI_ATTEMPTS - 1:
+                raise
     n = eng.stats.decode_steps - waves0
     dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
     by_name = {}
@@ -1147,16 +1236,19 @@ def profile_waves(eng, rt, prompts, max_new: int = 6,
         print(f"{label}: {g}: {sum(us for _, us in hit) / 1e3 / n:.4f} "
               f"ms/wave in {sum(c for c, _ in hit) / n:.1f} device "
               f"operations/wave ({len(hit)} kernel names)")
+    return dict(wall_ms=wall_ms / n, dev_ms=dev_ms / n, ops=len(ops) / n)
 
 
 def serve_long_prompt(cfg, params, dev, smi: str, flags=None,
-                      label: str = "long prompt") -> dict:
-    """One 2100-token prompt (padded to 2112) through monolithic admission
-    with ``max_len=4096``: every layer's prefill attention is chunked.
-    After a warm-up with another prompt of that length, one counted run
-    with 8 new tokens; returns the kernels' launches over it. With
-    pooled_host ``flags`` K1 also launches once per Engram layer for the
-    admission group."""
+                      label: str = "long prompt", n: int = 2100,
+                      warm_n: int | None = None, info=None) -> dict:
+    """One ``n``-token prompt (2100 by default, padded to 2112) through
+    monolithic admission with ``max_len=4096``: every layer's prefill
+    attention is chunked. After a warm-up with another prompt of
+    ``warm_n`` tokens (default ``n``), one counted run with 8 new tokens;
+    returns the kernels' launches over it, and puts its TTFT (ms) in
+    ``info`` when given. With pooled_host ``flags`` K1 also launches once
+    per Engram layer for the admission group."""
     import numpy as np
     import torch
     from repro_torch.models.params import tree_leaves
@@ -1170,8 +1262,8 @@ def serve_long_prompt(cfg, params, dev, smi: str, flags=None,
     eng = Engine(cfg, params=params, flags=flags, pool="CXL", max_batch=8,
                  max_len=4096, prompt_bucket=32, device=dev)
     rng = np.random.RandomState(3)
-    warm, prompt = (list(rng.randint(1, cfg.vocab_size, size=2100))
-                    for _ in range(2))
+    warm, prompt = (list(rng.randint(1, cfg.vocab_size, size=k))
+                    for k in (warm_n or n, n))
     eng.warmup([warm])
     rt = eng.runtime()
     eng.reset_stats()
@@ -1195,13 +1287,16 @@ def serve_long_prompt(cfg, params, dev, smi: str, flags=None,
     kv = sum(t.numel() * t.element_size()
              for t in tree_leaves(eng.state["caches"]))
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: 2100 tokens (bucket 2112) + 8 new, monolithic "
-          f"admission, chunked attention in all {cfg.n_layers} layers; K1 "
+    print(f"{label}: {n} tokens (bucket {-(-n // 32) * 32}) + 8 new, "
+          f"monolithic admission after a {len(warm)}-token warm-up, "
+          f"chunked attention in every attention layer; K1 "
           f"launches {launches['engram_gather']}, K2 launches "
           f"{launches['gated_fuse']}; reads per step {pulls}; no other sync")
     print(f"{label} [{smi}]: TTFT {st.mean_ttft_s * 1e3:.2f} ms, run "
-          f"{run_s:.3f} s, peak memory {peak / 1e9:.2f} GB, KV cache "
+          f"{run_s:.3f} s, peak memory {peak / 1e9:.2f} GB, decode state "
           f"{kv / 1e9:.2f} GB (max_batch 8 x max_len 4096)")
+    if info is not None:
+        info["ttft_ms"] = st.mean_ttft_s * 1e3
     return launches
 
 
@@ -2625,14 +2720,15 @@ def serve_host_model(cfg, dev, smi: str, host_tables=None,
               f"{label}: a prefill logit beyond the final softcap {cap}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
-    profile_waves(eng, rt, prompts, label=f"{label} profile",
-                  groups=profile_groups)
+    prof = profile_waves(eng, rt, prompts, label=f"{label} profile",
+                         groups=profile_groups)
     print(f"{label} [{smi}]: peak device memory {peak:.2f} GB; prefill "
           f"logits of the 8 prompts finite, max |logit| "
           f"{logits.abs().max().item():.4f}; first stream {first[0]}; "
           + host_status("host"))
     del rt, logits
-    extra = after(eng, dict(streams=first, peak_gb=peak)) if after else None
+    extra = after(eng, dict(streams=first, peak_gb=peak, profile=prof)) \
+        if after else None
     del eng
     return launches, k2, host_tables, extra
 
@@ -3088,6 +3184,376 @@ def serve_deepseek_v2(dev, smi: str, host_tables) -> tuple:
     return launches, k2, extra["moe"]
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the recurrent mixers (Mamba, mLSTM, sLSTM) at full width
+# ---------------------------------------------------------------------------
+
+ULPS16 = 16 * 2.0 ** -8
+
+
+def ulps_share(got, want) -> float:
+    """The largest share of the tolerance ``16 bf16 ulps of |want| plus
+    its row's RMS`` (``window_witness``'s and ``mla_paths_agree``'s) that
+    ``|got - want|`` reaches; rows along the last axis."""
+    b = want.float()
+    rms = b.square().mean(dim=-1, keepdim=True).sqrt()
+    return ((got.float() - b).abs() / (ULPS16 * (b.abs() + rms))).max() \
+        .item()
+
+
+def jamba_cut():
+    """jamba-1.5-large-398b at full width cut to 7 layers: mamba, mamba,
+    mamba, attn, mamba, mamba, mamba (the config's first 7: attention at
+    offset 3 of its period of 8), FFNs dense, moe, dense, moe, dense, moe,
+    dense, ENGRAM_40B tables at (2, 3) (``engram_for(7, ENGRAM_40B)``).
+    No segment has a periodic tail, so no layer is stacked."""
+    from repro_torch.configs import ENGRAM_40B, engram_for
+    from repro_torch.configs.jamba_1_5_large_398b import full
+    cfg, L = full(), 7
+    return dataclasses.replace(cfg, n_layers=L,
+                               layer_types=cfg.layer_types[:L],
+                               attn_kinds=cfg.attn_kinds[:L],
+                               ffn_types=cfg.ffn_types[:L],
+                               engram=engram_for(L, ENGRAM_40B))
+
+
+def time_k1_tables(tables, dev, smi: str, label: str) -> dict:
+    """K1 on a model's own tables (HBM, or registered host buffers) at a
+    decode wave's ids (L tables x 16 x 8 rows, one launch) against its
+    plain version, bit-equal, then timed (CUPTI, cold ids) beside its
+    plain version and the library's route: on the card the plain version
+    and one ``index_select`` per layer; from host rows the CPU gather and
+    the reference's route (CPU ``index_select`` into pinned memory, then a
+    ``non_blocking`` copy), on the host clock. Bound: the rows' bytes over
+    HBM, or over PCIe Gen5 x16's nominal 64 GB/s from the host."""
+    import torch
+    from repro_torch.kernels.engram_gather import (gather_rows_multi,
+                                                   gather_rows_multi_ref)
+    L = len(tables)
+    T, V, hd = tables[0].shape
+    flats = [t.view(T * V, hd) for t in tables]
+    row_bytes = hd * tables[0].element_size()
+    host = tables[0].device.type == "cpu"
+    n = 16 * 8
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cold = [torch.randint(0, T * V, (L, n), generator=gen, device=dev)
+            for _ in range(40)]
+    for g in cold[:4]:
+        out = gather_rows_multi(flats, g)
+        torch.cuda.synchronize()
+        ref = gather_rows_multi_ref(flats, g.cpu() if host else g)
+        check(torch.equal(out.cpu().view(torch.int16),
+                          ref.cpu().view(torch.int16)),
+              f"{label}: K1 not bit-equal at {L} x {n} rows of {row_bytes} B")
+    ms = device_ms(gather_rows_multi, [(flats, g) for g in cold],
+                   ops_per_call=1)
+    hbm_b_ms, _ = bound(L * (2 * n * row_bytes + 8 * n), 0)
+    if host:
+        gids = [g.cpu() for g in cold]
+        t0 = time.perf_counter()
+        for g in gids:
+            gather_rows_multi_ref(flats, g)
+        plain = (time.perf_counter() - t0) * 1e3 / len(gids)
+        staging = [torch.empty((L, n, hd), dtype=tables[0].dtype,
+                               pin_memory=True) for _ in gids]
+
+        def route(g_cpu, out):
+            for j in range(L):
+                torch.index_select(flats[j], 0, g_cpu[j], out=out[j])
+            return out.to(dev, non_blocking=True)
+        lib = call_ms(route, list(zip(gids, staging)))
+        b_ms = max(L * n * row_bytes / PCIE5_X16_BYTES_PER_S * 1e3, hbm_b_ms)
+        how = "host ms: CPU gather, the reference's route"
+    else:
+        plain = device_ms(gather_rows_multi_ref, [(flats, g) for g in cold])
+        lib = device_ms(lambda g: [torch.index_select(t, 0, r)
+                                   for t, r in zip(flats, g)],
+                        [(g,) for g in cold], ops_per_call=L)
+        b_ms = hbm_b_ms
+        how = f"device ms: plain, {L} index_selects"
+    check(ms >= b_ms, f"{label}: K1 {ms:.5f} ms below its bound {b_ms:.6f}")
+    print(f"{label} K1 [{smi}]: {L} tables x {n} rows x {row_bytes} B "
+          f"({'host' if host else 'HBM'} tables, one launch): bit-equal; "
+          f"device ms kernel {ms:.5f}, bound {b_ms:.6f} (bytes); {how} "
+          f"{plain:.5f}, {lib:.5f}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by="bytes")
+
+
+def recurrent_layer(cfg, p, kind: str, dev, smi: str, label: str) -> dict:
+    """One recurrent layer (``kind``: mamba, mlstm or slstm) on its own
+    bf16 weights ``p`` at full width, inputs of RMS 1 as the block's
+    normed input: (i) after a 16-token prefill at B = 8, a decode step
+    against an f32 evaluation of the same function on the same bf16
+    weights, input and state, upcast, within 16 bf16 ulps of |out| plus
+    its row's RMS, or within twice the error of the same bf16 step on the
+    CPU (PyTorch's CPU kernels) where that is larger: the bf16 roundings
+    of the state's read-out terms before their sum, which cancels, make
+    a Mamba step's error exceed 16 ulps on some inputs (1.14 times the
+    tolerance on an H100 at jamba's full width); (ii) a 32-token prefill
+    at B = 8 against 32 decode steps from zero state, the last
+    position's output, within 16 bf16 ulps of |out| plus its row's RMS.
+    Then device times (CUPTI): the decode step at B = 8 beside its byte
+    bound (the layer's weights, its state read and written, the token in
+    and out) and a 256-token prefill at B = 1, with that prefill's
+    host-clock time (the per-step scan launches several operations per
+    token). Returns the numbers."""
+    import torch
+    from repro_torch.models import mamba, xlstm
+    from repro_torch.models.params import tree_leaves, tree_map
+    fwd = {"mamba": mamba.mamba_forward, "mlstm": xlstm.mlstm_forward,
+           "slstm": xlstm.slstm_forward}[kind]
+    dt = next(t for t in tree_leaves(p) if t.dim() == 2).dtype
+
+    def zero(B):
+        if kind == "mamba":
+            return mamba.init_mamba_cache(cfg, B, dt, dev)
+        return xlstm.init_xlstm_cache(cfg, kind, B, dt, dev)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                 device=dev).to(dt)
+    x = rnd(8, 17, cfg.d_model)
+    _, cache = fwd(cfg, p, x[:, :16])
+    got, _ = fwd(cfg, p, x[:, 16:], cache)
+    want, _ = fwd(cfg, tree_map(lambda t: t.float(), p), x[:, 16:].float(),
+                  {k: v.float() for k, v in cache.items()})
+    dec = ulps_share(got[:, 0], want[:, 0])
+    cpu = lambda t: t.to("cpu")                          # noqa: E731
+    on_cpu, _ = fwd(cfg, tree_map(cpu, p), cpu(x[:, 16:]),
+                    {k: cpu(v) for k, v in cache.items()})
+    dec_cpu = ulps_share(on_cpu[:, 0], cpu(want[:, 0]))
+    check(dec <= max(1.0, 2 * dec_cpu), f"{label}: decode step against "
+          f"f32: {dec:.2f} x the tolerance, the CPU's bf16 {dec_cpu:.2f}")
+    x = rnd(8, 32, cfg.d_model)
+    full, _ = fwd(cfg, p, x)
+    c = zero(8)
+    for t in range(32):
+        out, c = fwd(cfg, p, x[:, t:t + 1], c)
+    pre = ulps_share(out[:, 0], full[:, -1])
+    check(pre <= 1.0, f"{label}: 32 decode steps against a 32-token "
+          f"prefill: {pre:.2f} x the tolerance")
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+    sbytes = sum(t.numel() * t.element_size() for t in cache.values())
+    nbytes = wbytes + 2 * sbytes + 2 * 8 * cfg.d_model * 2
+    b_ms, b_by = bound(nbytes, 2 * 8 * wbytes / 2)
+    args = [(rnd(8, 1, cfg.d_model), cache) for _ in range(4)]
+    ms = device_ms(lambda a, c_: fwd(cfg, p, a, c_), args, warmup=1)
+    xs = [(rnd(1, 256, cfg.d_model),) for _ in range(2)]
+    pf_ms = device_ms(lambda a: fwd(cfg, p, a), xs, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd(cfg, p, xs[0][0])
+    torch.cuda.synchronize()
+    pf_wall = (time.perf_counter() - t0) * 1e3
+    print(f"{label} [{smi}]: decode step at B=8 against an f32 evaluation "
+          f"of the same bf16 weights {dec:.3f} of the tolerance (the same "
+          f"step in bf16 on the CPU {dec_cpu:.3f}), 32 decode "
+          f"steps against a 32-token prefill {pre:.3f} (16 bf16 ulps of "
+          f"|out| + row RMS); decode step device {ms:.5f} ms, bound "
+          f"{b_ms:.5f} ({b_by}: {wbytes / 1e9:.3f} GB of weights, "
+          f"{sbytes / 1e6:.2f} MB of state read and written; "
+          f"{100 * b_ms / ms:.1f} % of bound); 256-token prefill at B=1: "
+          f"device {pf_ms:.3f} ms, host clock {pf_wall:.2f} ms")
+    return dict(dec_share=dec, dec_share_cpu=dec_cpu, pre_share=pre, ms=ms,
+                bound_ms=b_ms,
+                prefill_ms=pf_ms, prefill_wall_ms=pf_wall)
+
+
+def chunked_vs_monolithic(cfg, params, flags, dev, smi: str, label: str,
+                          C: int = 16) -> dict:
+    """(d) Chunked admission (``prefill_chunk=C``) against monolithic on
+    one prompt of exactly 32 tokens (no pad: the bucket is 32): the
+    first-token logits of two chunk steps against one prefill, within 16
+    bf16 ulps of |logit| + row RMS; then each engine serves the prompt,
+    16 new tokens, and where the streams part is printed with the
+    monolithic engine's top-2 margin there."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import (build_chunk_prefill,
+                                          build_prefill_step,
+                                          init_decode_state)
+    from repro_torch.serving import Engine
+    toks = torch.from_numpy(np.random.RandomState(17).randint(
+        1, cfg.vocab_size, size=(1, 32))).to(dev)
+    mono = build_prefill_step(cfg, flags)(params, {"tokens": toks})[0]
+    state = init_decode_state(cfg, flags, 1, 64, dev)
+    step = build_chunk_prefill(cfg, flags)
+    for i in range(0, 32, C):
+        chunked, state = step(params, state, toks[:, i:i + C],
+                              torch.full((1,), C, device=dev))
+    share = ulps_share(chunked, mono)
+    check(share <= 1.0, f"{label}: chunked first-token logits "
+          f"{share:.2f} x the tolerance from the monolithic")
+    streams, waves = [], []
+    for kw in ({}, dict(prefill_chunk=C)):
+        eng = Engine(cfg, params=params, flags=flags, pool="CXL",
+                     max_batch=1, max_len=64, prompt_bucket=32, device=dev,
+                     **kw)
+        got = record_waves(eng)
+        rid = eng.submit(toks[0].tolist(), max_new=16)
+        eng.run()
+        streams.append(eng.done[rid].out)
+        waves.append([lg[0] for lg, _ in got])
+        del eng
+    a, b = streams
+    part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    where = "identical"
+    if part is not None:
+        # wave j emits token j + 1 (token 0 comes from the prefill)
+        top = (waves[0][part - 1] if part else mono[0]).float().topk(2)
+        where = (f"part at token {part} ({a[part]} against {b[part]}); "
+                 f"the monolithic top-2 margin there "
+                 f"{(top.values[0] - top.values[1]).item():.4f}")
+    print(f"{label} [{smi}]: a 32-token prompt, chunks of {C} against one "
+          f"prefill: first-token logits {share:.3f} of the tolerance (16 "
+          f"bf16 ulps of |logit| + row RMS); 16-token streams {where}")
+    return dict(share=share, part=part)
+
+
+def serve_jamba(dev, smi: str, host_tables) -> tuple:
+    """jamba-1.5-large-398b at full width (d 8192, Mamba d_inner 16384
+    with 16 states, 64 query and 8 KV heads, 16 experts top-2 of width
+    24576, a 65,536-word vocabulary) cut to 7 layers (``jamba_cut``):
+    70.67 GB of weights drawn on the card, its ENGRAM_40B tables drawn
+    into ``host_tables`` (engram-40b's registered buffers), pooled_host.
+    (a), (b) through ``serve_host_model``: K2 at d = 8192, K1 bit-equal on
+    the host tables, peak under 80 GB, phase 7's mix with 16 new tokens
+    twice after a warm-up (identical streams; K1, K2 and grouped-GEMM
+    budgets; one read per steady wave, no other sync), a profile; then
+    K1 timed on the host tables, (c) ``recurrent_layer`` on layer 0 with
+    the Mamba layers' share of a wave's device time (6 decode steps over
+    the profile's wave), (d) ``chunked_vs_monolithic`` and (e) one
+    2100-token prompt at ``max_len=4096`` after a 32-token warm-up, with
+    the share of its TTFT that 6 selective scans over 2112 positions take
+    on the host clock. Returns the counted launches, K2's timings and the
+    rest."""
+    import torch
+    from repro_torch.models import mamba
+    from repro_torch.models.transformer import RunFlags
+    cfg = jamba_cut()
+    flags = RunFlags(engram_strategy="pooled_host")
+    n_mamba = cfg.layer_types.count("mamba")
+
+    def after(eng, served):
+        p = eng.params
+        tables = [layer["tables"] for layer in p["engram"]["layers"]]
+        k1 = time_k1_tables(tables, dev, smi, "jamba")
+        layer = recurrent_layer(cfg, p["segments"][0][0]["mixer"], "mamba",
+                                dev, smi, "jamba mamba layer 0")
+        share = n_mamba * layer["ms"] / served["profile"]["dev_ms"]
+        print(f"jamba [{smi}]: {n_mamba} Mamba decode steps take "
+              f"{n_mamba * layer['ms']:.4f} device ms of a wave's "
+              f"{served['profile']['dev_ms']:.4f} ({100 * share:.1f} %)")
+        agree = chunked_vs_monolithic(cfg, p, flags, dev, smi,
+                                      "jamba chunked")
+        info = {}
+        long = serve_long_prompt(cfg, p, dev, smi, flags=flags,
+                                 label="jamba long prompt", warm_n=32,
+                                 info=info)
+        mp = p["segments"][0][0]["mixer"]
+        di, N = cfg.mamba.d_inner(cfg.d_model), cfg.mamba.d_state
+        gen = torch.Generator(device=dev).manual_seed(19)
+        ins = [torch.randn(1, 2112, k, generator=gen, device=dev)
+               .to(mp["in_proj"].dtype) for k in (di, di, N, N)]
+        A = -torch.exp(mp["A_log"])
+        h = torch.zeros((1, di, N), device=dev)
+        mamba.selective_scan(h, *[t[:, :8] for t in ins], A)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mamba.selective_scan(h, *ins, A)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        print(f"jamba long prompt [{smi}]: one selective scan over 2112 "
+              f"positions {scan_ms:.1f} ms on the host clock; {n_mamba} of "
+              f"them {n_mamba * scan_ms:.1f} ms, "
+              f"{100 * n_mamba * scan_ms / info['ttft_ms']:.1f} % of the "
+              f"TTFT {info['ttft_ms']:.1f} ms")
+        return dict(k1=k1, layer=layer, share=share, agree=agree, long=long,
+                    scan_ms=scan_ms, ttft_ms=info["ttft_ms"])
+
+    launches, k2, _, extra = serve_host_model(
+        cfg, dev, smi, host_tables, max_new=16, reps=2, after=after)
+    for k in launches:
+        launches[k] += extra["long"][k]
+    return launches, k2, extra
+
+
+def serve_xlstm(dev, smi: str) -> tuple:
+    """xlstm-125m at full width and depth (12 layers, d 768, 4 heads,
+    mLSTM with d_inner 1536 and sLSTM at layer 7, no FFN, a tied head),
+    seeded bf16 weights and its ENGRAM_27B-vocabulary tables (rows of 96
+    bf16, 13.92 GB) drawn on the card, ``pool="CXL"``: K2 at d = 768 (T =
+    8, 256) first; K1 on its tables, bit-equal and timed at 192-byte rows;
+    serve's mix (phase 7's 8 prompts, 16 new tokens) twice after a
+    warm-up, identical streams, every decode logit finite, phase 7's
+    launch and read budgets, then a profile; the unstacked mLSTM layer 6
+    and the sLSTM layer 7 through ``recurrent_layer``, with the xLSTM
+    layers' share of a wave's device time; ``chunked_vs_monolithic``; a
+    512-token prompt's TTFT. Returns the counted launches, K1's and K2's
+    timings and the rest."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import with_f32_head
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine
+    cfg = get_config("xlstm-125m")
+    e, label = cfg.engram, "xlstm-125m"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k2 = {n_t: time_k2(gen, dev, n_t, cfg.d_model,
+                       len(e.orders) * e.emb_dim) for n_t in (8, 256)}
+    torch.cuda.reset_peak_memory_stats()
+    params = with_f32_head(draw_params(cfg, dev))
+    k1 = time_k1_tables([layer["tables"] for layer in
+                         params["engram"]["layers"]], dev, smi, label)
+    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
+                 prompt_bucket=32, device=dev)
+    prompts = serve_prompts(cfg)
+    eng.warmup(prompts)
+    rt = eng.runtime()
+    top = record_waves(eng, keep=False)
+    launches = dict.fromkeys(read_launches(), 0)
+    first = None
+    for rep in range(2):
+        top.clear()
+        got, streams, summary = serve_once(cfg, eng, rt, prompts, dev, smi,
+                                           rep)
+        first = first or streams
+        check(streams == first, f"{label}: run {rep + 1}'s streams differ "
+              f"from run 1's")
+        check(bool(torch.isfinite(top[0])), f"{label}: a decode logit is "
+              f"not finite")
+        for k in launches:
+            launches[k] += got[k]
+    prof = profile_waves(eng, rt, prompts, label=f"{label} profile")
+    del eng, rt
+    mixers = [params["segments"][2][j]["mixer"] for j in (0, 1)]
+    layers = {kind: recurrent_layer(cfg, m, kind, dev, smi,
+                                    f"{label} {kind} layer {6 + j}")
+              for j, (kind, m) in enumerate(zip(("mlstm", "slstm"),
+                                                mixers))}
+    steps = sum(layers[t]["ms"] for t in cfg.layer_types)
+    print(f"{label} [{smi}]: {cfg.n_layers} xLSTM decode steps (layer 6's "
+          f"time for each mLSTM) take {steps:.4f} device ms of a wave's "
+          f"{prof['dev_ms']:.4f} ({100 * steps / prof['dev_ms']:.1f} %); "
+          f"streams of both runs identical, first {first[0]}")
+    agree = chunked_vs_monolithic(cfg, params, RunFlags(), dev, smi,
+                                  f"{label} chunked")
+    info = {}
+    long = serve_long_prompt(cfg, params, dev, smi, label=f"{label} prompt",
+                             n=512, info=info)
+    for k in launches:
+        launches[k] += long[k]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
+    print(f"{label} [{smi}]: peak device memory {peak:.2f} GB (weights, f32 "
+          f"head, tables in HBM, state and work)")
+    del params
+    return launches, k1, k2, dict(layers=layers, agree=agree,
+                                  profile=prof, ttft_ms=info["ttft_ms"],
+                                  wave_ms=summary["wave_ms"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3099,7 +3565,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import (deepseek_v2_236b, deepseek_v3_671b,
-                                     gemma2_27b, gemma3_1b, get_config)
+                                     gemma2_27b, gemma3_1b, get_config,
+                                     jamba_1_5_large_398b, xlstm_125m)
     from repro_torch.kernels.build import build
 
     dev = torch.device("cuda", 0)
@@ -3132,6 +3599,8 @@ def main() -> int:
     check_agreement_fleet(dev)
     check_agreement_models(dev, (gemma2_27b, gemma3_1b), (False, True))
     check_agreement_models(dev, (deepseek_v2_236b, deepseek_v3_671b))
+    check_agreement_models(dev, (jamba_1_5_large_398b, xlstm_125m),
+                           recurrent=True)
     params = draw_params(cfg, dev)
     launches, streams, serve7 = serve_full(cfg, params, dev, smi)
     prompts = serve_prompts(cfg)
@@ -3177,11 +3646,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     n, k2_v2, v2 = serve_deepseek_v2(dev, smi, host_tables)
-    del host_tables
     gc.collect()
     for k in launches:
         launches[k] += n[k]
     print(f"deepseek-v2: phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    # phase 17: jamba-1.5-large-398b, 7 layers, in the same host buffers
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n, k2_jamba, jamba = serve_jamba(dev, smi, host_tables)
+    del host_tables
+    gc.collect()
+    for k in launches:
+        launches[k] += n[k]
+    print(f"jamba: phase 17 took {time.perf_counter() - t17:.1f} s")
 
     # phase 15: gemma3-1b, its tables in HBM
     t15 = time.perf_counter()
@@ -3191,6 +3669,15 @@ def main() -> int:
     for k, n in g3_launches.items():
         launches[k] += n
     print(f"gemma3-1b: phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    # phase 18: xlstm-125m, its tables in HBM
+    t18 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, k1_x, k2_x, xl = serve_xlstm(dev, smi)
+    for k in launches:
+        launches[k] += n[k]
+    print(f"xlstm-125m: phase 18 took {time.perf_counter() - t18:.1f} s")
 
     kernels = [
         dict(name="engram_gather", route="cuda",
@@ -3207,12 +3694,15 @@ def main() -> int:
           "(decode, and each unrolled verify step); launches summed over "
           "the serve, long-prompt, chunked, spec, overload, tiers, fleet, "
           "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
-          "engram-40b), deepseek-v2-236b (9 layers) and gemma3-1b runs; also "
-          "measured (deepseek-v2's MoE layer: ms the grouped-GEMM path, "
-          "plain_ms the per-expert loop; host rows: plain_ms is the "
-          "CPU gather and library_ms the reference's route, both on the "
-          "host clock; bound at PCIe Gen5 x16's nominal 64 GB/s, link_GBps "
-          "the rate measured in the run): "
+          "engram-40b), deepseek-v2-236b (9 layers), jamba-1.5-large-398b "
+          "(7 layers), gemma3-1b and xlstm-125m runs; also measured "
+          "(deepseek-v2's MoE layer: ms the grouped-GEMM path, plain_ms "
+          "the per-expert loop; host rows: plain_ms is the CPU gather and "
+          "library_ms the reference's route, both on the host clock; bound "
+          "at PCIe Gen5 x16's nominal 64 GB/s, link_GBps the rate measured "
+          "in the run; recurrent layers: ms a decode step at B=8, "
+          "prefill_ms a 256-token prefill at B=1, shares of the 16-bf16-ulp "
+          "tolerance): "
           + json.dumps({"engram_gather_host_2x128_decode_wave":
                         k1_host["wave"],
                         "engram_gather_host_2x512_verify_wave":
@@ -3234,6 +3724,24 @@ def main() -> int:
                         "gated_fuse_d1152_T8": k2_g3[8],
                         "gated_fuse_d1152_T256": k2_g3[256],
                         "gated_fuse_d1152_T2112": k2_g3[2112],
+                        "gated_fuse_d8192_T8_jamba": k2_jamba[8],
+                        "gated_fuse_d8192_T256_jamba": k2_jamba[256],
+                        "engram_gather_host_2x128_jamba": jamba["k1"],
+                        "mamba_layer_jamba": jamba["layer"],
+                        "jamba_mamba_share_of_wave_device_time":
+                        jamba["share"],
+                        "jamba_chunked_first_token_share":
+                        jamba["agree"]["share"],
+                        "jamba_2100_ttft_ms": jamba["ttft_ms"],
+                        "jamba_2112_scan_ms": jamba["scan_ms"],
+                        "gated_fuse_d768_T8": k2_x[8],
+                        "gated_fuse_d768_T256": k2_x[256],
+                        "engram_gather_2x128_192B_xlstm": k1_x,
+                        "mlstm_layer_xlstm": xl["layers"]["mlstm"],
+                        "slstm_layer_xlstm": xl["layers"]["slstm"],
+                        "xlstm_chunked_first_token_share":
+                        xl["agree"]["share"],
+                        "xlstm_512_ttft_ms": xl["ttft_ms"],
                         "engram_gather_2x512_verify_wave": k1["spec"],
                         "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],
@@ -3244,7 +3752,9 @@ def main() -> int:
                         "gated_fuse_T256": k2[256],
                         "gated_fuse_T2112": k2[2112]}))
     print(f"profiler: {len(CUPTI_LOST)} sessions lost {min(CUPTI_LOST)} to "
-          f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records, "
+          f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records "
+          f"({CUPTI_LOST.count(CUPTI_PRIME + 1)} lost the marker too and "
+          f"were measured again), "
           f"in order {CUPTI_LOST}; device times count only the records "
           f"after each session's marker")
     print(smi)

@@ -408,7 +408,8 @@ def _load_all():
         return
     from . import (deepseek_7b, deepseek_coder_33b,  # noqa: F401
                    deepseek_v2_236b, deepseek_v3_671b, engram_27b,
-                   engram_40b, gemma2_27b, gemma3_1b)
+                   engram_40b, gemma2_27b, gemma3_1b, jamba_1_5_large_398b,
+                   xlstm_125m)
     _LOADED = True
 
 

@@ -19,9 +19,10 @@ into the hidden state through the gated_fuse kernel (K2).
                                               -> (logits, state, snapshots)
 
 Decode updates the state's KV caches in place (see
-``attention.decode_attention``); ``positions`` and ``last_tokens`` are new
-tensors each step, int32 as in the reference (a prefix snapshot's byte
-count, which the pool link is charged, depends on their width).
+``attention.decode_attention``); recurrent cache leaves (Mamba, xLSTM),
+``positions`` and ``last_tokens`` are new tensors each step, the last two
+int32 as in the reference (a prefix snapshot's byte count, which the pool
+link is charged, depends on their width).
 """
 from __future__ import annotations
 
@@ -113,6 +114,11 @@ def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
     }
 
 
+# KV-cache leaves: positional, masked by ``positions`` (sequence axis 1);
+# every other cache leaf is recurrent state
+KV_KEYS = frozenset({"k", "v", "c_kv", "k_rope"})
+
+
 def pad_kv(t: torch.Tensor, max_len: int) -> torch.Tensor:
     """A KV leaf zero-padded along its sequence axis, axis 1 (k/v are
     (B, S, H, D), the MLA latents c_kv/k_rope (B, S, R)), out to
@@ -124,10 +130,10 @@ def pad_kv(t: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 def _pad_caches_to(caches, max_len: int):
-    """Pad the prefill caches (every leaf a KV leaf) out to decode
-    capacity."""
-    return [[{n: pad_kv(t, max_len) for n, t in kv.items()} for kv in seg]
-            for seg in caches]
+    """Pad the prefill caches' KV leaves out to decode capacity; recurrent
+    leaves (``conv`` (B, K-1, di) among them) stay as they are."""
+    return [[{n: pad_kv(t, max_len) if n in KV_KEYS else t
+              for n, t in c.items()} for c in seg] for seg in caches]
 
 
 def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):

@@ -29,7 +29,7 @@ _INIT_CHUNK = 1 << 28
 class ParamDef:
     shape: tuple[int, ...]
     dtype: str = "float32"
-    init: str = "normal"        # normal | ones
+    init: str = "normal"        # normal | ones | zeros
     scale: float = -1.0         # -1 => 1/sqrt(fan_in)
     fan_in: int = 0             # 0 => shape[0]
 
@@ -70,14 +70,14 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
     if out is not None and (tuple(out.shape) != d.shape or out.dtype != dtype):
         raise ValueError(f"host table {out.dtype} {tuple(out.shape)} for a "
                          f"{d.dtype} {d.shape} leaf")
-    if d.init not in ("ones", "normal"):
+    if d.init not in ("ones", "zeros", "normal"):
         raise ValueError(d.init)
     fan_in = d.fan_in or (d.shape[0] if d.shape else 1)
     scale = d.scale if d.scale >= 0 else 1.0 / math.sqrt(max(fan_in, 1))
 
     def draw(part):
-        if d.init == "ones":
-            part.fill_(1.0)
+        if d.init != "normal":
+            part.fill_(1.0 if d.init == "ones" else 0.0)
         else:
             part.normal_(0.0, scale, generator=gen)
 

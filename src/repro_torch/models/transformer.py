@@ -6,11 +6,15 @@ the reference. The reference scans each segment's periodic tail over
 stacked leaves; here every segment is a plain list of per-layer blocks run
 as a Python loop, with per-layer parameter and cache lists.
 
-The port has ``attn`` mixers, GQA (with the gemma2/gemma3 features:
+The mixers are ``attn``, GQA (with the gemma2/gemma3 features:
 sliding-window ``local`` layers, a second RoPE base, qk-norms, post-block
-norms, softcaps) or MLA (``attn_impl="mla"``), each followed by a
-``dense`` SwiGLU or GeGLU FFN or a ``moe`` FFN. ``check_supported`` names
-the ROADMAP item for everything else.
+norms, softcaps) or MLA (``attn_impl="mla"``), and the recurrent ``mamba``,
+``mlstm`` and ``slstm``; each is followed by a ``dense`` SwiGLU or GeGLU
+FFN, a ``moe`` FFN, or none (``"none"``, xLSTM). A layer's cache is its
+mixer's: positional KV for attention, recurrent state (``conv``/``ssm``;
+``conv``/``C``/``n``/``m``; ``conv``/``c``/``n``/``h``/``m``) for the
+others. ``check_supported`` names the ROADMAP item for the encoder and the
+frontends.
 """
 from __future__ import annotations
 
@@ -21,8 +25,11 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import attention, attn_defs, decode_attention, init_kv_cache
 from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from .mamba import init_mamba_cache, mamba_defs, mamba_forward
 from .mla import init_mla_cache, mla_attention, mla_decode, mla_defs
 from .moe import moe_defs, moe_ffn
+from .xlstm import (init_xlstm_cache, mlstm_defs, mlstm_forward, slstm_defs,
+                    slstm_forward)
 
 
 @dataclass(frozen=True)
@@ -40,13 +47,9 @@ class RunFlags:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any config feature outside this slice of the port."""
-    other = "ROADMAP queue 1, item 8 (the other architecture families)"
     if cfg.is_encoder or cfg.frontend is not None:
-        raise NotImplementedError(f"encoder/frontend archs: {other}")
-    if any(t != "attn" for t in cfg.layer_types):
-        raise NotImplementedError(f"recurrent mixers (mamba, xlstm): {other}")
-    if any(f == "none" for f in cfg.ffn_types):
-        raise NotImplementedError(f"ffn-less blocks: {other}")
+        raise NotImplementedError(
+            "encoder/frontend archs: ROADMAP queue 1, item 8.6")
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:
@@ -97,17 +100,30 @@ def _plan_one(cfg: ModelConfig, idxs: tuple[int, ...]) -> Segment:
 # per-block defs / apply
 # ---------------------------------------------------------------------------
 
+_MIXER_DEFS = {"mamba": mamba_defs, "mlstm": mlstm_defs,
+               "slstm": slstm_defs}
+_RECURRENT = {"mamba": mamba_forward, "mlstm": mlstm_forward,
+              "slstm": slstm_forward}
+
+
 def block_defs(cfg: ModelConfig, i: int, dtype: str, fan_in: int = 0):
-    """Layer ``i``'s leaves in the reference's order: ln1, mixer (GQA or
-    MLA), post_ln1, ln2, ffn (dense or MoE), post_ln2 (the post-block
-    norms only with ``cfg.post_block_norm``)."""
-    mixer = mla_defs if cfg.attn_impl == "mla" else attn_defs
+    """Layer ``i``'s leaves in the reference's order: ln1, mixer (GQA, MLA,
+    Mamba, mLSTM or sLSTM), post_ln1, then, unless the layer has no FFN,
+    ln2, ffn (dense or MoE), post_ln2 (the post-block norms only with
+    ``cfg.post_block_norm``)."""
+    t, _, ffn = _sig(cfg, i)
+    if t == "attn":
+        mixer = mla_defs if cfg.attn_impl == "mla" else attn_defs
+    else:
+        mixer = _MIXER_DEFS[t]
     d = {"ln1": rmsnorm_defs(cfg.d_model),
          "mixer": mixer(cfg, dtype, fan_in)}
     if cfg.post_block_norm:
         d["post_ln1"] = rmsnorm_defs(cfg.d_model)
+    if ffn == "none":
+        return d
     d["ln2"] = rmsnorm_defs(cfg.d_model)
-    d["ffn"] = moe_defs(cfg, dtype, fan_in) if cfg.ffn_types[i] == "moe" \
+    d["ffn"] = moe_defs(cfg, dtype, fan_in) if ffn == "moe" \
         else mlp_defs(cfg.d_model, cfg.d_ff, dtype, fan_in)
     if cfg.post_block_norm:
         d["post_ln2"] = rmsnorm_defs(cfg.d_model)
@@ -125,11 +141,15 @@ def segment_defs(cfg: ModelConfig, seg: Segment, dtype: str) -> list:
 def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
                 positions, cache, mode: str):
     """Layer ``i``'s block. mode: prefill | decode. Returns (h, cache);
-    a MoE FFN's aux loss is dropped (serving has no use for it)."""
-    kind = cfg.attn_kinds[i]
+    a MoE FFN's aux loss is dropped (serving has no use for it). A
+    recurrent mixer's prefill starts from zero state (``cache`` None), its
+    decode from ``cache``; both are one call over the token axis."""
+    t, kind, ffn = _sig(cfg, i)
     pre = rmsnorm(params["ln1"], h, cfg.norm_eps)
     mla = cfg.attn_impl == "mla"
-    if mode == "decode" and mla:
+    if t != "attn":
+        out, new_cache = _RECURRENT[t](cfg, params["mixer"], pre, cache)
+    elif mode == "decode" and mla:
         out, new_cache = mla_decode(cfg, params["mixer"], pre, cache,
                                     positions)
     elif mode == "decode":
@@ -143,8 +163,10 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
     if cfg.post_block_norm:
         out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
     h = h + out
+    if ffn == "none":
+        return h, new_cache
     pre2 = rmsnorm(params["ln2"], h, cfg.norm_eps)
-    if cfg.ffn_types[i] == "moe":
+    if ffn == "moe":
         out2, _ = moe_ffn(cfg, params["ffn"], pre2,
                           strategy=flags.moe_strategy)
     else:
@@ -154,10 +176,22 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
     return h + out2, new_cache
 
 
+def init_block_cache(cfg: ModelConfig, i: int, batch: int, max_len: int,
+                     dtype: torch.dtype, device) -> dict:
+    """Layer ``i``'s empty decode cache, by its mixer type."""
+    t = cfg.layer_types[i]
+    if t == "attn":
+        init = init_mla_cache if cfg.attn_impl == "mla" else init_kv_cache
+        return init(cfg, batch, max_len, dtype, device)
+    if t == "mamba":
+        return init_mamba_cache(cfg, batch, dtype, device)
+    return init_xlstm_cache(cfg, t, batch, dtype, device)
+
+
 def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
                        max_len: int, dtype: torch.dtype, device) -> list:
-    init = init_mla_cache if cfg.attn_impl == "mla" else init_kv_cache
-    return [init(cfg, batch, max_len, dtype, device) for _ in seg.layers]
+    return [init_block_cache(cfg, i, batch, max_len, dtype, device)
+            for i in seg.layers]
 
 
 def apply_segment(cfg: ModelConfig, flags: RunFlags, seg: Segment,

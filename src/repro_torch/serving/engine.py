@@ -112,7 +112,7 @@ from ..pool.store import (TableFetcher, fetch_layers, make_store,
 from ..pool.tiers import pool_tier
 from .clock import VirtualClock
 from .slo import OverloadPolicy
-from .slots import (extract_prefix, gate_state, restore_prefix,
+from .slots import (extract_prefix, gate_state, reset_slot, restore_prefix,
                     select_slots, update_slots)
 
 @dataclasses.dataclass
@@ -853,20 +853,18 @@ class Engine:
 
     def _start_job(self, job: _PrefillJob) -> None:
         """First-wave start: write the restored prefix (KV padded back to
-        ``max_len``) over the job's slot, or, for a fresh prompt, reset
-        only the slot's position and last tokens. The previous occupant's
-        KV needs no clearing: attention masks it past the row's position,
-        and each step writes its own position before it attends there."""
+        ``max_len``) over the job's slot, or, for a fresh prompt, reset the
+        slot's position, last tokens and recurrent state
+        (``slots.reset_slot``). The previous occupant's KV needs no
+        clearing: attention masks it past the row's position, and each
+        step writes its own position before it attends there."""
         if job.restore is not None:
             update_slots(self.state, restore_prefix(
                 job.restore, self.max_len, self.device), [job.slot])
             job.restore = None
         else:
-            # fill_, not item assignment: assigning a Python number to a
-            # CUDA tensor's element copies it from the host and syncs
             e = self.cfg.engram
-            self.state["positions"][job.slot].fill_(0)
-            self.state["last_tokens"][job.slot].fill_(e.pad_token if e else 0)
+            reset_slot(self.state, job.slot, e.pad_token if e else 0)
         job.started = True
 
     def _chunk_wave_fn(self, params, state, tokens, chunk, lens, slots):

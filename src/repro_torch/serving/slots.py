@@ -1,34 +1,40 @@
 """Slot-batched decode-state surgery for continuous batching (PyTorch port
 of ``repro.serving.slots``: ``update_slots``, ``select_slots``,
 ``gate_state``, ``snapshot_recurrent``, ``rollback_state``,
-``extract_prefix`` and ``restore_prefix``).
+``extract_prefix`` and ``restore_prefix``; ``reset_slot`` does in place
+what the reference's scatter of a zeroed batch-1 state does).
 
 The port's decode state is a nested dict/list of tensors whose batch axis
 is always axis 0 (per-layer caches, no stacked layer axes), and whose KV
 leaves (``k``/``v``, shape (B, S, H, D); MLA's latents ``c_kv``/``k_rope``,
 (B, S, R)) have their sequence axis at 1, so no per-leaf axis bookkeeping
-is needed. Slot ids are host integers: the
-reference lets pad rows scatter to the out-of-bounds slot ``B`` and relies
-on JAX dropping the write; here those rows are dropped on the host before
-the scatter.
+is needed. Every other cache leaf is recurrent state (Mamba's ``conv`` and
+``ssm``; mLSTM's ``conv``, ``C``, ``n``, ``m``; sLSTM's ``conv``, ``c``,
+``n``, ``h``, ``m``), which has no positional identity. Slot ids are host
+integers: the reference lets pad rows scatter to the out-of-bounds slot
+``B`` and relies on JAX dropping the write; here those rows are dropped on
+the host before the scatter.
 
 ``gate_state`` is chunked prefill's per-row gate: a chunk wave unrolls C
 decode steps over rows with ragged valid lengths, and a row past its
-length must not advance. Only ``positions`` and ``last_tokens`` are gated.
+length must not advance. Every leaf but the KV caches is gated per row:
+``positions``, ``last_tokens`` and the recurrent leaves (the decode step
+returns new recurrent tensors, so the old ones are still there to keep).
 KV leaves keep the new buffers, as in the reference: an invalid row's
 garbage write lands at its un-advanced ``positions[b]``, and the row's
 next real step writes that same index before it attends there, so the
 garbage is never read. (The port's decode writes K/V in place, so a
-``torch.where`` over the caches would only copy every cache per step.)
+``torch.where`` over them would only copy every cache per step.)
+``reset_slot`` clears a slot for a fresh prompt: its position, last
+tokens and recurrent leaves, in place.
 
 ``snapshot_recurrent`` / ``rollback_state`` truncate rejected speculation
 per slot: the verify pass records the state's non-KV leaves after every
 unrolled step, and each slot is re-selected at its kept step count by
 device-side indexing (no host read). KV leaves keep the final buffers: rows
 past a slot's rewound ``positions`` are masked and later overwritten in
-place. The dense GQA state has only ``positions`` and ``last_tokens``
-besides KV; both functions walk the leaf names, so recurrent leaves fit
-without a rewrite.
+place. A snapshot holds the recurrent leaves by reference, which is sound
+because the decode step never updates them in place.
 
 ``extract_prefix`` / ``restore_prefix`` are block-granular KV restore at a
 prefill offset: one slot's state goes to the host with its KV sliced to
@@ -42,11 +48,8 @@ import numpy as np
 import torch
 
 from ..device import upload
-from ..models.model import pad_kv
+from ..models.model import KV_KEYS, pad_kv
 from ..models.params import tree_leaves, tree_map
-
-# KV-cache leaves: positional, masked by ``positions`` (sequence axis 1)
-KV_KEYS = frozenset({"k", "v", "c_kv", "k_rope"})
 
 
 def _zip_leaves(a, b):
@@ -109,7 +112,8 @@ def _map_named_zip(fn, tree, others, name=None):
 def snapshot_recurrent(state):
     """Per-step snapshot for speculative rollback: every leaf but the KV
     caches (which become None), by reference: the decode step makes new
-    ``positions``/``last_tokens`` tensors, so no copy is needed."""
+    ``positions``/``last_tokens`` and recurrent tensors, so no copy is
+    needed."""
     return _map_named(lambda name, leaf: None if name in KV_KEYS else leaf,
                       state)
 
@@ -137,15 +141,30 @@ def rollback_state(final_state, snapshots, n_keep: torch.Tensor):
 
 def gate_state(valid, new_state, old_state):
     """Per-row gate for one unrolled step: rows with ``valid (B,)`` true
-    keep ``new_state``'s ``positions``/``last_tokens``, the others keep
-    ``old_state``'s. The caches are ``new_state``'s (written in place; see
-    the module docstring)."""
-    out = dict(new_state)
-    for key in ("positions", "last_tokens"):
-        new = new_state[key]
+    keep ``new_state``, the others keep ``old_state``'s ``positions``,
+    ``last_tokens`` and recurrent leaves. KV leaves are ``new_state``'s
+    (written in place; see the module docstring)."""
+    def one(name, new, old):
+        if name in KV_KEYS:
+            return new
         gate = valid.view((-1,) + (1,) * (new.ndim - 1))
-        out[key] = torch.where(gate, new, old_state[key])
-    return out
+        return torch.where(gate, new, old[0])
+
+    return _map_named_zip(one, new_state, [old_state])
+
+
+def reset_slot(state, slot: int, pad_token: int) -> None:
+    """Clear host slot ``slot`` for a fresh prompt, in place: position 0,
+    ``last_tokens`` set to ``pad_token``, recurrent leaves zeroed. The
+    previous occupant's KV needs no clearing (masked past the position,
+    overwritten before it is attended). ``fill_``, not item assignment:
+    assigning a Python number to a CUDA tensor's element syncs."""
+    def one(name, leaf):
+        if name not in KV_KEYS:
+            leaf[slot].fill_(pad_token if name == "last_tokens" else 0)
+        return leaf
+
+    _map_named(one, state)
 
 
 def extract_prefix(state, slot: int, length: int):

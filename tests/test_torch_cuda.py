@@ -703,3 +703,65 @@ def test_grouped_mm_matches_plain_loop_without_sync(T):
     torch.testing.assert_close(got, moe.grouped_mm_ref(rows, w, offs),
                                **BF16_TOL)
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["jamba_1_5_large_398b", "xlstm_125m"])
+def test_recurrent_engine_card_equals_cpu(name):
+    """The reduced recurrent configs (f32; Mamba, mLSTM, sLSTM), pool CXL
+    at the emulated operating point: chunked admission with a prefix
+    cache, one prompt prefilled while another decodes (its recurrent
+    state gated under the decode waves), then monolithic admission and
+    speculation with an always-wrong proposer (rolled back every wave):
+    the card's streams, prefix hits, StoreStats and PrefixCacheStats are
+    the CPU's, and the speculative streams the monolithic ones."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import SpecConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.pool.cache import PrefixKVCache
+    from repro_torch.serving import Engine
+    from repro_torch.spec import ConstantProposer
+    dev = _card()
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(7)
+    head = [int(t) for t in rng.randint(1, cfg.vocab_size, size=16)]
+    long, *rest = [head + [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                                         size=n)]
+                   for n in (12, 3, 7)]
+    short = [int(t) for t in rng.randint(1, cfg.vocab_size, size=5)]
+    kw = dict(pool="CXL", max_batch=2, max_len=64, prompt_bucket=8,
+              emulate_step_s=5e-5)
+
+    def serve(eng, prompts):
+        rids = [eng.submit(q, max_new=6) for q in prompts]
+        eng.run()
+        return [eng.done[r].out for r in rids]
+
+    seen = []
+    for device, p in (("cpu", params),
+                      (dev, tree_map(lambda t: t.to(dev), params))):
+        eng = Engine(cfg, params=p, prefill_chunk=8,
+                     prefix_cache=PrefixKVCache(64 << 20, 8), device=device,
+                     **kw)
+        rt = eng.runtime()
+        hs = [rt.submit(short, 6)]
+        rt.step()
+        hs.append(rt.submit(long, 6))
+        rt.drain()
+        hs += [rt.submit(q, 6) for q in rest]
+        rt.drain()
+        mono = serve(Engine(cfg, params=p, device=device, **kw),
+                     [short, long])
+        spec = serve(Engine(cfg, params=p, device=device, spec=SpecConfig(),
+                            proposer=ConstantProposer(-1), **kw),
+                     [short, long])
+        seen.append(([h.tokens for h in hs], mono, spec,
+                     eng.stats.prefix_hit_blocks,
+                     dataclasses.asdict(eng.store.stats()),
+                     dataclasses.asdict(eng.prefix_cache.stats())))
+    assert seen[0] == seen[1]
+    assert seen[1][1] == seen[1][2] and seen[1][3] > 0

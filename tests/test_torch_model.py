@@ -328,12 +328,13 @@ def test_init_params_mirrors_reference_tree(bridged):
 
 
 def test_unported_config_features_raise():
-    """Mamba and xLSTM name their ROADMAP item (windows and qk-norms are
-    ported: tests/test_torch_gemma.py; MLA and MoE:
-    tests/test_torch_mla.py and tests/test_torch_moe.py)."""
+    """Encoder and frontend configs name their ROADMAP item (windows and
+    qk-norms are ported: tests/test_torch_gemma.py; MLA and MoE:
+    tests/test_torch_mla.py and tests/test_torch_moe.py; Mamba and xLSTM:
+    tests/test_torch_mamba.py and tests/test_torch_xlstm.py)."""
     cfg = engram_27b.reduced()
-    for bad in (dict(layer_types=("mamba",) * 6),
-                dict(layer_types=("mlstm",) * 6)):
+    for bad in (dict(is_encoder=True, frontend="audio"),
+                dict(frontend="vision")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_model.model_defs(dataclasses.replace(cfg, **bad))
 

@@ -251,29 +251,35 @@ def test_chunk_prefill_matches_reference(e27):
 
 
 def test_gate_state_matches_reference():
+    """Rows past their length keep the old positions, last tokens and
+    recurrent leaves (a Mamba ``conv`` state here); KV leaves are the new
+    step's tensors, not a copy."""
     rng = np.random.RandomState(15)
     old = {"positions": rng.randint(0, 9, 4).astype(np.int32),
            "last_tokens": rng.randint(0, 99, (4, 2)).astype(np.int32),
-           "caches": [[{"k": rng.randn(4, 6, 2, 3).astype(np.float32)}]]}
+           "caches": [[{"k": rng.randn(4, 6, 2, 3).astype(np.float32),
+                        "conv": rng.randn(4, 3, 5).astype(np.float32)}]]}
     new = {"positions": old["positions"] + 1,
            "last_tokens": rng.randint(0, 99, (4, 2)).astype(np.int32),
-           "caches": [[{"k": rng.randn(4, 6, 2, 3).astype(np.float32)}]]}
+           "caches": [[{"k": rng.randn(4, 6, 2, 3).astype(np.float32),
+                        "conv": rng.randn(4, 3, 5).astype(np.float32)}]]}
     valid = np.array([True, False, True, False])
     want = ref_slots.gate_state(jnp.asarray(valid),
                                 jax.tree.map(jnp.asarray, new),
                                 jax.tree.map(jnp.asarray, old))
-    tnew = {"positions": _t(new["positions"]),
-            "last_tokens": _t(new["last_tokens"]),
-            "caches": [[{"k": _t(new["caches"][0][0]["k"])}]]}
-    got = port_slots.gate_state(_t(valid), tnew, {
-        "positions": _t(old["positions"]),
-        "last_tokens": _t(old["last_tokens"])})
+    as_torch = lambda st: {  # noqa: E731
+        "positions": _t(st["positions"]),
+        "last_tokens": _t(st["last_tokens"]),
+        "caches": [[{n: _t(a) for n, a in st["caches"][0][0].items()}]]}
+    tnew = as_torch(new)
+    got = port_slots.gate_state(_t(valid), tnew, as_torch(old))
     for key in ("positions", "last_tokens"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
     # the caches are the new step's, not a copy
     assert got["caches"][0][0]["k"] is tnew["caches"][0][0]["k"]
-    np.testing.assert_array_equal(got["caches"][0][0]["k"].numpy(),
-                                  np.asarray(want["caches"][0][0]["k"]))
+    for n in ("k", "conv"):
+        np.testing.assert_array_equal(got["caches"][0][0][n].numpy(),
+                                      np.asarray(want["caches"][0][0][n]))
 
 
 def test_extract_restore_prefix_matches_reference(e27):
