@@ -196,8 +196,41 @@ result lines are printed):
               steps' share of a wave; 17(d)'s chunked check; a 512-token
               prompt's TTFT.
 
+ 19. hubert   hubert-xlarge at full width and depth (48 layers, d 1280, an
+              audio frontend, no Engram, so no kernel of the port): the
+              encoder step at B = 8 over seeded frames, S = 512 and 2100
+              (the non-causal chunked path, 972 pad keys masked); the
+              reference's draw's bf16 logits against f32 printed; on a
+              unit-gain draw, bf16 against f32, chunked against dense,
+              and frames at the end moving position 0's logits, held;
+              device time, frames/s, peak memory.
+ 20. internvl internvl2-1b at full width and depth (24 layers, d 896, a
+              vision stub of 256 patch tokens), ENGRAM_27B tables in HBM,
+              a unit-gain draw: K2 at d = 896 (T = 8, 256) and K1 on its
+              tables held and timed; serve's mix twice (phase 7's
+              budgets, identical streams), a profile; a prefill with 256
+              patch tokens: its logits moved by the patches, and within
+              ``STACK_TOL`` of an f32 evaluation (the tree converted in
+              place).
+ 21. cli      ``launch.serve.run_once`` (bf16 scores, the reference's
+              serving default) on phase 7's engram-27b against the same
+              workload through ``serve()`` with f32 scores: budgets,
+              teacher-forced logits within 16 bf16 ulps of |logit| + row
+              RMS, streams compared; 4 waves profiled each way and one
+              layer's decode attention timed each way; a 40-token prompt
+              by chunks of 16 in admission groups of 1, 4 and 8 rows, its
+              first-token logits and streams compared (printed). Runs
+              right after phase 13, before phase 14 frees phase 7's
+              weights.
+
+Phase 6 also runs reduced internvl2-1b like the other reduced configs,
+reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
+prefill with patch tokens card = CPU, and the overload and tier runs on
+reduced jamba-1.5-large-398b and xlstm-125m.
+
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 18); the last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 18, 20 and 21); the last is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -304,13 +337,10 @@ def cupti_session(ops: list):
     ops.extend(e for e in dev if e.time_range.start >= end)
 
 
-def device_ms(fn, args_list, warmup: int = 3,
-              ops_per_call: int | None = None) -> float:
-    """Mean device time per call: the durations of every kernel, copy and
-    fill the profiler records over ``args_list`` (``cupti_session``),
-    summed, over the call count. Raises if it records no device time, or,
-    with ``ops_per_call``, any other number of device operations than that
-    many per call (a lost record would read as a faster call)."""
+def device_ops(fn, args_list, warmup: int = 3) -> list:
+    """Every kernel, copy and fill the profiler records over ``args_list``
+    (``cupti_session``), after ``warmup`` calls; a session that loses its
+    marker is measured again in a new one (``CUPTI_ATTEMPTS`` in all)."""
     import torch
     for a in args_list[:warmup]:
         fn(*a)
@@ -320,12 +350,22 @@ def device_ms(fn, args_list, warmup: int = 3,
             with cupti_session(ops):
                 for a in args_list:
                     fn(*a)
-            break
+            return ops
         except LostMarker:
             if attempt == CUPTI_ATTEMPTS - 1:
                 raise
             # the lost attempt warmed the 50 MB L2 with the inputs: evict
             torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+
+
+def device_ms(fn, args_list, warmup: int = 3,
+              ops_per_call: int | None = None) -> float:
+    """Mean device time per call: the durations of every kernel, copy and
+    fill the profiler records over ``args_list`` (``device_ops``),
+    summed, over the call count. Raises if it records no device time, or,
+    with ``ops_per_call``, any other number of device operations than that
+    many per call (a lost record would read as a faster call)."""
+    ops = device_ops(fn, args_list, warmup)
     us = sum(e.time_range.elapsed_us() for e in ops)
     check(us > 0, "the profiler recorded no device time")
     if ops_per_call is not None:
@@ -333,6 +373,18 @@ def device_ms(fn, args_list, warmup: int = 3,
               f"the profiler recorded {len(ops)} device operations for "
               f"{len(args_list)} calls of {ops_per_call}")
     return us / 1e3 / len(args_list)
+
+
+def top_kernels(ops, n: int = 4) -> str:
+    """The ``n`` kernel names with the most device time in ``ops``, with
+    their share of it."""
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return "; ".join(f"{100 * us / total:.1f} % {name[:60]}"
+                     for name, us in top)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -693,20 +745,22 @@ def link_ledgers(clock) -> dict:
     return dict(st, links=links)
 
 
-def check_agreement_overload(dev) -> None:
-    """Overload on the reduced config at the emulated operating point, on
-    the card and on the CPU: a TinyLFU hot-row cache, ``OverloadPolicy()``
-    and ``PoolArbiter(kv_cache_share=0.25)``; 4 batch requests, then 2
-    interactive ones after the third decode wave. The streams (equal to a
-    run without the policy), the overload counters, KVPoolStats,
-    StoreStats, the cache's evictions and the clock must be identical."""
+def check_agreement_overload(dev, mod) -> None:
+    """Overload on ``mod``'s reduced config at the emulated operating
+    point, on the card and on the CPU: a TinyLFU hot-row cache,
+    ``OverloadPolicy()`` and ``PoolArbiter(kv_cache_share=0.25)``; 4 batch
+    requests, then 2 interactive ones after the third decode wave. The
+    streams (equal to a run without the policy), the overload counters,
+    KVPoolStats, StoreStats, the cache's evictions and the clock must be
+    identical. On a recurrent config a preempted slot's snapshot carries
+    its recurrent leaves whole."""
     import numpy as np
-    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.configs import StoreConfig
     from repro_torch.models.model import init_params
     from repro_torch.models.params import tree_map
     from repro_torch.pool import PoolArbiter
     from repro_torch.serving import Engine, OverloadPolicy
-    cfg = engram_27b.reduced()
+    cfg = mod.reduced()
     ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
         cfg.engram, store=StoreConfig(cache_rows=2048, admission="tinylfu")))
     params_cpu = init_params(cfg, seed=0, device="cpu")
@@ -756,7 +810,7 @@ def check_agreement_overload(dev) -> None:
           f"{spill} B spilled, {restore} B restored")
     check(card["store"]["class_bytes"]["kv"] == spill + restore,
           "overload agreement: class_bytes['kv'] != spill + restore bytes")
-    print(f"agree overload: reduced engram-27b (f32, pool=CXL, emulated "
+    print(f"agree overload: {cfg.name} (f32, pool=CXL, emulated "
           f"step 5e-5 s, TinyLFU cache of 2048 rows, OverloadPolicy, "
           f"PoolArbiter(kv_cache_share=0.25)), 4 batch + 2 interactive "
           f"requests into 4 slots: {pre} preemptions, {res} resumes, "
@@ -766,19 +820,19 @@ def check_agreement_overload(dev) -> None:
           f"clock identical on card and CPU")
 
 
-def check_agreement_tiers(dev) -> None:
-    """The storage tiers on the reduced config at the emulated operating
-    point, on the card and on the CPU: a ``CXL+SSD`` chain (front 64 rows,
-    warm 512 rows, sketch half-life 2e-4 s) and a two-node fabric whose
-    node 1 is killed after decode wave 2. StoreStats, the fabric's stats
-    and the clock must be identical, and the streams equal to the card's
-    run without tiers."""
+def check_agreement_tiers(dev, mod) -> None:
+    """The storage tiers on ``mod``'s reduced config at the emulated
+    operating point, on the card and on the CPU: a ``CXL+SSD`` chain
+    (front 64 rows, warm 512 rows, sketch half-life 2e-4 s) and a two-node
+    fabric whose node 1 is killed after decode wave 2. StoreStats, the
+    fabric's stats and the clock must be identical, and the streams equal
+    to the card's run without tiers."""
     import numpy as np
-    from repro_torch.configs import StoreConfig, engram_27b
+    from repro_torch.configs import StoreConfig
     from repro_torch.models.model import init_params
     from repro_torch.models.params import tree_map
     from repro_torch.serving import Engine
-    cfg = engram_27b.reduced()
+    cfg = mod.reduced()
     ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
         cfg.engram, store=StoreConfig(cache_rows=64, warm_rows=512,
                                       aging_half_life_s=2e-4)))
@@ -827,7 +881,7 @@ def check_agreement_tiers(dev) -> None:
           f"/{ch['warm_hits']}/{ch['cold_misses']} misses a level")
     check(bool(card["fabric_stats"]["rescues"]),
           "tiers agreement: the killed node's shards were not rescued")
-    print(f"agree tiers: reduced engram-27b (f32, emulated step 5e-5 s): "
+    print(f"agree tiers: {cfg.name} (f32, emulated step 5e-5 s): "
           f"CXL+SSD chain front/warm/cold {ch['hits']}/{ch['warm_hits']}/"
           f"{ch['cold_misses']} segments, {ch['promotions']} promotions, "
           f"{ch['demotions']} demotions; 2-node fabric with node 1 killed "
@@ -1041,6 +1095,54 @@ def check_agreement_models(dev, mods, slices=(False,),
               + ", ".join(f"{v:.2e}" + (f" (decode_window_slice={ws})"
                                         if len(slices) > 1 else "")
                           for ws, v in worst.items()))
+
+
+def check_agreement_frontends(dev) -> None:
+    """The encoder and the vision stub on the card and on the CPU (f32):
+    reduced hubert-xlarge's encoder logits over seeded frames (B 2, S 21)
+    dense and chunked (``chunk_threshold`` 8, 8-token chunks, so the last
+    KV chunk holds 3 pad keys that the non-causal mask must exclude), and
+    reduced internvl2-1b's prefill logits with its 8 patch tokens (and
+    without them), within 1e-3, as phase 5's."""
+    import torch
+    from repro_torch.configs import hubert_xlarge, internvl2_1b
+    from repro_torch.models.model import (build_encoder_step,
+                                          build_prefill_step, init_params)
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import RunFlags
+    worst = {}
+    for mod in (hubert_xlarge, internvl2_1b):
+        cfg = mod.reduced()
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+        gen = torch.Generator().manual_seed(6)
+        if cfg.is_encoder:
+            batch = {"frames": torch.randn(2, 21, cfg.frontend_dim,
+                                           generator=gen)}
+            runs = {f"encoder {k}": build_encoder_step(cfg, RunFlags(**kw))
+                    for k, kw in (("dense", {}),
+                                  ("chunked", dict(chunk_threshold=8,
+                                                   q_chunk=8, kv_chunk=8)))}
+        else:
+            tokens = torch.randint(1, cfg.vocab_size, (2, 16), generator=gen)
+            tokens[:, :cfg.n_patch_tokens] = 0       # the image positions
+            batch = {"tokens": tokens, "lengths": torch.tensor([16, 11]),
+                     "patches": torch.randn(2, cfg.n_patch_tokens,
+                                            cfg.frontend_dim, generator=gen)}
+            pre = build_prefill_step(cfg, RunFlags(), max_len=32)
+            runs = {"prefill with patches": lambda p, b: pre(p, b)[0],
+                    "prefill without": lambda p, b: pre(p, {
+                        k: v for k, v in b.items() if k != "patches"})[0]}
+        for name, fn in runs.items():
+            want = fn(params_cpu, batch)
+            got = fn(params_dev, tree_map(lambda t: t.to(dev), batch)).cpu()
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+            worst[f"{cfg.name} {name}"] = (got - want).abs().max().item()
+    print("agree frontends (f32): "
+          + "; ".join(f"{k} max|card - cpu| {v:.2e}" for k, v in
+                      worst.items())
+          + " (hubert: S = 21, chunked with 8-token chunks: 3 pad keys "
+          "masked in the last KV chunk)")
 
 
 # ---------------------------------------------------------------------------
@@ -2608,12 +2710,14 @@ def serve_host_model(cfg, dev, smi: str, host_tables=None,
     from repro_torch.kernels.engram_gather.host import host_empty
     from repro_torch.models import moe
     from repro_torch.models.model import init_params, model_defs
-    from repro_torch.models.params import DTYPES, tree_leaves
+    from repro_torch.models.params import (DTYPES, table_memory_for,
+                                           tree_leaves)
     from repro_torch.models.transformer import RunFlags
     from repro_torch.serving import Engine
 
     e = cfg.engram
     label = f"host run {cfg.name}"
+    flags = RunFlags(engram_strategy="pooled_host")
     n_moe = sum(f == "moe" for f in cfg.ffn_types)
     gen = torch.Generator(device=dev).manual_seed(3)
     k2 = {n_t: time_k2(gen, dev, n_t, cfg.d_model,
@@ -2626,7 +2730,8 @@ def serve_host_model(cfg, dev, smi: str, host_tables=None,
                        (layer["tables"] for layer in
                         model_defs(cfg)["engram"]["layers"])]
     t1 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev, table_memory="pinned_host",
+    params = init_params(cfg, seed=0, device=dev,
+                         table_memory=table_memory_for(cfg, flags),
                          host_tables=host_tables)
     reg_s, draw_s = t1 - t0, time.perf_counter() - t1
     host_tables = [layer["tables"] for layer in params["engram"]["layers"]]
@@ -2642,9 +2747,8 @@ def serve_host_model(cfg, dev, smi: str, host_tables=None,
           f"register {reg_s:.2f} s, draw and fill {draw_s:.2f} s; "
           + host_status("now"))
     check_host_rows(params, dev, label)
-    eng = Engine(cfg, params=params, flags=RunFlags(
-        engram_strategy="pooled_host"), pool="CXL", max_batch=8,
-        max_len=512, prompt_bucket=32, device=dev)
+    eng = Engine(cfg, params=params, flags=flags, pool="CXL", max_batch=8,
+                 max_len=512, prompt_bucket=32, device=dev)
     del params, leaves
     prompts = serve_prompts(cfg)
     eng.warmup(prompts)
@@ -3554,6 +3658,472 @@ def serve_xlstm(dev, smi: str) -> tuple:
                                   wave_ms=summary["wave_ms"])
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the encoder, the vision stub and the serving CLI
+# ---------------------------------------------------------------------------
+
+# a whole stack's bf16 logits against an f32 evaluation (or the chunked
+# encoder against the dense one), as a share of the largest logit: bf16
+# rounding through the layers moves them by a few percent of it at unit
+# gain (0.0147 to 0.0366 in phases 19 and 20 on an H100 80GB HBM3 at 700
+# W); phase 19 plants a wrong mask at full width and requires each to read
+# above it (on that card: the pad keys let into the softmax 0.3450, a
+# causal mask 1.2605)
+STACK_TOL = 0.1
+
+
+@contextlib.contextmanager
+def planted_mask(fault: str):
+    """A wrong mask in ``_chunk_attn`` inside this block, for phase 19 to
+    show that ``STACK_TOL`` sees it: ``"causal"`` runs the encoder's
+    chunked attention causal; ``"pad keys"`` pads keys and queries to
+    whole KV chunks before the call, the keys at a position the validity
+    mask takes for real, so the last chunk's zero keys enter the softmax
+    (the reference's F12)."""
+    import torch
+    from repro_torch.models import attention
+    sound = attention._chunk_attn
+
+    def planted(cfg, q, k, v, qpos, kpos, *, causal=True, kv_chunk=1024,
+                **kw):
+        if fault == "causal":
+            return sound(cfg, q, k, v, qpos, kpos, causal=True,
+                         kv_chunk=kv_chunk, **kw)
+        S = q.shape[1]
+        pad = -(-S // kv_chunk) * kv_chunk - S
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+        qpos = torch.cat([qpos, qpos.new_full((pad,), -1)])
+        kpos = torch.cat([kpos, kpos.new_full((pad,), 2 ** 29)])
+        return sound(cfg, q, k, v, qpos, kpos, causal=causal,
+                     kv_chunk=kv_chunk, **kw)[:, :S]
+
+    assert fault in ("causal", "pad keys"), fault
+    planted.window_skipped = sound.window_skipped
+    attention._chunk_attn = planted
+    try:
+        yield
+    finally:
+        attention._chunk_attn = sound
+        sound.window_skipped = planted.window_skipped
+
+
+def unit_gain_params(cfg, seed: int, dev):
+    """Seeded weights of ``cfg`` drawn on ``dev`` at unit gain: every leaf
+    at 1/sqrt of its own first dimension. ``init_params`` draws a stacked
+    layer's leaves as the reference does, at 1/sqrt(n_periods), and that
+    gain turns attention into an argmax (PERF.md §7): a deep stack's bf16
+    and f32 logits then part by about their size (phase 19 prints it for
+    hubert-xlarge), so no precision can be held on it."""
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import tree_init, tree_map
+    return tree_init(tree_map(lambda d: dataclasses.replace(d, fan_in=0),
+                              model_defs(cfg)), seed, dev)
+
+
+def to_f32(tree, in_place: bool = False):
+    """Every leaf of a parameter tree in f32: a new tree, or ``in_place``
+    leaf by leaf (each bf16 leaf freed as its copy is made, so the peak
+    holds one leaf twice, not the tree)."""
+    from repro_torch.models.params import tree_map
+    if not in_place:
+        return tree_map(lambda t: t.float(), tree)
+    for k in (list(tree) if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            to_f32(tree[k], in_place=True)
+        else:
+            tree[k] = tree[k].float()
+    return tree
+
+
+def stack_share(got, want) -> float:
+    """max |got - want| over max |want|."""
+    w = want.float()
+    return ((got.float() - w).abs().max() / w.abs().max()).item()
+
+
+def serve_hubert(dev, smi: str) -> dict:
+    """Phase 19: hubert-xlarge at full width and depth (48 layers, d 1280,
+    16 heads of 80, GeGLU of 5120, an audio frontend of 512 features, no
+    Engram, so no kernel of the port runs): the encoder step
+    (``build_encoder_step``) over seeded frames, B = 8, at S = 512 and S =
+    2100 (past ``chunk_threshold`` 2048: ``_chunk_attn(causal=False)`` in
+    every layer, its last KV chunk holding 972 pad keys). The reference's
+    draw (``init_params``) first: its bf16 logits against an f32
+    evaluation, printed, not held. Then a unit-gain draw
+    (``unit_gain_params``), held three ways within ``STACK_TOL``: bf16
+    against f32 at S = 512; chunked against dense (``chunk_threshold``
+    raised) at S = 2100; and frames changed at the last 5 positions must
+    move the logits at position 0 (the mask is not causal). Each fault of
+    ``planted_mask`` in the chunked path at S = 2100 must part from the
+    dense path by more than ``STACK_TOL``. Device time, frames/s and peak
+    memory at both lengths."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_encoder_step, init_params
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import RunFlags
+    cfg = get_config("hubert-xlarge")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    label, B = "hubert-xlarge", 8
+    gen = torch.Generator(device=dev).manual_seed(19)
+    frames = {S: {"frames": torch.randn(B, S, cfg.frontend_dim,
+                                        generator=gen, device=dev)}
+              for S in (512, 2100)}
+    step = build_encoder_step(cfg, RunFlags())
+    step32 = build_encoder_step(cfg32, RunFlags())
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    a = step(params, frames[512])
+    b = step32(to_f32(params), frames[512])
+    ref_share = stack_share(a, b)
+    ref_agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"{label}: {cfg.n_layers} layers d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters; the reference's draw "
+          f"(stacked leaves at 1/sqrt(48)): bf16 logits against f32 at B = "
+          f"{B}, S = 512 part by {ref_share:.4f} of the largest (argmax "
+          f"equal at {100 * ref_agree:.1f} % of positions), not held")
+    del params, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = unit_gain_params(cfg, 0, dev)
+    a = step(params, frames[512])
+    b = step32(to_f32(params), frames[512])
+    share = stack_share(a, b)
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    check(tuple(a.shape) == (B, 512, cfg.vocab_size)
+          and bool(torch.isfinite(a).all()), f"{label}: logits "
+          f"{tuple(a.shape)} not finite")
+    check(share <= STACK_TOL, f"{label}: bf16 logits {share:.4f} of the "
+          f"largest from f32")
+    moved = {"frames": frames[512]["frames"].clone()}
+    moved["frames"][:, -5:] += 1.0
+    back = (step(params, moved)[:, 0] - a[:, 0]).abs().max().item()
+    check(back > 0, f"{label}: frames at positions 507 to 511 left the "
+          f"logits at position 0 unchanged: the mask is causal")
+    del b
+    dense = build_encoder_step(cfg, RunFlags(chunk_threshold=4096))
+    lc, ld = step(params, frames[2100]), dense(params, frames[2100])
+    cshare = stack_share(lc, ld)
+    check(cshare <= STACK_TOL, f"{label}: chunked logits at S = 2100 "
+          f"{cshare:.4f} of the largest from the dense path's")
+    del lc
+    planted = {}
+    for fault in ("causal", "pad keys"):
+        with planted_mask(fault):
+            planted[fault] = stack_share(step(params, frames[2100]), ld)
+    print(f"{label} [{smi}]: planted in the chunked path at S = 2100, "
+          + "; ".join(f"{f} {x:.4f}" for f, x in planted.items())
+          + f" of the largest logit from the dense path's (STACK_TOL "
+          f"{STACK_TOL})")
+    for fault, x in planted.items():
+        check(x > STACK_TOL, f"{label}: a planted {fault} mask reads "
+              f"{x:.4f}, within STACK_TOL {STACK_TOL}: it cannot see it")
+    del ld
+    print(f"{label} [{smi}]: unit-gain draw: bf16 logits against f32 at S "
+          f"= 512 part by {share:.4f} of the largest (argmax equal at "
+          f"{100 * agree:.1f} %); at S = 2100 the chunked non-causal path "
+          f"(3 KV chunks of 1024, 972 pad keys masked) against the dense "
+          f"one {cshare:.4f}; both within {STACK_TOL}; frames changed at "
+          f"positions 507 to 511 move position 0's logits by {back:.4f}")
+    out = dict(ref_draw_share=ref_share, share=share, chunked_share=cshare,
+               planted=planted)
+    for S in (512, 2100):
+        args = [(params, frames[S])]
+        ops = device_ops(step, args, warmup=1)
+        dms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+        check(dms > 0, "the profiler recorded no device time")
+        ms = call_ms(step, args * 3, warmup=1)
+        out[S] = dict(device_ms=dms, ms=ms, frames_per_s=B * S / ms * 1e3)
+        print(f"{label} encoder step B = {B}, S = {S} [{smi}]: device "
+              f"{dms:.3f} ms in {len(ops)} operations, call {ms:.3f} ms "
+              f"(CUDA events), {B * S / ms * 1e3:.0f} frames/s; top "
+              f"kernels: {top_kernels(ops)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
+    print(f"{label} [{smi}]: peak device memory {peak:.2f} GB (bf16 and f32 "
+          f"weights, the dense S = 2100 pass's f32 scores)")
+    out["peak_gb"] = peak
+    del params
+    return out
+
+
+def serve_internvl(dev, smi: str) -> tuple:
+    """Phase 20: internvl2-1b at full width and depth (24 layers, d 896, 14
+    query and 2 KV heads of 64, a 151,655-word vocabulary, a vision stub
+    of 256 patch tokens of 1024 features; ENGRAM_27B tables at layers 2
+    and 10, 23.2 GB in HBM), drawn at unit gain (``unit_gain_params``),
+    ``pool="CXL"``: K2 at d = 896 (T = 8, 256) and K1 on its tables
+    first; serve's mix (phase 7's 8 prompts, 16 new tokens) twice after a
+    warm-up, identical streams, phase 7's launch and read budgets, then 4
+    steady waves profiled; then one prefill of 2 prompts of 320 tokens
+    whose first 256 positions are the image's (id 0), with 256 seeded
+    patch tokens: its logits must differ from the tokens-only prefill's
+    (the frontend is live), and, the tree converted to f32 in place, lie
+    within ``STACK_TOL`` of an f32 evaluation's. Returns the counted
+    launches, K1's and K2's timings and the rest."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import with_f32_head
+    from repro_torch.models.model import build_prefill_step
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine
+    cfg = get_config("internvl2-1b")
+    e, label = cfg.engram, "internvl2-1b"
+    gen = torch.Generator(device=dev).manual_seed(20)
+    k2 = {n_t: time_k2(gen, dev, n_t, cfg.d_model,
+                       len(e.orders) * e.emb_dim) for n_t in (8, 256)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = with_f32_head(unit_gain_params(cfg, 0, dev))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for k, v in params.items() if k != "engram"
+                   for t in tree_leaves(v))
+    print(f"{label}: {cfg.n_layers} layers d_model {cfg.d_model} vocab "
+          f"{cfg.vocab_size}, engram layers {cfg.engram_layers()}: "
+          f"{n_params / 1e9:.3f} B parameters beside the tables (f32 head "
+          f"included), unit-gain draw in {time.perf_counter() - t0:.1f} s")
+    k1 = time_k1_tables([layer["tables"] for layer in
+                         params["engram"]["layers"]], dev, smi, label)
+    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
+                 prompt_bucket=32, device=dev)
+    prompts = serve_prompts(cfg)
+    eng.warmup(prompts)
+    rt = eng.runtime()
+    launches = dict.fromkeys(read_launches(), 0)
+    first = None
+    for rep in range(2):
+        got, streams, summary = serve_once(cfg, eng, rt, prompts, dev, smi,
+                                           rep)
+        first = first or streams
+        check(streams == first, f"{label}: run {rep + 1}'s streams differ "
+              f"from run 1's")
+        for k in launches:
+            launches[k] += got[k]
+    prof = profile_waves(eng, rt, prompts, label=f"{label} profile")
+    del eng, rt
+    gc.collect()
+    tokens = torch.randint(1, cfg.vocab_size, (2, 320), generator=gen,
+                           device=dev)
+    tokens[:, :cfg.n_patch_tokens] = 0
+    batch = {"tokens": tokens, "patches": torch.randn(
+        2, cfg.n_patch_tokens, cfg.frontend_dim, generator=gen, device=dev)}
+    pre = build_prefill_step(cfg, RunFlags(), max_len=512)
+    with_p = pre(params, batch)[0]
+    plain = pre(params, {"tokens": tokens})[0]
+    live = (with_p - plain).abs().max().item()
+    check(live > 0, f"{label}: patches left the prefill logits unchanged")
+    peak16 = torch.cuda.max_memory_allocated() / 1e9
+    to_f32(params, in_place=True)
+    gc.collect()
+    want = build_prefill_step(dataclasses.replace(cfg, dtype="float32"),
+                              RunFlags(), max_len=512)(params, batch)[0]
+    share = stack_share(with_p, want)
+    agree = (with_p.argmax(-1) == want.argmax(-1)).float().mean().item()
+    check(share <= STACK_TOL, f"{label}: bf16 prefill logits with patches "
+          f"{share:.4f} of the largest from f32")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
+    print(f"{label} vision prefill [{smi}]: 2 x 320 tokens, 256 patch "
+          f"tokens projected over positions 0 to 255: logits move by up to "
+          f"{live:.4f} against the tokens-only prefill; bf16 against f32 "
+          f"(tables converted in place) {share:.4f} of the largest (within "
+          f"{STACK_TOL}), argmax equal on {100 * agree:.0f} % of rows; peak "
+          f"device memory {peak16:.2f} GB serving in bf16, {peak:.2f} GB "
+          f"with the f32 tree")
+    del params, want, with_p, plain
+    return launches, k1, k2, dict(profile=prof, share=share, live=live,
+                                  wave_ms=summary["wave_ms"], peak_gb=peak16)
+
+
+def serve_cli(cfg, params, dev, smi: str) -> dict:
+    """Phase 21: the serving CLI's path on full-width engram-27b with phase
+    7's parameters. (a) ``launch.serve.run_once(cfg, params=params,
+    requests=8, max_new=16, pool="CXL")``, which serves with
+    ``attn_bf16_scores`` as the reference's does, and the same workload
+    through ``serve()`` with phase 7's flags (f32 scores): K1 once per
+    decode wave, K2 twice per wave and admission group, one read per
+    decode wave and two per admission group (the first wave after it
+    reads its keys apart, as in phase 7); each prompt's logits teacher-
+    forced along its bf16-score stream, both ways, within 16 bf16 ulps of
+    |logit| + row RMS (``ulps_share``); whether the streams are equal, and
+    where they part the top-2 logits of both. (b) 4 steady decode waves
+    profiled each way, and one layer's attention core (``_sdpa``) at B =
+    8 over a bf16 cache of S = 256 (the run's ``max_len``) and 4096
+    positions timed each way: its share of a wave (times the layers).
+    (a)'s drives are not a comparison: the first includes cuBLAS's first
+    calls at these shapes. (c) One 40-token prompt admitted by chunks of 16 in
+    admission groups of 1, 4 and 8 rows (the other rows 40-token prompts
+    too): its first-token logits and 16-token streams compared across the
+    groups, printed, not held (ROADMAP's ground rule that chunked
+    admission does not depend on the group). Returns the kernels' launches
+    over (a)'s two runs."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import run_once
+    from repro_torch.models.attention import _sdpa
+    from repro_torch.models.model import (build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.serving import Engine, Workload, serve
+    label = "cli"
+    runs = {}
+    for name in ("bf16", "f32"):
+        reset_launches()
+        if name == "bf16":
+            fe, st = run_once(cfg, params=params, requests=8, max_new=16,
+                              pool="CXL", device=dev)
+        else:
+            fe = serve(cfg, Workload(requests=8, max_new=16, seed=0),
+                       pool="CXL", params=params, flags=RunFlags(),
+                       max_batch=8, max_len=256, seed=0, device=dev).frontend
+            st = fe.engine.stats
+        eng, got = fe.engine, read_launches()
+        check(eng.flags.attn_bf16_scores == (name == "bf16"),
+              f"{label}: {name} engine flags {eng.flags}")
+        streams = [eng.done[r].out for r in sorted(eng.done)]
+        check(len(streams) == 8 and all(len(t) == 16 for t in streams),
+              f"{label} {name}: not every request emitted 16 tokens")
+        check(got["engram_gather"] == st.decode_steps
+              and got["gated_fuse"] == 2 * (st.prefill_waves
+                                            + st.decode_steps)
+              and st.d2h_pulls == 2 * st.prefill_waves + st.decode_steps,
+              f"{label} {name}: launches {got}, reads {st.d2h_pulls} for "
+              f"{st.prefill_waves} groups and {st.decode_steps} waves")
+        runs[name] = dict(fe=fe, streams=streams, launches=got,
+                          tok_s=st.tokens_per_s)
+        print(f"{label} (a) {name} scores [{smi}]: 8 requests x 16 tokens, "
+              f"{st.prefill_waves} admission group(s), {st.decode_steps} "
+              f"decode waves, K1 {got['engram_gather']}, K2 "
+              f"{got['gated_fuse']} launches, {st.d2h_pulls} reads; "
+              f"{st.tokens_per_s:.2f} tok/s over the drive")
+    prompts = [list(s_.prompt) for s_ in
+               Workload(requests=8, max_new=16, seed=0).build(cfg.vocab_size)]
+    bf, f3 = runs["bf16"]["streams"], runs["f32"]["streams"]
+    # teacher-forced: each prompt's bf16-score stream, both ways
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    toks = torch.zeros((8, 32), dtype=torch.long, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    forced = torch.tensor(bf, device=dev)                 # (8, 16)
+    logits = {}
+    for name, flags in (("bf16", RunFlags(attn_bf16_scores=True)),
+                        ("f32", RunFlags())):
+        lg, state = build_prefill_step(cfg, flags, max_len=256)(
+            params, {"tokens": toks, "lengths": lens})
+        out = [lg]
+        decode = build_decode_step(cfg, flags)
+        for j in range(15):
+            lg, state = decode(params, state, forced[:, j])
+            out.append(lg)
+        logits[name] = torch.stack(out, 1)                 # (8, 16, V)
+    share = ulps_share(logits["bf16"], logits["f32"])
+    worst = (logits["bf16"] - logits["f32"]).abs().max().item()
+    check(share <= 1.0, f"{label}: teacher-forced bf16-score logits "
+          f"{share:.3f} x the tolerance from the f32-score ones")
+    same = sum(a == b for a, b in zip(bf, f3))
+    parts = []
+    for i, (a, b) in enumerate(zip(bf, f3)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        tops = {n: logits[n][i, j].float().topk(2) for n in logits}
+        parts.append(f"prompt {i} at token {j} ({a[j]} against {b[j]}): "
+                     + ", ".join(f"{n} top-2 {t.indices.tolist()} "
+                                 f"{[round(v, 5) for v in t.values.tolist()]}"
+                                 for n, t in tops.items()))
+        break
+    print(f"{label} (a) [{smi}]: teacher-forced logits along the bf16 "
+          f"streams, bf16 against f32 scores: max |diff| {worst:.5f}, "
+          f"{share:.3f} of the tolerance (16 bf16 ulps of |logit| + row "
+          f"RMS); streams equal on {same} of 8 prompts"
+          + (f"; first parting: {parts[0]}" if parts else ""))
+    del logits
+    # (b) 4 steady waves each way, and one layer's decode attention
+    prof = {}
+    for name in ("bf16", "f32"):
+        fe = runs[name]["fe"]
+        prof[name] = profile_waves(fe.engine, fe, prompts,
+                                   label=f"{label} (b) {name} scores")
+    # the score route's own cost: _sdpa over a bf16 cache, one layer
+    B, core = 8, {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    for S in (256, 4096):
+        q = [torch.randn(B, 1, cfg.n_heads, cfg.head_dim, generator=g,
+                         device=dev).to(torch.bfloat16) for _ in range(4)]
+        kv = [[torch.randn(B, S, cfg.n_kv_heads, cfg.head_dim, generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(2)]
+              for _ in range(4)]
+        mask = (torch.arange(S, device=dev) < S - 7)[None, None, :]
+        core[S] = {name: device_ms(
+            lambda q_, k_, v_, _b=bf16: _sdpa(cfg, q_, k_, v_, mask, _b),
+            [(a, *c) for a, c in zip(q, kv)], warmup=2)
+            for name, bf16 in (("bf16", True), ("f32", False))}
+        del q, kv
+    n_attn = cfg.layer_types.count("attn")
+    for name in ("bf16", "f32"):
+        print(f"{label} (b) {name} scores [{smi}]: wave device "
+              f"{prof[name]['dev_ms']:.3f} ms in {prof[name]['ops']:.0f} "
+              f"operations (wall {prof[name]['wall_ms']:.3f} ms); one "
+              f"layer's attention core (_sdpa, B = {B}) "
+              + ", ".join(f"S = {S}: {core[S][name]:.5f} device ms"
+                          for S in core)
+              + f"; at S = 256, x {n_attn} layers "
+              f"{100 * n_attn * core[256][name] / prof[name]['dev_ms']:.1f}"
+              f" % of the wave")
+    print(f"{label} (b) [{smi}]: a layer's K and V cache at B = {B} is "
+          + ", ".join(f"{2 * B * S * cfg.n_kv_heads * cfg.head_dim * 2 / 1e6:.1f}"
+                      f" MB at S = {S}" for S in core)
+          + " in bf16 (counted from the shapes); the f32 route writes and "
+          "reads an f32 copy of K, the bf16 route a bf16 copy; attention "
+          "core device time f32 / bf16 = "
+          + ", ".join(f"{core[S]['f32'] / core[S]['bf16']:.2f} at S = {S}"
+                      for S in core)
+          + " (the reference claims about 7x less decode cache traffic; "
+          "bytes are not measured)")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["bf16"]["launches"]}
+    del runs, fe
+    gc.collect()
+    # (c) chunked admission in groups of 1, 4 and 8 rows
+    rng = np.random.RandomState(21)
+    group = [list(rng.randint(1, cfg.vocab_size, size=40)) for _ in range(8)]
+    eng = Engine(cfg, params=params, pool="CXL", max_batch=8, max_len=512,
+                 prompt_bucket=32, prefill_chunk=16, device=dev)
+    chunk_core, target, first, out = eng._chunk_core, [None], [None], {}
+
+    def recording(p, sub, chunk, lens_):
+        lg, new = chunk_core(p, sub, chunk, lens_)
+        rids = [eng._prefill_jobs[s_].req.rid
+                for s_ in sorted(eng._prefill_jobs)]
+        if target[0] in rids:          # the target's row, till its last chunk
+            first[0] = lg[rids.index(target[0])]
+        return lg, new
+    eng._chunk_core = recording
+    for n in (1, 4, 8):
+        rids = [eng.submit(p, max_new=16) for p in group[:n]]
+        target[0] = rids[0]
+        eng.run()
+        out[n] = (first[0].float(), eng.done[rids[0]].out)
+    base_lg, base_s = out[1]
+    diffs = {n: (lg - base_lg).abs().max().item() for n, (lg, _) in
+             out.items()}
+    same = {n: s_ == base_s for n, (_, s_) in out.items()}
+    print(f"{label} (c) [{smi}]: a 40-token prompt by chunks of 16 in "
+          f"admission groups of 1, 4 and 8 rows: first-token logits max "
+          f"|diff| from the group of 1 {diffs[4]:.6f} (4 rows), "
+          f"{diffs[8]:.6f} (8 rows); streams equal to the group of 1's: "
+          f"{same[4]} (4), {same[8]} (8); top-2 at token 0 "
+          + "; ".join(f"{n} rows {lg.topk(2).indices.tolist()} "
+                      f"{[round(v, 5) for v in lg.topk(2).values.tolist()]}"
+                      for n, (lg, _) in out.items()))
+    del eng
+    return dict(launches=launches, share=share, attn=core, prof=prof,
+                groups=diffs, group_streams_equal=same)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3565,7 +4135,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import (deepseek_v2_236b, deepseek_v3_671b,
-                                     gemma2_27b, gemma3_1b, get_config,
+                                     engram_27b, gemma2_27b, gemma3_1b,
+                                     get_config, internvl2_1b,
                                      jamba_1_5_large_398b, xlstm_125m)
     from repro_torch.kernels.build import build
 
@@ -3594,13 +4165,16 @@ def main() -> int:
     check_agreement(dev)
     check_agreement_chunked(dev)
     check_agreement_spec(dev)
-    check_agreement_overload(dev)
-    check_agreement_tiers(dev)
+    for mod in (engram_27b, jamba_1_5_large_398b, xlstm_125m):
+        check_agreement_overload(dev, mod)
+        check_agreement_tiers(dev, mod)
     check_agreement_fleet(dev)
     check_agreement_models(dev, (gemma2_27b, gemma3_1b), (False, True))
     check_agreement_models(dev, (deepseek_v2_236b, deepseek_v3_671b))
     check_agreement_models(dev, (jamba_1_5_large_398b, xlstm_125m),
                            recurrent=True)
+    check_agreement_models(dev, (internvl2_1b,))
+    check_agreement_frontends(dev)
     params = draw_params(cfg, dev)
     launches, streams, serve7 = serve_full(cfg, params, dev, smi)
     prompts = serve_prompts(cfg)
@@ -3613,6 +4187,15 @@ def main() -> int:
         torch.cuda.empty_cache()  # runtime) before the next one's caches
         for k, n in phase(cfg, params, dev, smi).items():
             launches[k] += n
+
+    # phase 21: the serving CLI's path, bf16 against f32 scores
+    t21 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = serve_cli(cfg, params, dev, smi)
+    for k, n in cli["launches"].items():
+        launches[k] += n
+    print(f"cli: phase 21 took {time.perf_counter() - t21:.1f} s")
 
     # phase 14: the tables in host memory; each model freed before the next
     t14 = time.perf_counter()
@@ -3679,6 +4262,22 @@ def main() -> int:
         launches[k] += n[k]
     print(f"xlstm-125m: phase 18 took {time.perf_counter() - t18:.1f} s")
 
+    # phase 19: hubert-xlarge, the encoder (no kernel of the port)
+    t19 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hub = serve_hubert(dev, smi)
+    print(f"hubert-xlarge: phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    # phase 20: internvl2-1b, the vision stub, its tables in HBM
+    t20 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, k1_vl, k2_vl, vl = serve_internvl(dev, smi)
+    for k in launches:
+        launches[k] += n[k]
+    print(f"internvl2-1b: phase 20 took {time.perf_counter() - t20:.1f} s")
+
     kernels = [
         dict(name="engram_gather", route="cuda",
              source="src/repro_torch/csrc/engram_gather.cu",
@@ -3695,14 +4294,16 @@ def main() -> int:
           "the serve, long-prompt, chunked, spec, overload, tiers, fleet, "
           "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
           "engram-40b), deepseek-v2-236b (9 layers), jamba-1.5-large-398b "
-          "(7 layers), gemma3-1b and xlstm-125m runs; also measured "
+          "(7 layers), gemma3-1b, xlstm-125m, CLI (bf16 and f32 scores) and "
+          "internvl2-1b runs; also measured "
           "(deepseek-v2's MoE layer: ms the grouped-GEMM path, plain_ms "
           "the per-expert loop; host rows: plain_ms is the CPU gather and "
           "library_ms the reference's route, both on the host clock; bound "
           "at PCIe Gen5 x16's nominal 64 GB/s, link_GBps the rate measured "
           "in the run; recurrent layers: ms a decode step at B=8, "
           "prefill_ms a 256-token prefill at B=1, shares of the 16-bf16-ulp "
-          "tolerance): "
+          "tolerance; hubert: the encoder step at B=8; cli: one layer's "
+          "attention core at B=8 over S cached positions, device ms): "
           + json.dumps({"engram_gather_host_2x128_decode_wave":
                         k1_host["wave"],
                         "engram_gather_host_2x512_verify_wave":
@@ -3742,6 +4343,21 @@ def main() -> int:
                         "xlstm_chunked_first_token_share":
                         xl["agree"]["share"],
                         "xlstm_512_ttft_ms": xl["ttft_ms"],
+                        "gated_fuse_d896_T8_internvl": k2_vl[8],
+                        "gated_fuse_d896_T256_internvl": k2_vl[256],
+                        "engram_gather_2x128_internvl": k1_vl,
+                        "internvl_bf16_vs_f32_prefill_share": vl["share"],
+                        "hubert_encoder_B8_S512": hub[512],
+                        "hubert_encoder_B8_S2100": hub[2100],
+                        "hubert_bf16_vs_f32_share": hub["share"],
+                        "hubert_reference_draw_share":
+                        hub["ref_draw_share"],
+                        "hubert_chunked_vs_dense_share":
+                        hub["chunked_share"],
+                        "cli_attention_core_ms": cli["attn"],
+                        "cli_teacher_forced_share": cli["share"],
+                        "cli_chunked_group_first_logit_diff":
+                        cli["groups"],
                         "engram_gather_2x512_verify_wave": k1["spec"],
                         "engram_gather_N128_one_table": k1[16 * 8],
                         "engram_gather_N4096_one_table": k1[16 * 8 * 32],

@@ -2,8 +2,8 @@
 
 A copy of ``repro.configs.base`` (the JAX package's configs), kept here so
 the PyTorch port imports nothing of the JAX package. Values and defaults
-are identical; the parity tests compare the two field by field. Only the
-registry's arch list is narrowed to the archs this port serves.
+are identical; the parity tests compare the two field by field. The
+registry holds every arch the reference registers.
 
 Layer structure is encoded positionally:
   * ``layer_types[i]``  in {"attn", "mamba", "slstm", "mlstm"}
@@ -408,8 +408,8 @@ def _load_all():
         return
     from . import (deepseek_7b, deepseek_coder_33b,  # noqa: F401
                    deepseek_v2_236b, deepseek_v3_671b, engram_27b,
-                   engram_40b, gemma2_27b, gemma3_1b, jamba_1_5_large_398b,
-                   xlstm_125m)
+                   engram_40b, gemma2_27b, gemma3_1b, hubert_xlarge,
+                   internvl2_1b, jamba_1_5_large_398b, xlstm_125m)
     _LOADED = True
 
 

@@ -8,8 +8,21 @@ product in the cache's dtype. A prefill longer than ``chunk_threshold``
 tokens takes ``_chunk_attn``: flash-style two-level chunking with an
 online softmax in f32 that never computes a KV block past the causal
 frontier, nor, on a sliding-window (``local``) layer, one wholly before
-the window. The reference has no attention kernel of its own; these are
-the counterparts of the XLA ops it uses.
+the window. An encoder (``cfg.is_encoder``) attends without the causal
+mask. The reference has no attention kernel of its own; these are the
+counterparts of the XLA ops it uses.
+
+``bf16_scores`` (``RunFlags.attn_bf16_scores``) is the reference's
+``preferred_element_type=f32`` score product: q and k stay in their own
+dtype and the products are summed in f32 into f32 scores, without an f32
+copy of the cache. torch has no ``preferred_element_type``, and a bf16
+``einsum`` rounds its output to bf16. On the card the route is
+``torch.bmm(a, b, out_dtype=torch.float32)`` (``aten::bmm.dtype``: bf16
+operands, f32 accumulation and output; it raises where torch lacks it).
+On the CPU, where ``aten::bmm.dtype`` has no kernel, the operands are
+upcast to f32 first: a product of two bf16 numbers is exact in f32, so
+this is the same sum, the plain route and not a fallback. The route is
+picked from the operands' device.
 """
 from __future__ import annotations
 
@@ -76,15 +89,32 @@ def _mask(qpos, kpos, *, causal: bool, window: int = 0):
     return m
 
 
-def _sdpa(cfg: ModelConfig, q, k, v, mask):
+def f32_bmm(a, b):
+    """``a @ b`` over a batch, (N, M, K) x (N, K, P) -> f32 (N, M, P),
+    summed in f32 from operands of any float dtype (see the module
+    docstring for the two routes)."""
+    if a.device.type == "cpu":
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask, bf16_scores: bool = False):
     """Dense grouped attention. q: (B,Q,Hq,D) k/v: (B,K,Hkv,D), mask
-    broadcastable to (B,Q,K)."""
+    broadcastable to (B,Q,K). ``bf16_scores``: the score product from q
+    and k in their own dtype, summed in f32 (``f32_bmm``)."""
     B, Q, hq, hd = q.shape
-    hkv, hd_v = k.shape[2], v.shape[-1]
+    K, hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     qg = q.reshape(B, Q, hkv, g, hd)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / math.sqrt(hd)
+    if bf16_scores:
+        # (B*hkv, g*Q, D) @ (B*hkv, D, K): the einsum's own batching; the
+        # permute copies K (the cache is laid out (B, S, Hkv, D))
+        qb = qg.permute(0, 2, 3, 1, 4).reshape(B * hkv, g * Q, hd)
+        kb = k.permute(0, 2, 3, 1).reshape(B * hkv, hd, K)
+        scores = f32_bmm(qb, kb).view(B, hkv, g, Q, K) / math.sqrt(hd)
+    else:
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              k.float()) / math.sqrt(hd)
     scores = softcap(scores, cfg.attn_logit_softcap)
     while mask.ndim < scores.ndim:
         mask = mask[:, None]
@@ -94,17 +124,21 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     return out.reshape(B, Q, hq, hd_v)
 
 
-def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *, window: int = 0,
-                q_chunk: int = 1024, kv_chunk: int = 1024):
-    """Causal attention in (q chunk, kv chunk) blocks with a running max
-    and sum per query (the online softmax), all in f32. KV blocks past a
-    q chunk's causal frontier are skipped, and with ``window`` so are the
-    blocks below ``lo = max(0, (i*q_chunk - window) // kv_chunk)`` (the
+def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
+                causal: bool = True, window: int = 0, q_chunk: int = 1024,
+                kv_chunk: int = 1024):
+    """Attention in (q chunk, kv chunk) blocks with a running max and sum
+    per query (the online softmax), all in f32. With ``causal`` KV blocks
+    past a q chunk's causal frontier are skipped (without it the frontier
+    is the last block, ``nk``), and with ``window`` so are the blocks
+    below ``lo = max(0, (i*q_chunk - window) // kv_chunk)`` (the
     reference's static window frontier; the mask still applies inside the
     blocks computed). ``_chunk_attn.window_skipped`` counts the blocks the
-    window skipped. Padded query positions are -1 (they attend nothing and
-    are sliced off); padded key positions are 2**30 (no query reaches
-    them)."""
+    window skipped. Padded query positions are -1 (they are sliced off);
+    padded key positions are 2**30: the causal mask excludes them, and
+    without it a validity mask over the real keys does. (The reference's
+    non-causal path lets them into the softmax, ROADMAP F12.)
+    """
     B, S, hq, hd = q.shape
     hkv, hd_v = k.shape[2], v.shape[-1]
     g = hq // hkv
@@ -125,7 +159,7 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *, window: int = 0,
         qs = slice(i * q_chunk, (i + 1) * q_chunk)
         qi = q[:, qs].reshape(B, q_chunk, hkv, g, hd).float()
         # the causal KV frontier of this q chunk, and the window's
-        hi = min(nk, -(-((i + 1) * q_chunk) // kv_chunk))
+        hi = min(nk, -(-((i + 1) * q_chunk) // kv_chunk)) if causal else nk
         lo = max(0, (i * q_chunk - window) // kv_chunk) if window > 0 else 0
         _chunk_attn.window_skipped += lo
         m_run = torch.full((B, hkv, g, q_chunk), NEG_INF, device=q.device)
@@ -136,8 +170,10 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *, window: int = 0,
             s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
                              k[:, ks].float()) * scale
             s = softcap(s, cfg.attn_logit_softcap)
-            s = torch.where(_mask(qpos[qs], kpos[ks], causal=True,
-                                  window=window), s, NEG_INF)
+            valid = _mask(qpos[qs], kpos[ks], causal=causal, window=window)
+            if not causal:
+                valid &= kpos[ks] < 2 ** 30          # the pad keys
+            s = torch.where(valid, s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(dim=-1))
             alpha = torch.exp(m_run - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -156,25 +192,29 @@ _chunk_attn.window_skipped = 0
 
 def attention(cfg: ModelConfig, params, h, positions, kind: str = "global",
               *, q_chunk: int = 1024, kv_chunk: int = 1024,
-              chunk_threshold: int = 2048):
-    """Prefill attention. h (B,S,d), positions (S,). Returns (out, kv).
-    ``local`` layers attend within ``cfg.window_size``. More than
-    ``chunk_threshold`` tokens take ``_chunk_attn``."""
+              chunk_threshold: int = 2048, bf16_scores: bool = False):
+    """Prefill (or encoder) attention. h (B,S,d), positions (S,). Returns
+    (out, kv). ``local`` layers attend within ``cfg.window_size``; an
+    encoder attends every position. More than ``chunk_threshold`` tokens
+    take ``_chunk_attn`` (f32 scores either way, as in the reference)."""
     B, S, _ = h.shape
     q, k, v = _qkv(cfg, params, h, positions, kind)
+    causal = not cfg.is_encoder
     window = _window(cfg, kind)
     if S <= chunk_threshold:
-        mask = _mask(positions, positions, causal=True, window=window)[None]
-        out = _sdpa(cfg, q, k, v, mask)
+        mask = _mask(positions, positions, causal=causal,
+                     window=window)[None]
+        out = _sdpa(cfg, q, k, v, mask, bf16_scores)
     else:
-        out = _chunk_attn(cfg, q, k, v, positions, positions, window=window,
-                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out = _chunk_attn(cfg, q, k, v, positions, positions, causal=causal,
+                          window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], {"k": k, "v": v}
 
 
 def decode_attention(cfg: ModelConfig, params, h, cache, positions,
-                     kind: str = "global", *, window_slice: bool = False):
+                     kind: str = "global", *, bf16_scores: bool = False,
+                     window_slice: bool = False):
     """Single-token decode. h (B,1,d); cache {k,v}: (B,Smax,Hkv,D);
     positions (B,) current index per sequence. Returns (out, cache).
 
@@ -186,7 +226,7 @@ def decode_attention(cfg: ModelConfig, params, h, cache, positions,
     ``window_slice``: a ``local`` layer attends a gathered window-sized
     slice of the cache (rows ``start .. start + w - 1``, ``start`` clamped
     into the cache) instead of masking the whole context; the gather's
-    indices stay on the device."""
+    indices stay on the device. ``bf16_scores``: see ``_sdpa``."""
     B = h.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(cfg, params, h, positions[:, None], kind)
@@ -210,7 +250,7 @@ def decode_attention(cfg: ModelConfig, params, h, cache, positions,
         valid = kpos <= positions[:, None]
         if window > 0:
             valid &= kpos > positions[:, None] - window
-    out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :])
+    out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :], bf16_scores)
     out = out.reshape(B, 1, hq * hd)
     return out @ params["wo"], cache
 

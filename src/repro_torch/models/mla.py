@@ -9,6 +9,10 @@ take the score scale from the query's width, 1/sqrt(192). Decode is the
 (rope) per token, ``W_uk`` is folded into the query and ``W_uv`` into the
 output, and the scores are f32 over the latent cache, masked with
 ``NEG_INF``. RoPE is the half-split form on the rope dimensions only.
+With ``bf16_scores`` both paths take the reference's
+``preferred_element_type=f32`` products (``attention.f32_bmm``): decode
+reads the latent cache in its own dtype, for the scores and for the
+latent output, where the f32 path reads an f32 copy of it.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import NEG_INF, _chunk_attn, _mask, _sdpa
+from .attention import NEG_INF, _chunk_attn, _mask, _sdpa, f32_bmm
 from .layers import apply_rope, rmsnorm
 from .params import pd
 
@@ -62,7 +66,8 @@ def _latents(cfg: ModelConfig, params, h, positions):
 
 def mla_attention(cfg: ModelConfig, params, h, positions,
                   kind: str = "global", *, q_chunk: int = 1024,
-                  kv_chunk: int = 1024, chunk_threshold: int = 2048):
+                  kv_chunk: int = 1024, chunk_threshold: int = 2048,
+                  bf16_scores: bool = False):
     """Prefill. h (B,S,d), positions (S,). Returns (out, {c_kv, k_rope})."""
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = h.shape
@@ -74,7 +79,7 @@ def mla_attention(cfg: ModelConfig, params, h, positions,
     q = torch.cat([q_nope, q_rope], dim=-1)
     if S <= chunk_threshold:
         mask = _mask(positions, positions, causal=True)[None]
-        out = _sdpa(cfg, q, k, v, mask)
+        out = _sdpa(cfg, q, k, v, mask, bf16_scores)
     else:
         out = _chunk_attn(cfg, q, k, v, positions, positions,
                           q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -82,7 +87,8 @@ def mla_attention(cfg: ModelConfig, params, h, positions,
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
 
 
-def mla_decode(cfg: ModelConfig, params, h, cache, positions):
+def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
+               bf16_scores: bool = False):
     """Absorbed single-token decode. h (B,1,d); cache c_kv (B,Smax,kv_lora)
     and k_rope (B,Smax,rope); positions (B,). The new latent rows are
     written INTO the cache at each row's position, clamped to the last row
@@ -104,14 +110,22 @@ def mla_decode(cfg: ModelConfig, params, h, cache, positions):
     ckv[rows, at] = c_new[:, 0].to(ckv.dtype)
     krp[rows, at] = kr_new[:, 0, 0].to(krp.dtype)
 
-    ckv32 = ckv.float()
-    s_lat = torch.einsum("bshl,bSl->bhsS", q_lat.float(), ckv32)
-    s_rope = torch.einsum("bshr,bSr->bhsS", q_rope.float(), krp.float())
+    if bf16_scores:
+        # batch B: (H, R) @ (R, S) over the cache's own strides
+        s_lat = f32_bmm(q_lat[:, 0], ckv.transpose(1, 2))[:, :, None]
+        s_rope = f32_bmm(q_rope[:, 0], krp.transpose(1, 2))[:, :, None]
+    else:
+        ckv32 = ckv.float()
+        s_lat = torch.einsum("bshl,bSl->bhsS", q_lat.float(), ckv32)
+        s_rope = torch.einsum("bshr,bSr->bhsS", q_rope.float(), krp.float())
     scores = (s_lat + s_rope) * (1.0 / math.sqrt(nope + rope))
     valid = torch.arange(S, device=h.device)[None] <= positions[:, None]
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    out_lat = torch.einsum("bhsS,bSl->bshl", p, ckv32)
+    if bf16_scores:
+        out_lat = f32_bmm(p[:, :, 0].to(ckv.dtype), ckv)[:, None]
+    else:
+        out_lat = torch.einsum("bhsS,bSl->bshl", p, ckv32)
     wuv = params["wuv"].reshape(R, H, m.v_head_dim)
     out = torch.einsum("bshl,lhv->bshv", out_lat.to(h.dtype), wuv)
     out = out.reshape(B, 1, H * m.v_head_dim) @ params["wo"]

@@ -1,5 +1,5 @@
-"""Full model: embedding -> Engram-segmented stack -> f32 head (PyTorch port
-of ``repro.models.model``).
+"""Full model: frontends -> embedding -> Engram-segmented stack -> f32 head
+(PyTorch port of ``repro.models.model``).
 
 Step builders, as in the reference:
 
@@ -17,6 +17,15 @@ into the hidden state through the gated_fuse kernel (K2).
   build_multitoken_decode(cfg, flags, external_rows)
                                             (params, state, block[, rows])
                                               -> (logits, state, snapshots)
+  build_encoder_step(cfg, flags)           (params, batch) -> logits (B,S,V)
+
+The stub frontends: an audio encoder's batch carries ``frames`` (B, S,
+frontend_dim), normed and projected in place of the token embedding; a
+vision model's may carry ``patches`` (B, P, frontend_dim), normed,
+projected and written over positions [0, P) of the token embedding. An
+encoder has no prefill or decode step: ``build_prefill_step``,
+``build_decode_step``, ``build_multitoken_decode`` and
+``build_chunk_prefill`` raise ``ValueError`` for it.
 
 Decode updates the state's KV caches in place (see
 ``attention.decode_attention``); recurrent cache leaves (Mamba, xLSTM),
@@ -34,14 +43,13 @@ from ..core.hashing import (decode_engram_indices, engram_indices,
                             update_last_tokens)
 from .layers import (embed_defs, embed_lookup, head_defs, head_logits,
                      rmsnorm, rmsnorm_defs, scale_embeddings)
-from .params import DTYPES, init_params  # noqa: F401  (re-exported)
-from .transformer import (RunFlags, apply_segment, check_supported,
-                          init_segment_cache, segment_defs, segment_plan)
+from .params import DTYPES, init_params, pd  # noqa: F401  (re-exported)
+from .transformer import (RunFlags, apply_segment, init_segment_cache,
+                          segment_defs, segment_plan)
 
 
 def model_defs(cfg: ModelConfig, dtype: str | None = None):
     """Parameter shapes: per-segment lists of per-layer block defs."""
-    check_supported(cfg)
     dtype = dtype or cfg.dtype
     defs = {
         "embed": embed_defs(cfg.vocab_size, cfg.d_model, dtype),
@@ -51,6 +59,11 @@ def model_defs(cfg: ModelConfig, dtype: str | None = None):
     }
     if not cfg.tie_embeddings:
         defs["head"] = head_defs(cfg.vocab_size, cfg.d_model, dtype)
+    if cfg.frontend is not None:
+        defs["frontend"] = {
+            "proj": pd(cfg.frontend_dim, cfg.d_model, dtype=dtype),
+            "norm": rmsnorm_defs(cfg.frontend_dim),
+        }
     if cfg.engram is not None and cfg.engram.enabled and cfg.engram_layers():
         defs["engram"] = engram_defs(cfg, dtype)
     return defs
@@ -62,16 +75,39 @@ def _engram_rows_all_layers(cfg: ModelConfig, flags: RunFlags, params, idx):
             for layer in params["engram"]["layers"]]
 
 
+def _project(cfg: ModelConfig, params, x):
+    """A frontend's features x (..., frontend_dim), RMS-normed and
+    projected to d_model, in JAX's promoted dtype of x and the projection
+    (f32 features and a bf16 projection give f32)."""
+    p = params["frontend"]
+    dt = torch.promote_types(x.dtype, p["proj"].dtype)
+    return rmsnorm(p["norm"], x, cfg.norm_eps).to(dt) @ p["proj"].to(dt)
+
+
+def embed_inputs(cfg: ModelConfig, params, batch):
+    """batch: tokens (B,S) [+ frames (B,S,fe) audio | patches (B,P,fe)
+    vision]. Audio frames replace the token embedding; vision patches
+    overwrite positions [0, P) when the batch carries them. The embedding
+    scale applies after either, then the config's dtype."""
+    if cfg.frontend == "audio":
+        h = _project(cfg, params, batch["frames"])
+    else:
+        h = embed_lookup(params["embed"], batch["tokens"])
+        if cfg.frontend == "vision" and "patches" in batch:
+            pe = _project(cfg, params, batch["patches"]).to(h.dtype)
+            h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+    if cfg.scale_embeddings:
+        h = scale_embeddings(h, cfg.d_model)
+    return h.to(DTYPES[cfg.dtype])
+
+
 def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
             positions=None, caches=None, engram_rows=None):
     """Shared forward. Returns (h_final, new_caches).
 
-    mode prefill: positions (S,) default arange; decode: (B,)."""
-    tokens = batch["tokens"]
-    h = embed_lookup(params["embed"], tokens)
-    if cfg.scale_embeddings:
-        h = scale_embeddings(h, cfg.d_model)
-    h = h.to(DTYPES[cfg.dtype])
+    mode train (the encoder) or prefill: positions (S,) default arange;
+    decode: (B,)."""
+    h = embed_inputs(cfg, params, batch)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
 
@@ -81,7 +117,8 @@ def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
             rows = engram_rows
         else:
             rows = _engram_rows_all_layers(
-                cfg, flags, params, engram_indices(cfg.engram, tokens))
+                cfg, flags, params,
+                engram_indices(cfg.engram, batch["tokens"]))
 
     new_caches = []
     for si, seg in enumerate(segment_plan(cfg)):
@@ -136,9 +173,18 @@ def _pad_caches_to(caches, max_len: int):
               for n, t in c.items()} for c in seg] for seg in caches]
 
 
+def _no_encoder(cfg: ModelConfig) -> None:
+    """The reference asserts it in every ``build_*`` function but
+    ``build_encoder_step``."""
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name} is an encoder: it has no prefill or "
+                         f"decode step (build_encoder_step)")
+
+
 def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):
-    """(params, batch{tokens, [lengths]}) -> (last_logits, state)."""
-    check_supported(cfg)
+    """(params, batch{tokens, [lengths], [patches]}) -> (last_logits,
+    state)."""
+    _no_encoder(cfg)
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
@@ -193,7 +239,7 @@ def build_decode_step(cfg: ModelConfig, flags: RunFlags,
 
     ``external_rows=True`` takes the Engram rows as an argument — the
     serving engine's prefetch path."""
-    check_supported(cfg)
+    _no_encoder(cfg)
     if external_rows:
         return lambda params, state, token, rows: _decode_one(
             cfg, flags, params, state, token, rows)
@@ -218,7 +264,7 @@ def build_multitoken_decode(cfg: ModelConfig, flags: RunFlags,
     ``external_rows=True``: per-layer rows for the WHOLE block,
     (B, m, orders*emb) each (the engine's speculated-window prefetch);
     step s takes ``r[:, s:s+1]``."""
-    check_supported(cfg)
+    _no_encoder(cfg)
     from ..serving.slots import snapshot_recurrent
 
     def multitoken_step(params, state, block, rows=None):
@@ -251,7 +297,7 @@ def build_chunk_prefill(cfg: ModelConfig, flags: RunFlags):
     last valid step's, which for a prompt's final chunk are the prefill
     logits its first token is sampled from. The caches are written in
     place."""
-    check_supported(cfg)
+    _no_encoder(cfg)
     from ..serving.slots import gate_state
 
     def chunk_step(params, state, chunk, lens):
@@ -266,3 +312,12 @@ def build_chunk_prefill(cfg: ModelConfig, flags: RunFlags):
         return logits_keep, st
 
     return chunk_step
+
+
+def build_encoder_step(cfg: ModelConfig, flags: RunFlags):
+    """Encoder forward: (params, batch) -> logits (B,S,V), f32."""
+    def encoder_step(params, batch):
+        h, _ = forward(cfg, flags, params, batch, "train")
+        return head_logits(_head_params(cfg, params), h,
+                           cfg.final_logit_softcap, cfg.tie_embeddings)
+    return encoder_step

@@ -120,13 +120,26 @@ def to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def table_memory_for(cfg, flags=None) -> str | None:
+    """Where a run keeps its Engram tables, from the retrieval strategy it
+    takes (``flags.engram_strategy``, else the config's): ``"pinned_host"``
+    (pinned, device-mapped host memory) for ``pooled_host``, None (the
+    parameters' device) for every other. Callers pass its answer to
+    ``init_params(table_memory=)``, and ``serving.Engine`` refuses tables
+    placed otherwise."""
+    strategy = getattr(flags, "engram_strategy", None) or (
+        cfg.engram.strategy if cfg.engram is not None else None)
+    return "pinned_host" if strategy == "pooled_host" else None
+
+
 def init_params(cfg, seed: int = 0, device=None, dtype=None,
                 table_memory: str | None = None, host_tables=None):
     """Seeded random parameters for ``cfg`` drawn on ``device`` (the card
     unless the caller passes ``device="cpu"``), in ``dtype`` (default
     ``cfg.dtype``; norm scales stay f32 as in the reference).
 
-    ``table_memory="pinned_host"`` puts every Engram layer's tables in
+    ``table_memory`` is ``table_memory_for``'s answer for the run:
+    ``"pinned_host"`` puts every Engram layer's tables in
     pinned, device-mapped host memory (the ``pooled_host`` strategy's
     placement): each is still drawn on the card, chunk by chunk in the
     same generator order, and copied down, so its bytes equal a plain

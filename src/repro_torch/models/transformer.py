@@ -13,8 +13,8 @@ norms, softcaps) or MLA (``attn_impl="mla"``), and the recurrent ``mamba``,
 FFN, a ``moe`` FFN, or none (``"none"``, xLSTM). A layer's cache is its
 mixer's: positional KV for attention, recurrent state (``conv``/``ssm``;
 ``conv``/``C``/``n``/``m``; ``conv``/``c``/``n``/``h``/``m``) for the
-others. ``check_supported`` names the ROADMAP item for the encoder and the
-frontends.
+others. An encoder (``cfg.is_encoder``) runs the same blocks in
+``train`` mode, attention without the causal mask.
 """
 from __future__ import annotations
 
@@ -40,16 +40,12 @@ class RunFlags:
     q_chunk: int = 1024
     kv_chunk: int = 1024
     chunk_threshold: int = 2048
+    # score products from bf16 q/k (or latents) summed in f32, without f32
+    # copies of the KV cache (attention.f32_bmm)
+    attn_bf16_scores: bool = False
     # local layers: slice the cache to the window during decode instead of
     # masking the full context
     decode_window_slice: bool = False
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any config feature outside this slice of the port."""
-    if cfg.is_encoder or cfg.frontend is not None:
-        raise NotImplementedError(
-            "encoder/frontend archs: ROADMAP queue 1, item 8.6")
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:
@@ -140,7 +136,8 @@ def segment_defs(cfg: ModelConfig, seg: Segment, dtype: str) -> list:
 
 def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
                 positions, cache, mode: str):
-    """Layer ``i``'s block. mode: prefill | decode. Returns (h, cache);
+    """Layer ``i``'s block. mode: train (the encoder) | prefill | decode.
+    Returns (h, cache);
     a MoE FFN's aux loss is dropped (serving has no use for it). A
     recurrent mixer's prefill starts from zero state (``cache`` None), its
     decode from ``cache``; both are one call over the token axis."""
@@ -151,15 +148,18 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
         out, new_cache = _RECURRENT[t](cfg, params["mixer"], pre, cache)
     elif mode == "decode" and mla:
         out, new_cache = mla_decode(cfg, params["mixer"], pre, cache,
-                                    positions)
+                                    positions,
+                                    bf16_scores=flags.attn_bf16_scores)
     elif mode == "decode":
         out, new_cache = decode_attention(
             cfg, params["mixer"], pre, cache, positions, kind,
+            bf16_scores=flags.attn_bf16_scores,
             window_slice=flags.decode_window_slice)
     else:
         out, new_cache = (mla_attention if mla else attention)(
             cfg, params["mixer"], pre, positions, kind, q_chunk=flags.q_chunk,
-            kv_chunk=flags.kv_chunk, chunk_threshold=flags.chunk_threshold)
+            kv_chunk=flags.kv_chunk, chunk_threshold=flags.chunk_threshold,
+            bf16_scores=flags.attn_bf16_scores)
     if cfg.post_block_norm:
         out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
     h = h + out

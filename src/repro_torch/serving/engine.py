@@ -34,13 +34,15 @@ materialises every Engram layer's rows in one engram_gather (K1) launch
 chunk waves and prefill groups retrieve by plain indexing. Every forward
 fuses the rows through the gated_fuse kernel (K2).
 
-Table placement: with ``RunFlags(engram_strategy="pooled_host")`` on the
-card the Engram tables live in pinned, device-mapped host memory
-(``init_params(..., table_memory="pinned_host")`` or ``tables_to_host``),
-and every retrieval, pool-mode waves, prefill groups, chunk waves and
-``pool=None`` decode alike, is a K1 launch that reads its rows in place
-over the host link; the weights and KV stay on the card. The engine checks
-that placement and strategy agree and raises otherwise.
+Table placement: with ``RunFlags(engram_strategy="pooled_host")`` (or a
+config whose strategy it is) on the card the Engram tables live in pinned,
+device-mapped host memory (``models.params.table_memory_for`` decides;
+``init_params(table_memory=table_memory_for(cfg, flags))`` draws them
+there, ``tables_to_host`` moves them), and every retrieval, pool-mode
+waves, prefill groups, chunk waves and ``pool=None`` decode alike, is a K1
+launch that reads its rows in place over the host link; the weights and
+KV stay on the card. The engine checks that placement and strategy agree
+and raises otherwise.
 
 Single-sync waves, as in the reference: the host reads the device through
 ``_host`` only, once per admission group (first tokens | the group's
@@ -104,7 +106,8 @@ from ..models.layers import with_f32_head
 from ..models.model import (build_chunk_prefill, build_decode_step,
                             build_prefill_step, init_decode_state,
                             init_params)
-from ..models.transformer import RunFlags, check_supported
+from ..models.params import table_memory_for
+from ..models.transformer import RunFlags
 from ..pool.kvpool import KVPagePool, PoolArbiter
 from ..pool.scheduler import PrefetchScheduler
 from ..pool.store import (TableFetcher, fetch_layers, make_store,
@@ -327,7 +330,8 @@ class Engine:
         """``device``: where the model runs — the CUDA device unless the
         caller passes ``device="cpu"``; with no CUDA device and no
         ``device`` this raises. ``params``: a parameter tree on that device
-        (default: ``init_params(cfg, seed, device)``).
+        (default: ``init_params`` with ``table_memory_for(cfg, flags)``, the
+        Engram tables where the strategy puts them).
 
         ``emulate_step_s``: evaluate pool stalls at a production operating
         point instead of this host's step times (stalls are accounted in
@@ -367,7 +371,6 @@ class Engine:
         Neither composes with ``spec``, and idle spill needs monolithic
         admission. ``arbiter``: a ``PoolArbiter`` that books KV transfers
         page by page and caps their hot-row cache occupancy."""
-        check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.name = name
@@ -381,7 +384,8 @@ class Engine:
         self.clock = clock if clock is not None else VirtualClock()
         self.cursor = self.clock.cursor(name if name else "engine")
         if params is None:
-            params = init_params(cfg, seed, self.device)
+            params = init_params(cfg, seed, self.device,
+                                 table_memory=table_memory_for(cfg, flags))
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
                              f"the engine runs on {self.device}")
@@ -510,12 +514,13 @@ class Engine:
         self._spilled: dict[int, _SpilledReq] = {}
 
     def _check_tables(self) -> None:
-        """The Engram tables' placement must agree with the strategy: on
+        """The Engram tables' placement must be ``table_memory_for``'s: on
         the card, ``pooled_host`` reads tables in pinned, mapped host
         memory and every other strategy tables on the card; on the CPU
         everything is on the CPU. Anything else raises (nothing is copied
         to make it fit)."""
         strategy = self.flags.engram_strategy or self.cfg.engram.strategy
+        host = table_memory_for(self.cfg, self.flags) == "pinned_host"
         dev = self.device
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -523,7 +528,7 @@ class Engine:
             t = layer["tables"]
             if dev.type == "cpu":
                 ok = t.device.type == "cpu"
-            elif strategy == "pooled_host":
+            elif host:
                 ok = is_mapped(t)
             else:
                 ok = t.device == dev
@@ -534,9 +539,9 @@ class Engine:
                     f"Engram layer {j}'s tables live in {where}, the engine "
                     f"runs on {self.device} with strategy {strategy!r}: on "
                     f"the card, pooled_host reads tables in pinned, mapped "
-                    f"host memory (init_params(table_memory='pinned_host') "
-                    f"or tables_to_host) and every other strategy tables "
-                    f"on the card")
+                    f"host memory (init_params(table_memory='pinned_host') or "
+                    f"tables_to_host) and every other strategy tables on "
+                    f"the card")
 
     # ------------------------------------------------------------ public API
 

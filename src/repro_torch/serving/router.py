@@ -42,7 +42,7 @@ import numpy as np
 from ..core.hashing import host_engram_indices
 from ..device import resolve_device
 from ..models.layers import with_f32_head
-from ..models.params import init_params
+from ..models.params import init_params, table_memory_for
 from ..pool.cache import (PrefixCacheStats, PrefixKVCache, SharedCache,
                           SharedCacheStats, TinyLFUAdmission)
 from ..pool.kvpool import KVPagePool, KVPoolStats, PoolArbiter
@@ -229,8 +229,9 @@ class Router:
         ``arbiter``: the KV-vs-Engram ``PoolArbiter``, also fleet-wide.
 
         ``params``: one parameter tree on the engines' device (default:
-        ``init_params(cfg, seed, device)``), shared by every replica;
-        ``device`` and the other engine kwargs reach every ``Engine``."""
+        ``init_params`` with ``table_memory_for(cfg, flags)``), shared by
+        every replica; ``device`` and the other engine kwargs reach every
+        ``Engine``."""
         assert replicas >= 1, replicas
         assert policy in POLICIES, (policy, POLICIES)
         self.cfg = cfg
@@ -289,8 +290,9 @@ class Router:
             if shared_prefix_cache:
                 self.prefix_cache = PrefixKVCache(prefix_cache_bytes, chunk)
         if params is None:
-            params = init_params(cfg, seed,
-                                 resolve_device(engine_kwargs.get("device")))
+            params = init_params(
+                cfg, seed, resolve_device(engine_kwargs.get("device")),
+                table_memory=table_memory_for(cfg, engine_kwargs.get("flags")))
         # one f32 head for the fleet: each Engine keeps a w32 it is given
         params = with_f32_head(params)
         self.replicas: list[EngramRuntime] = []

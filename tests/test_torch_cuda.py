@@ -765,3 +765,57 @@ def test_recurrent_engine_card_equals_cpu(name):
                      dataclasses.asdict(eng.prefix_cache.stats())))
     assert seen[0] == seen[1]
     assert seen[1][1] == seen[1][2] and seen[1][3] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 7, 128, 513), (8, 40, 512, 256)])
+def test_f32_bmm_route_on_the_card(shape):
+    """``attention.f32_bmm`` on bf16 operands: ``aten::bmm.dtype`` on the
+    card (f32 accumulation and output) against the CPU route (upcast, f32
+    bmm) within f32 summation order; a transposed operand takes the same
+    route, and a bf16 ``bmm`` would round the output to bf16."""
+    from repro_torch.models.attention import f32_bmm
+    dev = _card()
+    n, m, k, p = shape
+    a = torch.randn(n, m, k).bfloat16()
+    b = torch.randn(n, p, k).bfloat16().transpose(1, 2)
+    want = f32_bmm(a, b)
+    got = f32_bmm(a.to(dev), b.to(dev))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    rounded = torch.bmm(a.to(dev), b.to(dev)).float().cpu()
+    assert (rounded - want).abs().max() > (got.cpu() - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hubert_xlarge", "internvl2_1b"])
+def test_frontends_card_equal_cpu(name):
+    """Reduced hubert-xlarge's encoder logits (dense and chunked past 3
+    pad keys) and reduced internvl2-1b's prefill with its patch tokens
+    and with ``attn_bf16_scores``, card against CPU (f32)."""
+    import importlib
+    from repro_torch.models.model import (build_encoder_step,
+                                          build_prefill_step, init_params)
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import RunFlags
+    dev = _card()
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").reduced()
+    params = init_params(cfg, 0, "cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    gen = torch.Generator().manual_seed(3)
+    if cfg.is_encoder:
+        batch = {"frames": torch.randn(2, 21, cfg.frontend_dim,
+                                       generator=gen)}
+        steps = [build_encoder_step(cfg, RunFlags(**kw)) for kw in
+                 ({}, dict(chunk_threshold=8, q_chunk=8, kv_chunk=8))]
+    else:
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 16),
+                                         generator=gen),
+                 "patches": torch.randn(2, cfg.n_patch_tokens,
+                                        cfg.frontend_dim, generator=gen)}
+        steps = [lambda p, b, _s=build_prefill_step(cfg, RunFlags(**kw)):
+                 _s(p, b)[0] for kw in ({}, dict(attn_bf16_scores=True))]
+    for step in steps:
+        want = step(params, batch)
+        got = step(on_card, tree_map(lambda t: t.to(dev), batch))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -303,7 +303,9 @@ def test_port_imports_nothing_of_jax():
         "assert 'repro_torch.spec.verifier' in sys.modules\n"
         "for m in ('pool.cost', 'pool.kvpool', 'pool.tierchain', "
         "'pool.fabric', 'serving.slo', 'serving.router', 'serving.api', "
-        "'serving.workload', 'pool.feasibility', 'pool.simulator'):\n"
+        "'serving.workload', 'pool.feasibility', 'pool.simulator', "
+        "'launch.serve', 'launch.train', 'examples.serve_pooled', "
+        "'examples.serve_router'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -46,8 +46,7 @@ from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.layers import scale_embeddings  # noqa: E402
 from repro_torch.models.layers import with_f32_head  # noqa: E402
 from repro_torch.models.params import from_jax  # noqa: E402
-from repro_torch.models.transformer import (RunFlags,  # noqa: E402
-                                            check_supported, segment_plan)
+from repro_torch.models.transformer import RunFlags, segment_plan  # noqa: E402,E501
 from repro_torch.pool.cache import PrefixKVCache  # noqa: E402
 from repro_torch.serving import Engine, Router  # noqa: E402
 
@@ -87,7 +86,7 @@ def bridged():
 def test_configs_identical(name, size):
     """Field by field, with the same parameter count, Engram layers and
     segment plan (gemma2: prefix 1 and period 2 tails; gemma3: a prefix-3
-    period-6 tail), and admitted by ``check_supported``."""
+    period-6 tail), and its parameter defs build."""
     mod, ref_mod = MODULES[name]
     cfg, rcfg = getattr(mod, size)(), getattr(ref_mod, size)()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
@@ -95,7 +94,7 @@ def test_configs_identical(name, size):
     assert cfg.engram_layers() == rcfg.engram_layers()
     assert [dataclasses.astuple(s) for s in segment_plan(cfg)] == \
         [dataclasses.astuple(s) for s in ref_transformer.segment_plan(rcfg)]
-    check_supported(cfg)
+    port_model.model_defs(cfg)
     if size == "full":
         assert configs.get_config(name) == cfg
 

@@ -98,7 +98,7 @@ def test_full_width_shapes():
     assert port_engram.padded_vocab(c33.engram) == 2_265_088
     assert port_engram.padded_vocab(e40.engram) == 7_241_728
     for cfg in (c33, e40):
-        port_model.model_defs(cfg)                 # check_supported passes
+        port_model.model_defs(cfg)
 
 
 # ---------------------------------------------------------------- retrieval

@@ -38,8 +38,7 @@ from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.layers import head_logits  # noqa: E402
 from repro_torch.models.params import (from_jax, init_params,  # noqa: E402
                                        pd, tree_init, tree_leaves, tree_map)
-from repro_torch.models.transformer import (RunFlags,  # noqa: E402
-                                            check_supported, segment_plan)
+from repro_torch.models.transformer import RunFlags, segment_plan  # noqa: E402,E501
 
 torch.set_num_threads(2)
 
@@ -90,7 +89,7 @@ def _cache(cfg, rng, B):
 @pytest.mark.parametrize("size", ["full", "reduced"])
 def test_configs_identical(size):
     """Field by field, with the reference's parameter counts, Engram
-    layers and segment plan, and admitted by ``check_supported``."""
+    layers and segment plan, and its parameter defs build."""
     cfg, rcfg = getattr(jamba, size)(), getattr(ref_jamba, size)()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     assert cfg.param_count() == rcfg.param_count()
@@ -98,7 +97,7 @@ def test_configs_identical(size):
     assert cfg.engram_layers() == rcfg.engram_layers()
     assert [dataclasses.astuple(s) for s in segment_plan(cfg)] == \
         [dataclasses.astuple(s) for s in ref_transformer.segment_plan(rcfg)]
-    check_supported(cfg)
+    port_model.model_defs(cfg)
     if size == "full":
         assert configs.get_config("jamba-1.5-large-398b") == cfg
 

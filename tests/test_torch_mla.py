@@ -39,8 +39,7 @@ from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.layers import head_logits  # noqa: E402
 from repro_torch.models.params import (from_jax, init_params,  # noqa: E402
                                        to_torch, tree_leaves, tree_map)
-from repro_torch.models.transformer import (RunFlags,  # noqa: E402
-                                            check_supported, segment_plan)
+from repro_torch.models.transformer import RunFlags, segment_plan  # noqa: E402,E501
 from repro_torch.serving import slots as port_slots  # noqa: E402
 
 torch.set_num_threads(2)
@@ -86,7 +85,7 @@ def mla_layer():
 def test_configs_identical(name, size):
     """Field by field, with the reference's parameter counts (MLA and MoE
     lines of ``param_count`` and ``active_param_count``), Engram layers and
-    segment plan, and admitted by ``check_supported``."""
+    segment plan, and its parameter defs build."""
     mod, ref_mod = MODULES[name]
     cfg, rcfg = getattr(mod, size)(), getattr(ref_mod, size)()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
@@ -95,7 +94,7 @@ def test_configs_identical(name, size):
     assert cfg.engram_layers() == rcfg.engram_layers()
     assert [dataclasses.astuple(s) for s in segment_plan(cfg)] == \
         [dataclasses.astuple(s) for s in ref_transformer.segment_plan(rcfg)]
-    check_supported(cfg)
+    port_model.model_defs(cfg)
     if size == "full":
         assert configs.get_config(name) == cfg
 

@@ -327,16 +327,24 @@ def test_init_params_mirrors_reference_tree(bridged):
     assert all(torch.equal(x, again[p]) for p, x in _paths(mine))
 
 
-def test_unported_config_features_raise():
-    """Encoder and frontend configs name their ROADMAP item (windows and
-    qk-norms are ported: tests/test_torch_gemma.py; MLA and MoE:
-    tests/test_torch_mla.py and tests/test_torch_moe.py; Mamba and xLSTM:
-    tests/test_torch_mamba.py and tests/test_torch_xlstm.py)."""
+def test_encoder_config_has_no_decode_steps():
+    """Every config family is ported (the encoder and the frontends:
+    tests/test_torch_encoder.py). An encoder has no prefill, decode,
+    verify or chunk step: where the reference asserts it, the port raises
+    ``ValueError``; its parameter defs, frontend included, build."""
     cfg = engram_27b.reduced()
-    for bad in (dict(is_encoder=True, frontend="audio"),
-                dict(frontend="vision")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_model.model_defs(dataclasses.replace(cfg, **bad))
+    enc = dataclasses.replace(cfg, is_encoder=True, frontend="audio",
+                              frontend_dim=24, engram=None)
+    assert "frontend" in port_model.model_defs(enc)
+    for build in (port_model.build_prefill_step,
+                  port_model.build_decode_step,
+                  port_model.build_multitoken_decode,
+                  port_model.build_chunk_prefill):
+        with pytest.raises(ValueError, match="encoder"):
+            build(enc, RunFlags())
+    port_model.build_prefill_step(
+        dataclasses.replace(cfg, frontend="vision", frontend_dim=24),
+        RunFlags())
 
 
 def _paths(tree, prefix=()):

@@ -20,6 +20,8 @@ The surgery: ``gate_state`` gates recurrent leaves per row,
 ``reset_slot`` clears them, ``_pad_caches_to`` pads only KV leaves,
 speculation snapshots hold each step's own recurrent tensors, and
 ``rollback_state`` re-selects ``ssm``/``C`` at each slot's kept step.
+Overload: a preempted slot's snapshot carries its recurrent leaves whole
+(``extract_prefix`` slices only KV leaves), so it resumes where it was.
 Integers bit for bit."""
 import copy
 import dataclasses
@@ -37,6 +39,8 @@ from repro.configs.base import SpecConfig as RefSpecConfig  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.pool.cache import PrefixKVCache as RefPrefixKVCache  # noqa: E402
 from repro.serving import Engine as RefEngine  # noqa: E402
+from repro.serving import EngramRuntime as RefRuntime  # noqa: E402
+from repro.serving import slo as ref_slo  # noqa: E402
 from repro import spec as ref_spec  # noqa: E402
 from repro_torch import spec  # noqa: E402
 from repro_torch.configs import SpecConfig  # noqa: E402
@@ -45,7 +49,7 @@ from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.params import from_jax, tree_leaves  # noqa: E402
 from repro_torch.models.transformer import RunFlags  # noqa: E402
 from repro_torch.pool.cache import PrefixKVCache  # noqa: E402
-from repro_torch.serving import Engine  # noqa: E402
+from repro_torch.serving import Engine, EngramRuntime, slo  # noqa: E402
 from repro_torch.serving import slots  # noqa: E402
 
 torch.set_num_threads(2)
@@ -329,3 +333,42 @@ def test_speculation_snapshots_and_rollback(bridged, name):
     assert checked > 1
     assert back["positions"].tolist() == [6, 8, 9]
     assert all(t.shape[0] == 3 for t in tree_leaves(back["caches"]))
+
+
+@pytest.mark.parametrize("name", sorted(MODULES))
+def test_preempt_and_restore_match_reference(bridged, name):
+    """The twin of tests/test_torch_deepseek.py's: two batch requests fill
+    both slots; after three steps two interactive ones preempt them,
+    parking their state (the attention layers' KV and every recurrent
+    leaf) in the pool, and they are restored later: the reference's
+    streams, preemption counts, spill and restore bytes and
+    ``KVPoolStats``."""
+    cfg, rcfg, rparams, params = bridged[name]
+    rng = np.random.RandomState(7)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=n)]
+               for n in (9, 6, 5, 4)]
+    kw = dict(ENGINE_KW, prompt_bucket=8, emulate_step_s=2e-4)
+    runs = []
+    for rt in (RefRuntime(rcfg, params=rparams, slo_policy=ref_slo.
+                          OverloadPolicy(spill_pool_bytes=8 << 20,
+                                         spill_page_tokens=4), **kw),
+               EngramRuntime(cfg, params=params, device="cpu",
+                             slo_policy=slo.OverloadPolicy(
+                                 spill_pool_bytes=8 << 20,
+                                 spill_page_tokens=4), **kw)):
+        hs = [rt.submit(prompts[0], 14, slo="batch"),
+              rt.submit(prompts[1], 14, slo="batch")]
+        for _ in range(3):
+            rt.step()
+        hs += [rt.submit(prompts[2], 5, slo="interactive"),
+               rt.submit(prompts[3], 5, slo="interactive")]
+        rt.drain()
+        runs.append((rt.engine, [h.request.out for h in hs]))
+    (ref, want), (eng, got) = runs
+    assert got == want
+    st = eng.stats
+    assert st.preemptions == st.resumes == ref.stats.preemptions > 0
+    assert st.kv_spill_bytes == st.kv_restore_bytes == \
+        ref.stats.kv_spill_bytes > 0
+    assert dataclasses.asdict(eng.kv_pool.stats()) == \
+        dataclasses.asdict(ref.kv_pool.stats())

@@ -39,8 +39,7 @@ from repro_torch.models import transformer as port_transformer  # noqa: E402
 from repro_torch.models import xlstm as port_xlstm  # noqa: E402
 from repro_torch.models.layers import head_logits  # noqa: E402
 from repro_torch.models.params import from_jax, tree_map  # noqa: E402
-from repro_torch.models.transformer import (RunFlags,  # noqa: E402
-                                            check_supported, segment_plan)
+from repro_torch.models.transformer import RunFlags, segment_plan  # noqa: E402,E501
 from test_torch_mamba import forced_runs  # noqa: E402
 
 torch.set_num_threads(2)
@@ -104,14 +103,14 @@ def _random_cache(cfg, kind, rng, B):
 @pytest.mark.parametrize("size", ["full", "reduced"])
 def test_configs_identical(size):
     """Field by field, with the reference's parameter counts, Engram
-    layers and segment plan, and admitted by ``check_supported``."""
+    layers and segment plan, and its parameter defs build."""
     cfg, rcfg = getattr(xlstm_125m, size)(), getattr(ref_xlstm_cfg, size)()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     assert cfg.param_count() == rcfg.param_count()
     assert cfg.engram_layers() == rcfg.engram_layers()
     assert [dataclasses.astuple(s) for s in segment_plan(cfg)] == \
         [dataclasses.astuple(s) for s in ref_transformer.segment_plan(rcfg)]
-    check_supported(cfg)
+    port_model.model_defs(cfg)
     if size == "full":
         assert configs.get_config("xlstm-125m") == cfg
 
