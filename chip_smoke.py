@@ -223,13 +223,40 @@ result lines are printed):
               right after phase 13, before phase 14 frees phase 7's
               weights.
 
+ 22. deepseek-v3 deepseek-v3-671b at full width (d 7168, 128 heads, MLA
+              ranks 1536 and 512, 256 routed experts top-8 and one shared
+              of width 2048, a 129,280-word vocabulary) cut to 5 layers
+              (3 dense, 2 MoE), 26.8 B parameters on the card, its
+              ENGRAM_40B tables (layers 2 and 3) drawn into phase 14(d)'s
+              registered host buffers, pooled_host; run right after 17:
+              (a) phase 7's mix, 16 new tokens, twice after a warm-up:
+              identical streams, finite logits, K1, K2 and grouped-GEMM
+              budgets, one read per steady wave, peak under 80 GB; (c) a
+              profile of its steady waves, the grouped GEMMs' share; (b)
+              MoE layer 3 at T = 8 (64 rows, at least 192 of the 256
+              grouped-GEMM groups empty) and 256 against its plain
+              per-expert loop, as in 16(c).
+ 23. mesh     the mesh paths on a (2, 2) ("data", "model") mesh of 4 rank
+              processes (spawn) on the one card over gloo (NCCL refuses
+              two ranks on one device), the parent's tensors mapped
+              through CUDA IPC and read in place: (a) tp and pooled
+              retrieval over one engram-27b layer's tables in HBM on
+              phase 7's prompts as a decode wave and an 8 x 32 group,
+              bit-equal to retrieve_local; pooled at slack 0.25 (requests
+              dropped) card = CPU on each rank's block; (b) deepseek-v3's
+              MoE layer 3 (128 experts a rank) through moe_ep_gather and
+              moe_ep_alltoall, nothing dropped, within 16 bf16 ulps of
+              moe_ragged_local; (c) embed_lookup_local on its embedding,
+              bit-equal; one call of each timed; K1 timed at the
+              owner-side read's row counts.
+
 Phase 6 also runs reduced internvl2-1b like the other reduced configs,
 reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
 prefill with patch tokens card = CPU, and the overload and tier runs on
 reduced jamba-1.5-large-398b and xlstm-125m.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 18, 20 and 21); the last is ``{"ok": true,
+summed over phases 7 to 18 and 20 to 23); the last is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -3049,9 +3076,11 @@ def deepseek_v2_cut():
                                engram=engram_for(L, ENGRAM_40B))
 
 
-def moe_on_card(cfg, params, dev, smi: str) -> dict:
-    """(c) Layer 1's MoE FFN at full width (160 experts top-6 and 2 shared
-    of width 1536, d 5120) on bf16 inputs at T = 8 and 256, the grouped
+def moe_on_card(cfg, params, dev, smi: str, at=(0, 1),
+                label: str = "deepseek-v2") -> dict:
+    """(c) The MoE FFN of the layer at ``at`` (segment, position; phase
+    16: layer 1 of deepseek-v2, 160 experts top-6 and 2 shared of width
+    1536, d 5120) on bf16 inputs at T = 8 and 256, the grouped
     GEMM path against its plain per-expert loop (``grouped_mm_ref`` in
     ``grouped_mm``'s place) on the same inputs. Identical expert ids.
     Each of the layer's two grouped GEMMs, on the layer's own sorted rows,
@@ -3065,14 +3094,17 @@ def moe_on_card(cfg, params, dev, smi: str) -> dict:
     twice the plain loop's. Both paths' device times beside the layer's
     bound: the bytes of the experts the ids touch (gate+up and down), the
     shared experts, the router, the input and the output, over 3.35 TB/s.
-    Also layer 1's absorbed MLA decode at batch 8 over a 512-position
+    The experts no row reaches are empty groups of the grouped GEMM
+    (counted; where T x top-k leaves at least 192 of them, as a decode
+    wave does on deepseek-v3's 256 experts, at least 192 are required).
+    Also the layer's absorbed MLA decode at batch 8 over a 512-position
     latent cache, device-timed. Returns the times."""
     import torch
     from repro_torch.models import mla, moe
-    layer = params["segments"][0][1]
+    layer = params["segments"][at[0]][at[1]]
     p, m, d = layer["ffn"], cfg.moe, cfg.d_model
-    check("w_gu" in p, "phase 16: layer 1 is not a MoE layer")
-    print(f"deepseek-v2 moe: torch {torch.__version__} has "
+    check("w_gu" in p, f"{label}: layer {at} is not a MoE layer")
+    print(f"{label} moe: torch {torch.__version__} has "
           f"torch._grouped_mm: {hasattr(torch, '_grouped_mm')}")
     gen = torch.Generator(device=dev).manual_seed(16)
     dt = p["w_gu"].dtype
@@ -3124,6 +3156,9 @@ def moe_on_card(cfg, params, dev, smi: str) -> dict:
         finally:
             moe.grouped_mm = grouped
         check(torch.equal(eids, eids_plain), f"moe T={T}: expert ids differ")
+        empty = m.n_experts - int(torch.unique(eids).numel())
+        if T * m.top_k <= m.n_experts - 192:
+            check(empty >= 192, f"{label} moe T={T}: {empty} empty groups")
         err = (got.float() - exact).abs().max().item()
         err_plain = (want.float() - exact).abs().max().item()
         check(err <= 2 * err_plain, f"moe T={T}: the grouped path is "
@@ -3140,10 +3175,12 @@ def moe_on_card(cfg, params, dev, smi: str) -> dict:
         b_ms, b_by = bound(nbytes, flops)
         out[T] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, max_abs_err=gemm_err, touched=touched,
-                      layer_err=err, layer_err_plain=err_plain)
-        print(f"deepseek-v2 moe T={T} [{smi}]: expert ids identical; each "
+                      layer_err=err, layer_err_plain=err_plain,
+                      empty_groups=empty)
+        print(f"{label} moe T={T} [{smi}]: expert ids identical; each "
               f"grouped GEMM within BF16_TOL x max|product| of its plain "
-              f"loop (max|diff| {gemm_err:.4e}); the layer: max|out| "
+              f"loop (max|diff| {gemm_err:.4e}; {empty} of {m.n_experts} "
+              f"groups empty); the layer: max|out| "
               f"{exact.abs().max().item():.4f}, grouped path {err:.4e} and "
               f"plain loop {err_plain:.4e} from the f32 evaluation, paths "
               f"{(got.float() - want.float()).abs().max().item():.4e} "
@@ -3163,7 +3200,7 @@ def moe_on_card(cfg, params, dev, smi: str) -> dict:
         lambda h: mla.mla_decode(cfg, layer["mixer"], h, cache, pos)[0], hs,
         warmup=1)
     n_moe = sum(f == "moe" for f in cfg.ffn_types)
-    print(f"deepseek-v2 layers [{smi}]: absorbed MLA decode, batch 8 over "
+    print(f"{label} layers [{smi}]: absorbed MLA decode, batch 8 over "
           f"{S} latent positions: {out['mla_ms']:.5f} device ms a layer, "
           f"{cfg.n_layers * out['mla_ms']:.4f} a wave of {cfg.n_layers}; MoE "
           f"at T = 8: {out[8]['ms']:.5f} a layer, "
@@ -3581,6 +3618,375 @@ def serve_jamba(dev, smi: str, host_tables) -> tuple:
     for k in launches:
         launches[k] += extra["long"][k]
     return launches, k2, extra
+
+
+# ---------------------------------------------------------------------------
+# phase 22: deepseek-v3-671b (MLA + 256 experts), 5 layers, tables on the host
+# ---------------------------------------------------------------------------
+
+def deepseek_v3_cut():
+    """deepseek-v3-671b at full width cut to 5 layers: layers 0 to 2 dense
+    (the config's three first dense layers), 3 and 4 MoE, ENGRAM_40B
+    tables at (2, 3) (``engram_for(5, ENGRAM_40B)``)."""
+    from repro_torch.configs import ENGRAM_40B, engram_for
+    from repro_torch.configs.deepseek_v3_671b import full
+    L = 5
+    return dataclasses.replace(full(), n_layers=L, layer_types=("attn",) * L,
+                               attn_kinds=("global",) * L,
+                               ffn_types=("dense",) * 3 + ("moe",) * 2,
+                               engram=engram_for(L, ENGRAM_40B))
+
+
+def serve_deepseek_v3(dev, smi: str, host_tables) -> tuple:
+    """deepseek-v3-671b at full width (d 7168, 128 heads, MLA ranks 1536 and
+    512, 256 routed experts top-8 and 1 shared of width 2048, a
+    129,280-word vocabulary), cut to 5 layers (``deepseek_v3_cut``):
+    26.8 B parameters drawn on the card, its ENGRAM_40B tables drawn into
+    ``host_tables`` (engram-40b's registered buffers), pooled_host. (a)
+    through ``serve_host_model``: K1 bit-equal on the host tables, phase
+    7's mix with 16 new tokens twice after a warm-up (identical streams,
+    finite logits; K1, K2 and grouped-GEMM budgets; one read per steady
+    wave, no other sync), peak under 80 GB; (c) its profile of the steady
+    waves with the grouped GEMMs' share; then (b) ``moe_on_card`` on layer
+    3 (a decode wave's 64 rows leave at least 192 of the 256 groups
+    empty). K2 at d = 7168 has its timed row from phase 14(c); its
+    launches are counted here. Returns the counted launches and, for
+    phase 23, the config, layer 3's MoE weights and the embedding (the
+    rest of the weights are freed)."""
+    cfg = deepseek_v3_cut()
+    groups = {"grouped GEMMs (torch._grouped_mm)":
+              lambda n: "GroupProblemShape" in n or "grouped" in n.lower()}
+
+    def after(eng, served):
+        moe = moe_on_card(cfg, eng.params, dev, smi, at=(2, 0),
+                          label="deepseek-v3")
+        return dict(moe=moe, profile=served["profile"],
+                    peak_gb=served["peak_gb"],
+                    layer=eng.params["segments"][2][0]["ffn"],
+                    embed=eng.params["embed"])
+
+    launches, _, _, extra = serve_host_model(
+        cfg, dev, smi, host_tables, max_new=16, reps=2, after=after,
+        profile_groups=groups)
+    extra["cfg"] = cfg
+    return launches, extra
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the mesh paths, 4 rank processes on the one card
+# ---------------------------------------------------------------------------
+
+MESH23 = ((2, 2), ("data", "model"))
+MOE_CF23 = 2.0          # the expert axis's size: no (8 x 32)-token group drops
+
+
+def _timed(fn, dev) -> tuple:
+    """One call: (result, host-clock ms, CUDA-event ms); on the CPU the
+    event time is the host clock's."""
+    import torch
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        end.record()
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    return out, host, (start.elapsed_time(end) if cuda else host)
+
+
+def _moe_drops(cfg, p, x, ctx, strategy: str) -> int:
+    """Rows the rank's expert-parallel call drops at the config's capacity
+    (``_ep_local``'s window, ``moe_ep_alltoall``'s per-peer buckets)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives as coll
+    m = cfg.moe
+    ep = ctx.axis_prod(("model",))
+    e_loc = m.n_experts // ep
+    me = coll.axis_index(("model",))
+    d = x.shape[-1]
+    if strategy == "alltoall":
+        s_loc = x.shape[1] // ep
+        xf = x[:, me * s_loc:(me + 1) * s_loc].reshape(-1, d)
+        eids = moe._route(m, p, xf)[0]
+        cap = math.ceil(eids.numel() / ep * m.capacity_factor)
+        counts = torch.bincount((eids // e_loc).reshape(-1), minlength=ep)
+        return int((counts - cap).clamp(min=0).sum())
+    eids = moe._route(m, p, x.reshape(-1, d))[0]
+    T = eids.shape[0]
+    cap = max(16, min(math.ceil(T * m.top_k * e_loc / m.n_experts
+                                * m.capacity_factor), T * m.top_k))
+    return max(0, int(((eids // e_loc) == me).sum()) - cap)
+
+
+def mesh_rank(rank: int, world: int, init: str, job: dict,
+              out_dir: str) -> None:
+    """One rank of phase 23: a gloo process group over ``world`` ranks, the
+    (2, 2) mesh, then ``mesh_rank_work`` on the rank's blocks of the
+    parent's tensors (mapped through CUDA IPC, read in place); saves what
+    it returns. The rank drops every mapped tensor before it exits: the
+    parent keeps a shared block allocated until each rank that mapped it
+    has let it go."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import sharding_ctx
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(*MESH23, device=dev)
+        with sharding_ctx(mesh) as ctx:
+            out = mesh_rank_work(ctx, job, dev)
+        out["coords"] = [mesh.coords[a] for a in MESH23[1]]
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        job.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def mesh_rank_work(ctx, job: dict, dev) -> dict:
+    """Phase 23's calls on one rank: the Engram strategies, the
+    expert-parallel MoE and the vocab-sharded embedding. Returns the
+    rank's outputs (on the CPU), its K1 and grouped-GEMM launches, its
+    drop counts and one call's times."""
+    import torch
+    from repro_torch.core import engram
+    from repro_torch.kernels.engram_gather import gather_rows
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_lookup_local
+    from repro_torch.sharding.rules import rank_block
+    out = {"ms": {}}
+    e, tables = job["engram_cfg"], job["tables"]
+    v_pad = engram.padded_vocab(e)
+    gather_rows.launches = 0
+    moe.grouped_mm.launches = 0
+    pool = rank_block(tables, 1, v_pad, ("data", "model"), ctx)
+    tp = rank_block(tables, 1, v_pad, ("model",), ctx)
+    for name, idx in job["idx"].items():
+        ix = ctx.block(idx.to(dev), ("batch", None, None))
+        for strat, tab in (("pooled", pool), ("tp", tp)):
+            fn = lambda: engram.retrieve(e, tab, ix, strat)  # noqa: E731
+            fn()
+            got, host, ev = _timed(fn, dev)
+            out[f"{strat}/{name}"] = got.cpu()
+            out["ms"][f"{strat}/{name}"] = (host, ev)
+    # overflow at slack 0.25: on the card, then on CPU copies of the same
+    # block with the ids on the CPU (K1's plain version)
+    ix = ctx.block(job["idx"]["group"].to(dev), ("batch", None, None))
+    out["slack/card"] = engram.retrieve_pooled(e, pool, ix, slack=0.25).cpu()
+    out["slack/cpu"] = engram.retrieve_pooled(e, pool.cpu(), ix.cpu(),
+                                              slack=0.25)
+    out["k1"] = gather_rows.launches
+    cfg, p = job["moe_cfg"], job["moe_layer"]
+    x = ctx.block(job["moe_x"], ("batch", None, None))
+    for strat, fn_ in (("gather", moe.moe_ep_gather),
+                       ("alltoall", moe.moe_ep_alltoall)):
+        fn = lambda: fn_(cfg, p, x)[0]                        # noqa: E731
+        fn()
+        got, host, ev = _timed(fn, dev)
+        out[f"moe/{strat}"] = got.cpu()
+        out["ms"][f"moe/{strat}"] = (host, ev)
+        out[f"drops/{strat}"] = _moe_drops(cfg, p, x, ctx, strat)
+    out["grouped_mm"] = moe.grouped_mm.launches
+    toks = ctx.block(job["embed_toks"].to(dev), ("batch", None))
+    w = job["embed"]["w"]
+    fn = lambda: embed_lookup_local(job["embed"], toks,      # noqa: E731
+                                    w.shape[0])
+    fn()
+    got, host, ev = _timed(fn, dev)
+    out["embed"] = got.cpu()
+    out["ms"]["embed"] = (host, ev)
+    return out
+
+
+def _mesh_whole(ranks, key, split=None):
+    """The whole array from the ranks' blocks (each data group's ranks hold
+    the same batch rows, bit-equal; ``split``: concatenated over the model
+    coordinate along that dim)."""
+    import torch
+    rows = []
+    for di in range(MESH23[0][0]):
+        mine = sorted((r for r in ranks if r["coords"][0] == di),
+                      key=lambda r: r["coords"][1])
+        if split is None:
+            for r in mine[1:]:
+                check(torch.equal(r[key].view(torch.int16),
+                                  mine[0][key].view(torch.int16)),
+                      f"mesh: ranks of data group {di} differ on {key}")
+            rows.append(mine[0][key])
+        else:
+            rows.append(torch.cat([r[key] for r in mine], dim=split))
+    return torch.cat(rows)
+
+
+def time_owner_read(tables, e, n_rows: int, dev, smi: str) -> dict:
+    """K1 at the owner-side read of ``retrieve_pooled``: ``n_rows`` (N x
+    cap) rows of one rank's block of the tables (rows [0, V/4) of each of
+    the T tables, read through ``core.engram._flat_rows`` in place), cold
+    ids, against its plain version and one ``index_select`` on the same
+    view; bound: the rows read and written and the ids, over 3.35 TB/s."""
+    import torch
+    from repro_torch.core.engram import _flat_rows, padded_vocab
+    from repro_torch.kernels.engram_gather import gather_rows, gather_rows_ref
+    v_loc = padded_vocab(e) // 4
+    flat, per_table = _flat_rows(tables[:, :v_loc])
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def cold():
+        return [(flat, (torch.randint(0, e.n_tables, (n_rows,), generator=gen,
+                                      device=dev) * per_table
+                        + torch.randint(0, v_loc, (n_rows,), generator=gen,
+                                        device=dev))) for _ in range(40)]
+
+    a = cold()[0]
+    check(torch.equal(gather_rows(*a).view(torch.int16),
+                      gather_rows_ref(*a).view(torch.int16)),
+          f"K1 owner-side read not bit-equal at {n_rows} rows")
+    index_select = lambda t, g: torch.index_select(t, 0, g)  # noqa: E731
+    ms = device_ms(gather_rows, cold(), ops_per_call=1)
+    plain = device_ms(gather_rows_ref, cold())
+    lib = device_ms(index_select, cold(), ops_per_call=1)
+    row_bytes = e.head_dim * tables.element_size()
+    b_ms, b_by = bound(2 * n_rows * row_bytes + 8 * n_rows, 0)
+    print(f"mesh K1 owner-side read [{smi}]: {n_rows} rows x {row_bytes} B "
+          f"of a rank's block ({e.n_tables} x {v_loc} rows, in place): "
+          f"bit-equal; device ms: kernel {ms:.5f}, plain {plain:.5f}, "
+          f"index_select {lib:.5f}, byte bound {b_ms:.6f}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, rows=n_rows)
+
+
+def serve_mesh(dev, smi: str, cfg27, v3cfg, layer, embed) -> tuple:
+    """Phase 23: ``tp`` and ``pooled`` retrieval, ``moe_ep_gather`` and
+    ``moe_ep_alltoall``, and ``embed_lookup_local`` on a (2, 2) ("data",
+    "model") mesh of 4 rank processes (``spawn``) on the one card, over
+    gloo with a ``file://`` rendezvous in a temporary directory (NCCL
+    refuses two ranks on one device). The ranks map the parent's tensors
+    through CUDA IPC and read their blocks in place (``mesh_rank``): one
+    engram-27b layer's tables drawn in HBM (16 x 2,265,088 x 160 bf16);
+    deepseek-v3's MoE layer 3 (256 experts, 128 a rank) and its
+    embedding. (a) Phase 7's 8 prompts as a decode wave (B = 8, S = 1)
+    and as an 8 x 32 prefill group: the rows gathered from the ranks
+    bit-equal to ``retrieve_local`` over the whole tables; at slack 0.25
+    each rank's rows on the card bit-equal to the same 4-rank call on CPU
+    copies of its block (requests dropped, as zero rows). (b) An 8 x 32
+    group of bf16 inputs (RMS 1) through gather and alltoall at capacity
+    factor 2.0, where nothing drops (counted), within 16 bf16 ulps of
+    |out| + row RMS of ``moe_ragged_local`` over the whole layer. (c) The
+    embedding (129,280 rows over the 2-way model axis) bit-equal to a
+    whole-table lookup. One call of each timed on the host clock and with
+    CUDA events; K1 at the owner-side read's row counts timed in this
+    process. Returns the ranks' K1 launches and the timings."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.core.engram import padded_vocab, retrieve_local
+    from repro_torch.core.hashing import engram_indices
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.models.params import pd, tree_init
+    e = cfg27.engram
+    T, V, hd = e.n_tables, padded_vocab(e), e.head_dim
+    tables = tree_init(pd(T, V, hd, dtype="bfloat16", scale=1.0), 23, dev)
+    prompts = serve_prompts(cfg27)
+    toks = torch.zeros((len(prompts), 32), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts])
+    group = engram_indices(e, toks.to(dev))
+    wave = group[torch.arange(len(prompts), device=dev),
+                 (lens - 1).to(dev)][:, None]
+    idx = {"wave": wave, "group": group}
+    want = {k: retrieve_local(e, tables, v) for k, v in idx.items()}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    dt = layer["w_gu"].dtype
+    x = torch.randn(8, 32, v3cfg.d_model, generator=gen, device=dev).to(dt)
+    mcfg = dataclasses.replace(v3cfg, moe=dataclasses.replace(
+        v3cfg.moe, capacity_factor=MOE_CF23))
+    ragged = moe.moe_ragged_local(mcfg, layer, x)[0]
+    etoks = torch.randint(0, v3cfg.vocab_size, (8, 32), generator=gen,
+                          device=dev)
+    job = dict(device=str(dev), engram_cfg=e, tables=tables,
+               idx={k: v.cpu() for k, v in idx.items()}, moe_cfg=mcfg,
+               moe_layer=layer, moe_x=x, embed=embed, embed_toks=etoks.cpu())
+    world = math.prod(MESH23[0])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        mp.start_processes(mesh_rank, args=(world, f"file://{td}/rdzv", job,
+                                            td),
+                           nprocs=world, start_method="spawn")
+        ranks = [torch.load(os.path.join(td, f"rank{r}.pt"))
+                 for r in range(world)]
+    run_s = time.perf_counter() - t0
+    del job
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()     # the blocks the ranks have let go
+    res = {"k1_launches": sum(r["k1"] for r in ranks),
+           "grouped_mm": sum(r["grouped_mm"] for r in ranks)}
+    for name in idx:
+        for strat, split in (("pooled", None), ("tp", 2)):
+            got = _mesh_whole(ranks, f"{strat}/{name}", split)
+            check(torch.equal(got.view(torch.int16),
+                              want[name].cpu().view(torch.int16)),
+                  f"mesh {strat} {name}: rows differ from retrieve_local")
+    dropped = 0
+    for r in ranks:
+        check(torch.equal(r["slack/card"].view(torch.int16),
+                          r["slack/cpu"].view(torch.int16)),
+              f"mesh pooled slack 0.25: rank {r['coords']}'s card rows "
+              f"differ from its CPU rows")
+        rows = r["slack/card"].view(*r["slack/card"].shape[:2], T, hd)
+        dropped += int((~rows.bool().any(-1)).sum())
+    check(dropped > 0, "mesh pooled slack 0.25: no request was dropped")
+    shares = {}
+    for strat in ("gather", "alltoall"):
+        got = _mesh_whole(ranks, f"moe/{strat}")
+        drops = sum(r[f"drops/{strat}"] for r in ranks)
+        check(drops == 0, f"mesh moe {strat}: {drops} rows dropped at "
+              f"capacity factor {MOE_CF23}")
+        shares[strat] = ulps_share(got.to(dev), ragged)
+        check(shares[strat] <= 1.0, f"mesh moe {strat}: {shares[strat]:.3f}"
+              " x the 16-ulp tolerance from moe_ragged_local")
+    got = _mesh_whole(ranks, "embed")
+    check(torch.equal(got.view(torch.int16),
+                      embed_lookup(embed, etoks).cpu().view(torch.int16)),
+          "mesh embed_lookup_local differs from the whole-table lookup")
+    ms = {k: [r["ms"][k] for r in ranks] for k in ranks[0]["ms"]}
+    res["ms"] = {k: (max(h for h, _ in v), max(ev for _, ev in v))
+                 for k, v in ms.items()}
+    res["moe_share"] = shares
+    res["slack_dropped"] = dropped
+    print(f"mesh [{smi}]: 4 ranks on one card over gloo, (2, 2) mesh, spawn "
+          f"to exit {run_s:.1f} s; tp and pooled rows (decode wave 8 x 1, "
+          f"group 8 x 32) bit-equal to retrieve_local; slack 0.25: "
+          f"{dropped} (row, table) requests dropped, card = CPU bit for "
+          f"bit; moe gather / alltoall at capacity factor {MOE_CF23}: 0 "
+          f"rows dropped, {shares['gather']:.3f} / {shares['alltoall']:.3f}"
+          f" of the 16-ulp tolerance from moe_ragged_local; embedding "
+          f"bit-equal; K1 launches in the ranks {res['k1_launches']}, "
+          f"grouped GEMMs {res['grouped_mm']}")
+    for k, (host, ev) in res["ms"].items():
+        print(f"mesh one call [{smi}]: {k}: {host:.3f} ms host clock, "
+              f"{ev:.3f} ms CUDA events (slowest rank)")
+    R = {"wave": 4 * 1 * T, "group": 4 * 32 * T}     # a rank's requests
+    res["k1"] = {k: time_owner_read(tables, e, 4 * math.ceil(n / 4 * 2.0),
+                                    dev, smi) for k, n in R.items()}
+    return res
 
 
 def serve_xlstm(dev, smi: str) -> tuple:
@@ -4238,11 +4644,35 @@ def main() -> int:
     t17 = time.perf_counter()
     torch.cuda.empty_cache()
     n, k2_jamba, jamba = serve_jamba(dev, smi, host_tables)
-    del host_tables
     gc.collect()
     for k in launches:
         launches[k] += n[k]
     print(f"jamba: phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    # phase 22: deepseek-v3-671b, 5 layers, in the same host buffers
+    t22 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n, v3 = serve_deepseek_v3(dev, smi, host_tables)
+    del host_tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in launches:
+        launches[k] += n[k]
+    print(f"deepseek-v3: phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    # phase 23: the mesh paths, 4 ranks on the card, on phase 22's MoE layer
+    t23 = time.perf_counter()
+    mesh = serve_mesh(dev, smi, cfg, v3.pop("cfg"), v3.pop("layer"),
+                      v3.pop("embed"))
+    launches["engram_gather"] += mesh["k1_launches"]
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    check(held < 2, f"mesh: {held:.2f} GB still allocated after phase 23 "
+          "(tensors the ranks mapped and did not let go)")
+    print(f"mesh: phase 23 took {time.perf_counter() - t23:.1f} s; "
+          f"{held:.3f} GB allocated after it")
 
     # phase 15: gemma3-1b, its tables in HBM
     t15 = time.perf_counter()
@@ -4294,8 +4724,11 @@ def main() -> int:
           "the serve, long-prompt, chunked, spec, overload, tiers, fleet, "
           "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
           "engram-40b), deepseek-v2-236b (9 layers), jamba-1.5-large-398b "
-          "(7 layers), gemma3-1b, xlstm-125m, CLI (bf16 and f32 scores) and "
-          "internvl2-1b runs; also measured "
+          "(7 layers), deepseek-v3-671b (5 layers), gemma3-1b, xlstm-125m, "
+          "CLI (bf16 and f32 scores) and internvl2-1b runs and the mesh "
+          "ranks' owner-side reads; also measured (mesh: one call's host "
+          "and CUDA-event ms on the slowest rank; owner-side read: K1 at N "
+          "x cap rows of a rank's block, library_ms one index_select); "
           "(deepseek-v2's MoE layer: ms the grouped-GEMM path, plain_ms "
           "the per-expert loop; host rows: plain_ms is the CPU gather and "
           "library_ms the reference's route, both on the host clock; bound "
@@ -4318,6 +4751,18 @@ def main() -> int:
                         "gated_fuse_d4608_T256": k2_host["gemma2-27b"][256],
                         "gated_fuse_d5120_T8_deepseek_v2": k2_v2[8],
                         "gated_fuse_d5120_T256_deepseek_v2": k2_v2[256],
+                        "moe_layer_deepseek_v3_T8": v3["moe"][8],
+                        "moe_layer_deepseek_v3_T256": v3["moe"][256],
+                        "deepseek_v3_wave_profile": v3["profile"],
+                        "deepseek_v3_peak_gb": v3["peak_gb"],
+                        "engram_gather_owner_read_wave":
+                        mesh["k1"]["wave"],
+                        "engram_gather_owner_read_group":
+                        mesh["k1"]["group"],
+                        "mesh_one_call_ms_host_event": mesh["ms"],
+                        "mesh_moe_share_of_16_ulps": mesh["moe_share"],
+                        "mesh_slack_dropped_requests":
+                        mesh["slack_dropped"],
                         "moe_layer_deepseek_v2_T8": v2[8],
                         "moe_layer_deepseek_v2_T256": v2[256],
                         "mla_decode_layer_deepseek_v2_B8_S512_ms":

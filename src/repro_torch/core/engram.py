@@ -1,15 +1,21 @@
 """Engram conditional memory: tables, retrieval, gated fusion (PyTorch port
 of ``repro.core.engram``).
 
-Retrieval strategies of the reference, as they run on one device:
+Retrieval strategies (the paper's storage tiers, mapped to a mesh of
+ranks, one process per rank on ``torch.distributed``):
 
   local         plain row gather (``_take_rows``: one torch indexing op over
                 the flattened table, as the reference gathers with XLA
                 outside Pallas);
   local_kernel  the same gather through the engram_gather kernel (K1);
-  tp / pooled   the reference's mesh strategies. Without a mesh they reduce
-                to ``local`` exactly as the reference's do, and this port
-                has no mesh yet;
+  tp            table row-sharded over the model axis: masked local gather
+                + reduce-scatter over the model axis. The rank's rows come
+                back as its block of the fused-embedding dim;
+  pooled        the CXL-pool analogue: table row-sharded over EVERY mesh
+                axis; each rank dedups its requests, routes them to the
+                owner ranks through a fixed-capacity all_to_all over the
+                flattened mesh, the owners read their rows (K1: the pool
+                read), and a reverse all_to_all returns them;
   pooled_host   the tables live in pinned, device-mapped host memory (the
                 paper's CXL pool as the card sees it: memory beside the
                 host, read over the host link). K1 reads each row in place
@@ -20,6 +26,13 @@ Retrieval strategies of the reference, as they run on one device:
                 the CPU the tables are plain CPU tensors and the gather is
                 K1's plain version.
 
+``tp`` and ``pooled`` read the current sharding context
+(``sharding.rules.sharding_ctx``). Without one, or where the reference
+falls back (no pool axis, one rank, a vocabulary the ranks do not divide),
+they run ``local`` as the reference's do. Under a mesh each takes the
+rank's share of the batch (the reference's batch spec) and either the
+whole tables or the rank's block of their rows.
+
 ``StrategySpec.store`` resolves each strategy to the store modelling what
 its placement costs (``pool.store.STRATEGY_TIERS``). Fusion goes through
 the gated_fuse kernel (K2) on the port's path.
@@ -27,14 +40,17 @@ the gated_fuse kernel (K2) on the port's path.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..configs.base import EngramConfig, ModelConfig
-from ..kernels.engram_gather import engram_gather
+from ..kernels.engram_gather import engram_gather, gather_rows
 from ..kernels.gated_fuse import engram_gated_fuse
 from ..models.layers import rmsnorm
 from ..models.params import pd
+from ..sharding import collectives as coll
+from ..sharding.rules import current_ctx, rank_block
 from .hashing import engram_indices
 
 TABLE_PAD = 4096   # the reference pads table_vocab to a multiple of this
@@ -49,21 +65,41 @@ def engram_defs(cfg: ModelConfig, dtype: str):
     e = cfg.engram
     fuse_dim = len(e.orders) * e.emb_dim
     return {"layers": [{
-        "tables": pd(e.n_tables, padded_vocab(e), e.head_dim, dtype=dtype),
-        "proj": pd(fuse_dim, cfg.d_model, dtype=dtype),
-        "gate": pd(cfg.d_model, cfg.d_model, dtype=dtype),
+        "tables": pd(e.n_tables, padded_vocab(e), e.head_dim,
+                     axes=(None, "eng_vocab", None), dtype=dtype),
+        "proj": pd(fuse_dim, cfg.d_model, axes=("eng_emb", None),
+                   dtype=dtype),
+        "gate": pd(cfg.d_model, cfg.d_model, axes=(None, None), dtype=dtype),
         "norm": {"scale": pd(fuse_dim, init="ones")},
     } for _ in cfg.engram_layers()]}
 
 
+def _flat_rows(tables):
+    """tables (T, V, hd) with unit stride along hd -> (rows, per_table): a
+    (R, hd) view whose row ``t * per_table + v`` is ``tables[t, v]``, over
+    the tables' own storage. A contiguous table set gives (T*V, hd); a
+    rank's block of a whole table set (rows narrowed) keeps the whole set's
+    table stride, and the view spans from the block's first row to its
+    last, reading none of the rows between the tables' blocks."""
+    T, V, hd = tables.shape
+    s_t, s_v, s_h = tables.stride()
+    if s_h != 1 or s_v < hd or s_t % s_v:
+        raise ValueError(f"tables of strides {tables.stride()}: rows of "
+                         f"{hd} with unit stride, tables a whole number of "
+                         "rows apart")
+    per_table = s_t // s_v
+    return tables.as_strided(((T - 1) * per_table + V, hd), (s_v, 1),
+                             tables.storage_offset()), per_table
+
+
 def _take_rows(tables, idx):
     """tables (T,V,hd); idx (...,T) -> (...,T,hd): the reference's
-    per-table ``jnp.take`` as one gather over the flattened (T*V, hd)
-    table (row ``idx[..., t] + t*V``), not T gathers and a stack."""
+    per-table ``jnp.take`` as one gather over the flattened table (row
+    ``idx[..., t] + t*V``, ``_flat_rows``), not T gathers and a stack."""
     T, V, hd = tables.shape
+    flat, per_table = _flat_rows(tables)
     gid = idx.to(torch.int64) + torch.arange(
-        T, device=idx.device, dtype=torch.int64) * V
-    flat = tables.reshape(T * V, hd)
+        T, device=idx.device, dtype=torch.int64) * per_table
     return flat.index_select(0, gid.reshape(-1)).view(*idx.shape, hd)
 
 
@@ -94,6 +130,110 @@ def retrieve_host(ecfg: EngramConfig, tables, idx):
     return rows.reshape(*rows.shape[:-2], -1)
 
 
+def retrieve_tp(ecfg: EngramConfig, tables, idx):
+    """Tables row-sharded over the model axis: masked local gather, then a
+    reduce-scatter over the model axis along the fused-embedding dim. Each
+    rank gets (B_loc, S, T*hd / n_model): its block of the fused dim (the
+    reference's out_spec), exactly what a TP projection consumes."""
+    ctx = current_ctx()
+    axes = tuple(a for a in ("model",) if ctx and a in ctx.mesh.axis_names)
+    if ctx is None or not axes:
+        return retrieve_local(ecfg, tables, idx)
+    n = ctx.mesh.shape[axes[0]]
+    v_pad = padded_vocab(ecfg)
+    if v_pad % n != 0:
+        return retrieve_local(ecfg, tables, idx)
+    v_loc = v_pad // n
+    tab = rank_block(tables, 1, v_pad, axes, ctx)
+    rel = idx - coll.axis_index(axes) * v_loc
+    okm = (rel >= 0) & (rel < v_loc)
+    rows = _take_rows(tab, rel.clamp(0, v_loc - 1))
+    rows = rows * okm[..., None].to(rows.dtype)
+    rows = rows.reshape(*idx.shape[:2], -1)
+    return coll.psum_scatter(rows, axes, dim=2)
+
+
+def retrieve_pooled(ecfg: EngramConfig, tables, idx, *, slack: float = 2.0):
+    """CXL-pool analogue: fixed-capacity request/reply all_to_all over every
+    mesh axis (the table row-sharded over all of them).
+
+    The rank owns rows [o*v_loc, (o+1)*v_loc) of every table, o its
+    row-major index over the pool axes; ``idx`` (B_loc, S, T) is its share
+    of the requests. Each unique (table, row) is requested once (a hot
+    n-gram costs one fetch), each owner takes at most
+    ``ceil(R / N * slack)`` of a rank's R requests (later ones are dropped:
+    their rows come back as zeros, as in the reference), the owner reads
+    the rows through K1 (``gather_rows``: the pool read), and the rows fan
+    out to every duplicate. Returns (B_loc, S, T*hd)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return retrieve_local(ecfg, tables, idx)
+    pool_axes = tuple(a for a in ctx.rules.get("eng_vocab", ())
+                      if a in ctx.mesh.axis_names)
+    if not pool_axes:
+        return retrieve_local(ecfg, tables, idx)
+    N = ctx.axis_prod(pool_axes)
+    v_pad = padded_vocab(ecfg)
+    if N == 1 or v_pad % N != 0:
+        return retrieve_local(ecfg, tables, idx)
+    v_loc = v_pad // N
+    T, hd = ecfg.n_tables, ecfg.head_dim
+    flat, per_table = _flat_rows(rank_block(tables, 1, v_pad, pool_axes, ctx))
+    B, S = idx.shape[:2]
+    dev = idx.device
+    ar = lambda n: torch.arange(n, device=dev)             # noqa: E731
+    flat_i = idx.reshape(-1).to(torch.int64)
+    R = flat_i.numel()
+    flat_tid = ar(T).repeat(B * S)
+
+    # dedup: each unique (table, row) is fetched once per rank. Every sort
+    # is stable, as jnp.argsort is.
+    sk, korder = torch.sort(flat_tid * v_pad + flat_i, stable=True)
+    is_first = torch.ones(R, dtype=torch.bool, device=dev)
+    is_first[1:] = sk[1:] != sk[:-1]
+    gid_sorted = torch.cumsum(is_first, 0) - 1               # group per pos
+    cpos = torch.sort(torch.where(is_first, ar(R), R)).values
+    u_valid = cpos < R                   # cpos[g]: sorted pos of group g
+    u_key = sk[cpos.clamp(max=R - 1)]
+    u_row, u_tid = u_key % v_pad, u_key // v_pad
+
+    dest = torch.where(u_valid, u_row // v_loc, N)           # N = drop
+    s_dst, order = torch.sort(dest, stable=True)
+    s_row, s_tid = u_row[order], u_tid[order]
+    cap = int(math.ceil(R / N * slack))
+    # jnp.bincount(length=N) drops the values >= N; torch's keeps them
+    counts = torch.bincount(dest, minlength=N + 1)[:N]
+    starts = torch.cumsum(counts, 0) - counts
+    pos = ar(R) - starts[s_dst.clamp(max=N - 1)]
+    ok = (pos < cap) & (s_dst < N)
+    pos_c = torch.where(ok, pos, cap)
+    dst_c = s_dst.clamp(max=N - 1)
+    # slot cap is the spill slot: every dropped or invalid request lands
+    # there, the only place two writes meet, and it is sliced away
+    send_req = torch.full((N, cap + 1), -1, dtype=torch.int32, device=dev)
+    send_tid = torch.zeros((N, cap + 1), dtype=torch.int32, device=dev)
+    send_rid = torch.full((N, cap + 1), R, dtype=torch.int64, device=dev)
+    send_req[dst_c, pos_c] = (s_row % v_loc).to(torch.int32)
+    send_tid[dst_c, pos_c] = s_tid.to(torch.int32)
+    send_rid[dst_c, pos_c] = order
+    # request -> owner
+    recv_req = coll.all_to_all(send_req[:, :cap], pool_axes)
+    recv_tid = coll.all_to_all(send_tid[:, :cap], pool_axes)
+    # owner-side gather: the pool read, through K1
+    safe = recv_req.clamp(0, v_loc - 1).to(torch.int64)
+    rows = gather_rows(flat, (recv_tid.to(torch.int64) * per_table
+                              + safe).reshape(-1))           # (N*cap, hd)
+    rows = rows * (recv_req.reshape(-1) >= 0)[:, None].to(rows.dtype)
+    # reply -> requester: each row lands in its unique group's slot, then
+    # fans out to every duplicate
+    back = coll.all_to_all(rows.view(N, cap, hd), pool_axes)
+    rid = send_rid[:, :cap].reshape(N * cap)
+    rows_u = rows.new_zeros((R + 1, hd)).index_add_(
+        0, torch.where(rid < R, rid, R), back.reshape(N * cap, hd))
+    out = rows.new_zeros((R, hd)).index_copy_(0, korder, rows_u[gid_sorted])
+    return out.view(B, S, T * hd)
+
+
 @dataclasses.dataclass(frozen=True)
 class StrategySpec:
     """A retrieval strategy: where the rows live and how they are read.
@@ -112,8 +252,8 @@ STRATEGIES = {
     s.name: s for s in (
         StrategySpec("local", retrieve_local),
         StrategySpec("local_kernel", retrieve_local_kernel),
-        StrategySpec("tp", retrieve_local),   # no mesh: reduces to local
-        StrategySpec("pooled", retrieve_local),
+        StrategySpec("tp", retrieve_tp),
+        StrategySpec("pooled", retrieve_pooled),
         StrategySpec("pooled_host", retrieve_host),
     )
 }

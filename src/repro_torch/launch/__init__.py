@@ -1,2 +1,3 @@
 """Command-line entry points (PyTorch port of ``repro.launch``):
-``serve``, the serving CLI, and ``train.reduced_config``."""
+``serve``, the serving CLI, ``mesh``, meshes of ``torch.distributed``
+ranks, and ``train.reduced_config``."""

@@ -40,10 +40,12 @@ NEG_INF = -2.0 ** 30
 def attn_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
-        "wq": pd(d, hq * hd, dtype=dtype, fan_in=fan_in),
-        "wk": pd(d, hkv * hd, dtype=dtype, fan_in=fan_in),
-        "wv": pd(d, hkv * hd, dtype=dtype, fan_in=fan_in),
-        "wo": pd(hq * hd, d, dtype=dtype, fan_in=fan_in),
+        "wq": pd(d, hq * hd, axes=(None, "heads"), dtype=dtype, fan_in=fan_in),
+        "wk": pd(d, hkv * hd, axes=(None, "kv_heads"),
+                 dtype=dtype, fan_in=fan_in),
+        "wv": pd(d, hkv * hd, axes=(None, "kv_heads"),
+                 dtype=dtype, fan_in=fan_in),
+        "wo": pd(hq * hd, d, axes=("heads", None), dtype=dtype, fan_in=fan_in),
     }
     if cfg.qk_norm:
         defs["q_norm"] = {"scale": pd(hd, init="ones")}

@@ -7,6 +7,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding import collectives as coll
+from ..sharding.rules import current_ctx, rank_block
 from .params import pd
 
 
@@ -15,17 +17,17 @@ def rmsnorm_defs(d: int):
 
 
 def mlp_defs(d: int, f: int, dtype: str, fan_in: int = 0):
-    return {"gate": pd(d, f, dtype=dtype, fan_in=fan_in),
-            "up": pd(d, f, dtype=dtype, fan_in=fan_in),
-            "down": pd(f, d, dtype=dtype, fan_in=fan_in)}
+    return {"gate": pd(d, f, axes=(None, "ffn"), dtype=dtype, fan_in=fan_in),
+            "up": pd(d, f, axes=(None, "ffn"), dtype=dtype, fan_in=fan_in),
+            "down": pd(f, d, axes=("ffn", None), dtype=dtype, fan_in=fan_in)}
 
 
 def embed_defs(vocab: int, d: int, dtype: str):
-    return {"w": pd(vocab, d, dtype=dtype, scale=1.0)}
+    return {"w": pd(vocab, d, axes=("vocab", None), dtype=dtype, scale=1.0)}
 
 
 def head_defs(vocab: int, d: int, dtype: str):
-    return {"w": pd(d, vocab, dtype=dtype)}
+    return {"w": pd(d, vocab, axes=(None, "vocab"), dtype=dtype)}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -74,6 +76,34 @@ def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 def embed_lookup(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["w"][tokens]
+
+
+def embed_lookup_local(params, tokens: torch.Tensor,
+                       vocab: int | None = None) -> torch.Tensor:
+    """Vocab-sharded embedding gather: each rank takes the tokens that fall
+    in its block of rows (zeros elsewhere) and the ranks of the vocab axes
+    sum them (``all_reduce``), so only the (tokens x d_model) result moves,
+    never the table. ``vocab`` is the table's whole row count when
+    ``params["w"]`` is the rank's block (None: ``w`` is whole; a whole
+    table is read in its rank's block). Without a mesh, with one rank on
+    the vocab axes or a vocabulary they do not divide, it is
+    ``embed_lookup`` (the table then whole), as in the reference."""
+    ctx = current_ctx()
+    w = params["w"]
+    V = vocab or w.shape[0]
+    axes = tuple(a for a in ctx.rules.get("vocab", ())
+                 if a in ctx.mesh.axis_names) if ctx else ()
+    if ctx is None or not axes:
+        return embed_lookup(params, tokens)
+    n = ctx.axis_prod(axes)
+    if n == 1 or V % n != 0:
+        return embed_lookup(params, tokens)
+    v_loc = V // n
+    w = rank_block(w, 0, V, axes, ctx)
+    rel = tokens - coll.axis_index(axes) * v_loc
+    ok = (rel >= 0) & (rel < v_loc)
+    rows = w[rel.clamp(0, v_loc - 1)] * ok[..., None].to(w.dtype)
+    return coll.psum(rows, axes)
 
 
 def scale_embeddings(h: torch.Tensor, d_model: int) -> torch.Tensor:

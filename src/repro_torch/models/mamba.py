@@ -26,15 +26,19 @@ def mamba_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     di, N = mc.d_inner(d), mc.d_state
     r = dt_rank(d)
     return {
-        "in_proj": pd(d, 2 * di, dtype=dtype, fan_in=fan_in),
-        "conv_w": pd(mc.d_conv, di, dtype=dtype, fan_in=fan_in),
-        "conv_b": pd(di, dtype=dtype, init="zeros"),
-        "x_proj": pd(di, r + 2 * N, dtype=dtype, fan_in=fan_in),
-        "dt_proj": pd(r, di, dtype=dtype, fan_in=fan_in),
-        "dt_bias": pd(di, dtype="float32", init="zeros"),
-        "A_log": pd(di, N, dtype="float32", init="zeros"),
-        "D": pd(di, dtype="float32", init="ones"),
-        "out_proj": pd(di, d, dtype=dtype, fan_in=fan_in),
+        "in_proj": pd(d, 2 * di, axes=(None, "ffn"),
+                      dtype=dtype, fan_in=fan_in),
+        "conv_w": pd(mc.d_conv, di, axes=("conv", "ffn"),
+                     dtype=dtype, fan_in=fan_in),
+        "conv_b": pd(di, axes=("ffn",), dtype=dtype, init="zeros"),
+        "x_proj": pd(di, r + 2 * N, axes=("ffn", None),
+                     dtype=dtype, fan_in=fan_in),
+        "dt_proj": pd(r, di, axes=(None, "ffn"), dtype=dtype, fan_in=fan_in),
+        "dt_bias": pd(di, axes=("ffn",), dtype="float32", init="zeros"),
+        "A_log": pd(di, N, axes=("ffn", "state"), dtype="float32",
+                    init="zeros"),
+        "D": pd(di, axes=("ffn",), dtype="float32", init="ones"),
+        "out_proj": pd(di, d, axes=("ffn", None), dtype=dtype, fan_in=fan_in),
     }
 
 

@@ -30,17 +30,23 @@ def mla_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wdq": pd(d, m.q_lora_rank, dtype=dtype, fan_in=fan_in),
+        "wdq": pd(d, m.q_lora_rank, axes=(None, "lora"),
+                  dtype=dtype, fan_in=fan_in),
         "q_ln": {"scale": pd(m.q_lora_rank, init="ones")},
-        "wuq": pd(m.q_lora_rank, H * qk_head, dtype=dtype, fan_in=fan_in),
-        "wdkv": pd(d, m.kv_lora_rank + m.qk_rope_head_dim, dtype=dtype,
+        "wuq": pd(m.q_lora_rank, H * qk_head, axes=(None, "heads"),
+                   dtype=dtype, fan_in=fan_in),
+        "wdkv": pd(d, m.kv_lora_rank + m.qk_rope_head_dim,
+                   axes=(None, "lora"), dtype=dtype,
                    fan_in=fan_in),
         "kv_ln": {"scale": pd(m.kv_lora_rank, init="ones")},
-        "wuk": pd(m.kv_lora_rank, H * m.qk_nope_head_dim, dtype=dtype,
+        "wuk": pd(m.kv_lora_rank, H * m.qk_nope_head_dim,
+                  axes=(None, "heads"), dtype=dtype,
                   fan_in=fan_in),
-        "wuv": pd(m.kv_lora_rank, H * m.v_head_dim, dtype=dtype,
+        "wuv": pd(m.kv_lora_rank, H * m.v_head_dim,
+                  axes=(None, "heads"), dtype=dtype,
                   fan_in=fan_in),
-        "wo": pd(H * m.v_head_dim, d, dtype=dtype, fan_in=fan_in),
+        "wo": pd(H * m.v_head_dim, d, axes=("heads", None),
+                 dtype=dtype, fan_in=fan_in),
     }
 
 

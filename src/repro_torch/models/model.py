@@ -41,9 +41,11 @@ from ..configs.base import ModelConfig
 from ..core.engram import engram_defs, engram_fuse, retrieve
 from ..core.hashing import (decode_engram_indices, engram_indices,
                             update_last_tokens)
-from .layers import (embed_defs, embed_lookup, head_defs, head_logits,
-                     rmsnorm, rmsnorm_defs, scale_embeddings)
+from ..sharding import collectives as coll
+from .layers import (embed_defs, embed_lookup, embed_lookup_local, head_defs,
+                     head_logits, rmsnorm, rmsnorm_defs, scale_embeddings)
 from .params import DTYPES, init_params, pd  # noqa: F401  (re-exported)
+from .params import tree_axes
 from .transformer import (RunFlags, apply_segment, init_segment_cache,
                           segment_defs, segment_plan)
 
@@ -69,10 +71,44 @@ def model_defs(cfg: ModelConfig, dtype: str | None = None):
     return defs
 
 
+def params_logical_axes(cfg: ModelConfig):
+    """The logical axes of every parameter, in ``model_defs``' structure."""
+    return tree_axes(model_defs(cfg))
+
+
+def mesh_logical_axes(cfg: ModelConfig):
+    """``params_logical_axes`` with the axes kept only on the leaves that a
+    collective of the forward reads block-wise: each Engram layer's tables,
+    the routed experts and, when the head is not tied to it, the token
+    embedding. Every other leaf is whole on every rank: the reference
+    shards the dense layers through GSPMD, the compiler's tensor
+    parallelism, which the port does not mirror. ``sharding.rules.
+    local_params(params, mesh_logical_axes(cfg))`` gives a rank what the
+    forward under a mesh reads."""
+    blockwise = {"tables", "w_gu", "w_down"}
+    if not cfg.tie_embeddings:
+        blockwise.add("embed")
+
+    def keep(tree, on=False):
+        if isinstance(tree, dict):
+            return {k: keep(v, on or k in blockwise) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [keep(v, on) for v in tree]
+        return tree if on else (None,) * len(tree)
+
+    return keep(params_logical_axes(cfg))
+
+
 def _engram_rows_all_layers(cfg: ModelConfig, flags: RunFlags, params, idx):
-    """Retrieve rows for every Engram layer up front. idx (B,S,T)."""
-    return [retrieve(cfg.engram, layer["tables"], idx, flags.engram_strategy)
+    """Retrieve rows for every Engram layer up front. idx (B,S,T). Under a
+    mesh ``tp`` gives each rank its block of the fused dim; the blocks are
+    reassembled here, since the port's fusion reads whole rows."""
+    rows = [retrieve(cfg.engram, layer["tables"], idx, flags.engram_strategy)
             for layer in params["engram"]["layers"]]
+    F = len(cfg.engram.orders) * cfg.engram.emb_dim
+    if rows and rows[0].shape[-1] != F:
+        rows = [coll.gather_dim(r, ("model",), 2) for r in rows]
+    return rows
 
 
 def _project(cfg: ModelConfig, params, x):
@@ -84,15 +120,22 @@ def _project(cfg: ModelConfig, params, x):
     return rmsnorm(p["norm"], x, cfg.norm_eps).to(dt) @ p["proj"].to(dt)
 
 
-def embed_inputs(cfg: ModelConfig, params, batch):
+def embed_inputs(cfg: ModelConfig, params, batch,
+                 flags: RunFlags = RunFlags()):
     """batch: tokens (B,S) [+ frames (B,S,fe) audio | patches (B,P,fe)
     vision]. Audio frames replace the token embedding; vision patches
     overwrite positions [0, P) when the batch carries them. The embedding
-    scale applies after either, then the config's dtype."""
+    scale applies after either, then the config's dtype. With
+    ``flags.embed_local_gather`` the tokens go through
+    ``embed_lookup_local`` (the table whole or the rank's block)."""
     if cfg.frontend == "audio":
         h = _project(cfg, params, batch["frames"])
     else:
-        h = embed_lookup(params["embed"], batch["tokens"])
+        if flags.embed_local_gather:
+            h = embed_lookup_local(params["embed"], batch["tokens"],
+                                   cfg.vocab_size)
+        else:
+            h = embed_lookup(params["embed"], batch["tokens"])
         if cfg.frontend == "vision" and "patches" in batch:
             pe = _project(cfg, params, batch["patches"]).to(h.dtype)
             h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
@@ -107,7 +150,7 @@ def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
 
     mode train (the encoder) or prefill: positions (S,) default arange;
     decode: (B,)."""
-    h = embed_inputs(cfg, params, batch)
+    h = embed_inputs(cfg, params, batch, flags)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
 

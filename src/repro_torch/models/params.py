@@ -1,7 +1,8 @@
 """Parameter definitions, seeded initialisation and the bridge from the JAX
 package's parameters (PyTorch port of ``repro.models.params``).
 
-A model is described by a nested dict/list of ``ParamDef`` leaves. Where the
+A model is described by a nested dict/list of ``ParamDef`` leaves (shape,
+dtype, init, the logical axes ``sharding.rules`` maps onto a mesh). Where the
 reference stacks a segment's periodic layers into one leaf with a leading
 layer axis, the port keeps one leaf per layer; ``fan_in`` records the
 reference's stacked fan-in so both draw from the same distribution
@@ -32,11 +33,19 @@ class ParamDef:
     init: str = "normal"        # normal | ones | zeros
     scale: float = -1.0         # -1 => 1/sqrt(fan_in)
     fan_in: int = 0             # 0 => shape[0]
+    # logical axis names, len == ndim; None entries are unsharded
+    axes: tuple = ()
+
+    def __post_init__(self):
+        if self.axes == ():
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
 
 
-def pd(*shape, dtype="float32", init="normal", scale=-1.0,
+def pd(*shape, axes=(), dtype="float32", init="normal", scale=-1.0,
        fan_in=0) -> ParamDef:
-    return ParamDef(tuple(shape), dtype, init, scale, fan_in)
+    return ParamDef(tuple(shape), dtype, init, scale, fan_in, tuple(axes))
 
 
 def tree_map(fn, tree):
@@ -57,6 +66,11 @@ def tree_leaves(tree):
             yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_axes(defs):
+    """The logical axes of every leaf of a def tree, in its structure."""
+    return tree_map(lambda d: d.axes, defs)
 
 
 def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,

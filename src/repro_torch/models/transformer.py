@@ -46,6 +46,9 @@ class RunFlags:
     # local layers: slice the cache to the window during decode instead of
     # masking the full context
     decode_window_slice: bool = False
+    # vocab-sharded embedding under a mesh: masked local take + all_reduce
+    # (layers.embed_lookup_local) instead of a whole-table lookup
+    embed_local_gather: bool = False
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:

@@ -39,18 +39,18 @@ def mlstm_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     K = cfg.xlstm.conv1d_kernel
     H = cfg.n_heads
     return {
-        "up": pd(d, 2 * di, dtype=dtype, fan_in=fan_in),
-        "conv_w": pd(K, di, dtype=dtype, fan_in=fan_in),
-        "conv_b": pd(di, dtype=dtype, init="zeros"),
-        "wq": pd(di, di, dtype=dtype, fan_in=fan_in),
-        "wk": pd(di, di, dtype=dtype, fan_in=fan_in),
-        "wv": pd(di, di, dtype=dtype, fan_in=fan_in),
-        "w_i": pd(di, H, dtype="float32", fan_in=fan_in),
-        "w_f": pd(di, H, dtype="float32", fan_in=fan_in),
+        "up": pd(d, 2 * di, axes=(None, "ffn"), dtype=dtype, fan_in=fan_in),
+        "conv_w": pd(K, di, axes=("conv", "ffn"), dtype=dtype, fan_in=fan_in),
+        "conv_b": pd(di, axes=("ffn",), dtype=dtype, init="zeros"),
+        "wq": pd(di, di, axes=("ffn", None), dtype=dtype, fan_in=fan_in),
+        "wk": pd(di, di, axes=("ffn", None), dtype=dtype, fan_in=fan_in),
+        "wv": pd(di, di, axes=("ffn", None), dtype=dtype, fan_in=fan_in),
+        "w_i": pd(di, H, axes=("ffn", None), dtype="float32", fan_in=fan_in),
+        "w_f": pd(di, H, axes=("ffn", None), dtype="float32", fan_in=fan_in),
         "b_i": pd(H, dtype="float32", init="zeros"),
         "b_f": pd(H, dtype="float32", init="ones"),
         "out_norm": {"scale": pd(di, init="ones")},
-        "down": pd(di, d, dtype=dtype, fan_in=fan_in),
+        "down": pd(di, d, axes=("ffn", None), dtype=dtype, fan_in=fan_in),
     }
 
 
@@ -118,14 +118,17 @@ def slstm_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     dh = d // H
     f = int(cfg.xlstm.proj_factor_slstm * d)
     return {
-        "conv_w": pd(cfg.xlstm.conv1d_kernel, d, dtype=dtype, fan_in=fan_in),
+        "conv_w": pd(cfg.xlstm.conv1d_kernel, d, axes=("conv", None),
+                     dtype=dtype, fan_in=fan_in),
         "conv_b": pd(d, dtype=dtype, init="zeros"),
-        "w": pd(d, 4 * d, dtype=dtype, fan_in=fan_in),          # i,f,z,o
-        "r": pd(H, dh, 4 * dh, dtype=dtype, fan_in=fan_in),
+        "w": pd(d, 4 * d, axes=(None, "ffn"),
+                dtype=dtype, fan_in=fan_in),  # i,f,z,o
+        "r": pd(H, dh, 4 * dh, axes=(None, None, None),
+                dtype=dtype, fan_in=fan_in),
         "b": pd(4 * d, dtype="float32", init="zeros"),
         "norm": {"scale": pd(d, init="ones")},
-        "ff_up": pd(d, 2 * f, dtype=dtype, fan_in=fan_in),
-        "ff_down": pd(f, d, dtype=dtype, fan_in=fan_in),
+        "ff_up": pd(d, 2 * f, axes=(None, "ffn"), dtype=dtype, fan_in=fan_in),
+        "ff_down": pd(f, d, axes=("ffn", None), dtype=dtype, fan_in=fan_in),
     }
 
 

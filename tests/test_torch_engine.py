@@ -304,8 +304,9 @@ def test_port_imports_nothing_of_jax():
         "for m in ('pool.cost', 'pool.kvpool', 'pool.tierchain', "
         "'pool.fabric', 'serving.slo', 'serving.router', 'serving.api', "
         "'serving.workload', 'pool.feasibility', 'pool.simulator', "
-        "'launch.serve', 'launch.train', 'examples.serve_pooled', "
-        "'examples.serve_router'):\n"
+        "'launch.serve', 'launch.train', 'launch.mesh', "
+        "'examples.serve_pooled', 'examples.serve_router', "
+        "'sharding.rules', 'sharding.collectives'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
