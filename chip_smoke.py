@@ -250,14 +250,35 @@ result lines are printed):
               bit-equal; one call of each timed; K1 timed at the
               owner-side read's row counts.
 
+ 24. train    (run after 20, the allocator checked empty) (a) reduced
+              engram-27b, gemma3-1b and deepseek-v2-236b in f32 on the
+              card and on the CPU from the same weights, and on the CPU
+              from weights perturbed by 1e-6 (the witness of how
+              ill-conditioned random weights make the gradients): step-1
+              gradients, then 4 train steps (remat on) whose losses and
+              parameters must agree within 4 x the witness's distance,
+              and at least within 1e-4 relative and the reference's
+              grad-accumulation tolerance (rtol 5e-3, atol 1e-4); K1 and
+              K2 never launched; ``train`` with a checkpoint every 4
+              steps, twice, against ``train_with_restarts`` crashing
+              after step 6 (``REPRO_FAIL_AT_STEP``) and resuming from
+              step 4, within 4 x the two runs' own spread. (b) gemma3-1b at
+              full width and depth in bf16, its tables cut to 282,800
+              rows: 12 steps at B = 4, S = 1024, remat on, lr 3e-4: every
+              loss finite and falling, every gradient finite, the Engram
+              and tied-embedding gradients nonzero, peak under 80 GB
+              beside the memory reckoning; ms a step, tokens/s, model
+              FLOPs against 989 TFLOP/s; one step profiled, the optimizer's
+              and the f32 head's device time alone.
+
 Phase 6 also runs reduced internvl2-1b like the other reduced configs,
 reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
 prefill with patch tokens card = CPU, and the overload and tier runs on
 reduced jamba-1.5-large-398b and xlstm-125m.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 18 and 20 to 23); the last is ``{"ok": true,
-"device": {...}}``.
+summed over phases 7 to 18 and 20 to 23; training launches neither); the
+last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3273,7 +3294,7 @@ def mla_paths_agree(cfg, params, flags, dev, smi: str, n: int = 12) -> dict:
               f"attention score RMS {srms:.2f}")
     toks = torch.randint(1, cfg.vocab_size, (2, P + n), generator=gen,
                          device=dev)
-    h, _ = forward(cfg, flags, params, {"tokens": toks}, "prefill")
+    h, _, _ = forward(cfg, flags, params, {"tokens": toks}, "prefill")
     b = head_logits(params["head"], h[:, P - 1]).float()
     a = build_prefill_step(cfg, flags)(params, {"tokens": toks[:, :P]})[0]
     rms = b.square().mean(dim=-1, keepdim=True).sqrt()
@@ -4530,6 +4551,361 @@ def serve_cli(cfg, params, dev, smi: str) -> dict:
                 groups=diffs, group_streams_equal=same)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training
+# ---------------------------------------------------------------------------
+
+# tests/test_train_loop.py's grad-accumulation tolerance for parameters
+# after AdamW steps (m / (sqrt(v) + eps) amplifies summation-order noise
+# where a gradient is near 0)
+TRAIN_PARAM_TOL = dict(rtol=5e-3, atol=1e-4)
+# the conditioning witness: the CPU's own run from the weights moved by
+# about one f32 ulp (a relative 1e-7, seeded), the size of the rounding
+# that the card's other summation order changes; a bound that the fixed
+# tolerance cannot hold is 2 x the median of these seeds' readings
+WITNESS_EPS = 1e-7
+WITNESS_SEEDS = (1, 2, 3)
+GEMMA3_TRAIN_ROWS = 282_800      # table_vocab cut to an eighth (PERF.md §4)
+
+
+def grad_share(got, want) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    from repro_torch.models.params import tree_paths
+    out = 0.0
+    for (_, a), (_, b) in zip(tree_paths(got), tree_paths(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        out = max(out, ((a - b).abs().max()
+                        / b.abs().max().clamp(min=1e-30)).item())
+    return out
+
+
+def param_ratio(got, want) -> float:
+    """The largest over leaves of |got - want| / (atol + rtol |want|) at
+    ``TRAIN_PARAM_TOL`` (<= 1: within it)."""
+    from repro_torch.models.params import tree_paths
+    tol = TRAIN_PARAM_TOL
+    out = 0.0
+    for (_, a), (_, b) in zip(tree_paths(got), tree_paths(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        out = max(out, ((a - b).abs() / (tol["atol"] + tol["rtol"]
+                                         * b.abs())).max().item())
+    return out
+
+
+def witness_limit(fixed: float, readings) -> float:
+    """max(the fixed tolerance, 2 x the median of the witnesses)."""
+    return max(fixed, 2 * sorted(readings)[len(readings) // 2])
+
+
+def train_agree(dev, smi: str) -> dict:
+    """Phase 24(a): the reduced engram-27b, gemma3-1b and deepseek-v2-236b
+    configs (dense; windowed with qk-norms and a tied softcapped head;
+    MLA + MoE with the load-balance loss) in f32 from the same weights on
+    the card and on the CPU, and, as conditioning witnesses, on the CPU
+    from the weights moved by ``WITNESS_EPS`` relative (one per
+    ``WITNESS_SEEDS``): (1) the step-1 gradients (``value_and_grad``) of
+    every leaf, card against CPU, within ``witness_limit(1e-4, ...)`` of
+    the leaf's largest: a lost gradient parts by all of it; (2) 4
+    ``build_train_step`` steps (remat on, B = 4, S = 64, lr 1e-4): each
+    loss within 1e-4 relative, the parameters within
+    ``witness_limit(1, ...)`` x ``TRAIN_PARAM_TOL`` (reduced engram-27b's
+    draw makes attention nearly an argmax, and a one-ulp change of its
+    weights moves its parameters about 1.2 x the tolerance; PERF.md §6);
+    K1 and K2 never launched. Then reduced engram-27b through ``train``
+    on the card, 8 steps with a checkpoint every 4, and through
+    ``train_with_restarts`` with ``REPRO_FAIL_AT_STEP=6`` (a crash after
+    step 6, a restart from step 4's checkpoint): the restarted run's last
+    4 losses within 1e-4 relative of the uninterrupted run's and its
+    final checkpoint's parameters within ``TRAIN_PARAM_TOL``."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import deepseek_v2_236b, engram_27b, gemma3_1b
+    from repro_torch.data import DataConfig, TokenPipeline, shard_batch
+    from repro_torch.models.model import (abstract_params, build_loss_fn,
+                                          init_params)
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   abstract_opt_state, build_train_step,
+                                   init_opt_state, train,
+                                   train_with_restarts)
+    from repro_torch.train.loop import value_and_grad
+
+    def moved(params, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return tree_map(lambda t: t * (1 + WITNESS_EPS * torch.randn(
+            t.shape, generator=gen)), params)
+
+    out = {}
+    flags = RunFlags(remat=True)
+    wit = [f"witness{s}" for s in WITNESS_SEEDS]
+    for mod in (engram_27b, gemma3_1b, deepseek_v2_236b):
+        cfg = mod.reduced()
+        cpu = init_params(cfg, 0, "cpu")
+        runs = {"card": tree_map(lambda t: t.to(dev, copy=True), cpu),
+                "cpu": cpu,
+                **{w: moved(cpu, s) for w, s in zip(wit, WITNESS_SEEDS)}}
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=4,
+                                        seq_len=64, seed=0))
+        reset_launches()
+        b0 = pipe.batch_at(0)
+        grads = {k: value_and_grad(build_loss_fn(cfg, flags), p, shard_batch(
+            b0, device=dev if k == "card" else "cpu"))[1]
+            for k, p in runs.items()}
+        g_card = grad_share(grads["card"], grads["cpu"])
+        g_wit = [grad_share(grads[w], grads["cpu"]) for w in wit]
+        g_lim = witness_limit(1e-4, g_wit)
+        check(g_card <= g_lim, f"{cfg.name}: card gradients {g_card:.2e} of "
+              f"a leaf's largest from the CPU's (limit {g_lim:.2e}, "
+              f"witnesses {g_wit})")
+        del grads
+        step = build_train_step(cfg, flags, AdamWConfig(lr=1e-4,
+                                                        warmup_steps=1))
+        opts = {k: init_opt_state(p) for k, p in runs.items()}
+        rel = []
+        for s in range(4):
+            b = pipe.batch_at(s)
+            loss = {}
+            for k, p in runs.items():
+                _, opts[k], m = step(p, opts[k], shard_batch(
+                    b, device=dev if k == "card" else "cpu"))
+                loss[k] = float(m["loss"])
+            rel.append(abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]))
+            check(rel[-1] <= 1e-4, f"{cfg.name}: step {s + 1} loss {loss}")
+        check(read_launches() == {"engram_gather": 0, "gated_fuse": 0},
+              f"{cfg.name}: training launched {read_launches()}")
+        r_card = param_ratio(runs["card"], cpu)
+        r_wit = [param_ratio(runs[w], cpu) for w in wit]
+        r_lim = witness_limit(1.0, r_wit)
+        check(r_card <= r_lim, f"{cfg.name}: parameters {r_card:.3f} x "
+              f"{TRAIN_PARAM_TOL} from the CPU's (limit {r_lim:.3f}, "
+              f"witnesses {r_wit})")
+        print(f"train agree {cfg.name} [{smi}]: f32; step-1 gradients card "
+              f"against CPU {g_card:.2e} of a leaf's largest (limit "
+              f"{g_lim:.2e}; witnesses "
+              + " ".join(f"{x:.2e}" for x in g_wit)
+              + f"); 4 steps at lr 1e-4, losses {loss['cpu']:.6f} at step 4, "
+              "relative differences card "
+              + " ".join(f"{x:.1e}" for x in rel)
+              + f" (limit 1e-4); parameters {r_card:.3f} x {TRAIN_PARAM_TOL}"
+              f" (limit {r_lim:.3f}; witnesses "
+              + " ".join(f"{x:.3f}" for x in r_wit)
+              + "); K1 and K2 launched 0 times")
+        out[cfg.name] = dict(grad_share=g_card, grad_limit=g_lim,
+                             grad_witness=g_wit, loss_rel=max(rel),
+                             param_ratio=r_card, param_limit=r_lim,
+                             param_witness=r_wit)
+        del runs, opts
+
+    cfg = engram_27b.reduced()
+    tc = TrainConfig(steps=8, ckpt_every=4, log_every=100)
+    dc = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=64, seed=0)
+    kw = dict(flags=flags,
+              oc=AdamWConfig(lr=1e-4, warmup_steps=2, decay_steps=8),
+              log=lambda s: None, device=dev)
+    ab = abstract_params(cfg)
+    like = {"params": ab, "opt": abstract_opt_state(ab)}
+    with tempfile.TemporaryDirectory() as d:
+        whole = train(cfg, tc, dc, ckpt_dir=f"{d}/whole", **kw)
+        os.environ["REPRO_FAIL_AT_STEP"] = "6"
+        try:
+            res = train_with_restarts(cfg, tc, dc, ckpt_dir=f"{d}/crash", **kw)
+        finally:
+            os.environ.pop("REPRO_FAIL_AT_STEP", None)
+        check(res.restarts == 1 and res.steps_run == 4,
+              f"restart: {res.restarts} restarts, {res.steps_run} steps "
+              "after the last one (want 1 and 4: resumed at step 4)")
+        final = {n: Checkpointer(f"{d}/{n}").restore(8, like, dev)["params"]
+                 for n in ("crash", "whole")}
+
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(res.losses, whole.losses[-4:]))
+    check(rel <= 1e-4, f"restart: losses {res.losses} against "
+          f"{whole.losses[-4:]}")
+    r = param_ratio(final["crash"], final["whole"])
+    check(r <= 1.0, f"restart: parameters {r:.3f} x {TRAIN_PARAM_TOL} "
+          "from the uninterrupted run's")
+    print(f"train restart [{smi}]: crashed after step 6, resumed from step "
+          f"4's checkpoint, 8 steps at lr 1e-4: last 4 losses within "
+          f"{rel:.2e} of the uninterrupted run's (limit 1e-4), final "
+          f"parameters {r:.3f} x {TRAIN_PARAM_TOL} (limit 1)")
+    out["restart"] = dict(loss_rel=rel, param_ratio=r)
+    return out
+
+
+def train_flops(cfg, B: int, S: int) -> dict:
+    """Matmul FLOPs of one training step (forward and backward, 3 x the
+    forward; recomputation not counted): the layers' projections and FFN,
+    the attention products (each query against its causal, windowed
+    keys), the Engram fusions (bf16), and the f32 head."""
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_tok = 2 * (d * H * hd + 2 * d * K * hd + H * hd * d
+                   + 3 * d * cfg.d_ff)
+    keys = {kind: sum(min(i + 1, cfg.window_size if kind == "local" else S)
+                      for i in range(S)) for kind in ("local", "global")}
+    attn = sum(2 * 2 * H * hd * keys[k] for k in cfg.attn_kinds)
+    e = cfg.engram
+    F = len(e.orders) * e.emb_dim
+    eng = len(cfg.engram_layers()) * 2 * (F * d + d * d)
+    bf16 = 3 * B * (S * (cfg.n_layers * per_tok + eng) + attn)
+    head = 3 * B * S * 2 * d * cfg.vocab_size
+    return {"bf16": bf16, "f32_head": head}
+
+
+def train_gemma3(dev, smi: str) -> dict:
+    """Phase 24(b): gemma3-1b at full width and depth (26 layers, d 1152,
+    a 262,144-word tied head, 512-token windows) with its Engram tables
+    cut to ``GEMMA3_TRAIN_ROWS`` rows, in bf16, drawn by ``init_params``
+    on the card: 12 steps at B = 4, S = 1024, remat on, lr 3e-4, warm-up
+    3. Step 1 runs as ``value_and_grad`` then ``adamw_update`` (the
+    train step's two halves) to read its gradients: every leaf finite,
+    the tables', gate's, proj's and the tied embedding's nonzero; steps 2
+    to 12 through ``build_train_step``. Every loss finite, the last 3's
+    mean below the first 3's; K1 and K2 never launched; peak device
+    memory under 80 GB beside the reckoning. Then one step profiled
+    (CUPTI: device-busy share, top kernels), and the optimizer and the
+    f32 head (forward and backward) alone on the card for their shares."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline, shard_batch
+    from repro_torch.models.layers import chunked_xent
+    from repro_torch.models.model import build_loss_fn, init_params
+    from repro_torch.models.params import tree_leaves, tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import (AdamWConfig, adamw_update,
+                                   build_train_step, init_opt_state)
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import decay_mask
+    label = "gemma3-1b train"
+    full = get_config("gemma3-1b")
+    cfg = dataclasses.replace(full, engram=dataclasses.replace(
+        full.engram, table_vocab=GEMMA3_TRAIN_ROWS))
+    B, S, steps = 4, 1024, 12
+    held = torch.cuda.memory_allocated() / 1e9
+    check(held < 1, f"{label}: {held:.2f} GB allocated before the phase")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, dev)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    n_tab = sum(layer["tables"].numel()
+                for layer in params["engram"]["layers"])
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    chunk = RunFlags().logits_chunk
+    reckon = {"params": p_bytes / 1e9, "grads": p_bytes / 1e9,
+              "moments": 8 * n_all / 1e9,
+              "logits": -(-B * S // chunk) * chunk * cfg.vocab_size * 4
+              / 1e9,
+              "f32 head and its grad": 2 * cfg.vocab_size * cfg.d_model * 4
+              / 1e9,
+              "largest leaf's two f32 temporaries": 2 * 4 * max(
+                  t.numel() for t in tree_leaves(params)) / 1e9}
+    print(f"{label}: {cfg.n_layers} layers d_model {cfg.d_model} vocab "
+          f"{cfg.vocab_size}, engram layers {cfg.engram_layers()} with "
+          f"{GEMMA3_TRAIN_ROWS} of {full.engram.table_vocab} rows: "
+          f"{(n_all - n_tab) / 1e9:.3f} B parameters and {n_tab / 1e9:.3f} "
+          f"B table elements, drawn with the state in "
+          f"{time.perf_counter() - t0:.1f} s")
+    flags = RunFlags(remat=True)
+    oc = AdamWConfig(lr=3e-4, warmup_steps=3, decay_steps=steps)
+    loss_fn = build_loss_fn(cfg, flags)
+    decay = decay_mask(cfg)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=B,
+                                    seq_len=S, seed=0))
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(loss_fn, params, shard_batch(
+        pipe.batch_at(0), device=dev))
+    bad = [p for p, g in tree_paths(grads) if not torch.isfinite(g).all()]
+    check(not bad, f"{label}: non-finite gradients in {bad[:5]}")
+    live = {"embed": grads["embed"]["w"]}
+    for j, layer in enumerate(grads["engram"]["layers"]):
+        live.update({f"engram {j} {k}": layer[k]
+                     for k in ("tables", "gate", "proj")})
+    dead = [k for k, g in live.items() if not g.abs().max().item() > 0]
+    check(not dead, f"{label}: zero gradients for {dead}")
+    adamw_update(oc, params, grads, opt, decay)
+    losses = [float(loss)]
+    del grads, loss
+    first_s = time.perf_counter() - t0
+    step = build_train_step(cfg, flags, oc)
+    times = []
+    for s in range(1, steps):
+        batch = shard_batch(pipe.batch_at(s), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    check(last < first, f"{label}: the loss did not fall: {losses}")
+    check(read_launches() == {"engram_gather": 0, "gated_fuse": 0},
+          f"{label}: training launched {read_launches()}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
+    med = statistics.median(times[1:])           # steps 3 to 12
+    fl = train_flops(cfg, B, S)
+    mfu = (fl["bf16"] + fl["f32_head"]) / med / BF16_FLOP_PER_S
+    print(f"{label} [{smi}]: 12 steps, losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f" (mean of the first 3 {first:.4f}, of the last 3 {last:.4f}); "
+          f"step 1 (gradients read and checked) {first_s:.2f} s; steps 3 "
+          f"to 12 median {med * 1e3:.1f} ms (min {min(times[1:]) * 1e3:.1f},"
+          f" max {max(times[1:]) * 1e3:.1f}), {B * S / med:.0f} tokens/s; "
+          f"model FLOPs a step {fl['bf16'] / 1e12:.2f} T of bf16-route "
+          f"matmuls + {fl['f32_head'] / 1e12:.2f} T of the f32 head, "
+          f"{100 * mfu:.1f} % of 989 TFLOP/s; peak device memory "
+          f"{peak:.2f} GB against the reckoning "
+          + ", ".join(f"{k} {v:.2f}" for k, v in reckon.items())
+          + f" = {sum(reckon.values()):.2f} GB; K1 and K2 launched 0 times")
+
+    # one step under the profiler, then the optimizer and the head alone
+    batch = shard_batch(pipe.batch_at(steps), device=dev)
+    wall = []
+
+    def timed():
+        t = time.perf_counter()
+        float(step(params, opt, batch)[2]["loss"])
+        wall.append(time.perf_counter() - t)
+
+    ops = device_ops(timed, [()], warmup=0)
+    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    busy = dev_ms / (wall[-1] * 1e3)
+    _, grads = value_and_grad(loss_fn, params, batch)
+    opt_ms = device_ms(lambda: adamw_update(oc, params, grads, opt, decay),
+                       [()], warmup=1)
+    del grads
+    h = torch.randn(B, S, cfg.d_model, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    emb = params["embed"]["w"].detach().requires_grad_()
+    labels = batch["labels"]
+
+    def head():
+        loss = chunked_xent({"w": emb}, h, labels,
+                            final_cap=cfg.final_logit_softcap, tied=True,
+                            chunk=flags.logits_chunk,
+                            remat_body=flags.xent_remat)
+        torch.autograd.grad(loss, (h, emb))
+
+    head_ms = device_ms(head, [()], warmup=1)
+    print(f"{label} profile [{smi}]: one step {wall[-1] * 1e3:.1f} ms wall, "
+          f"{dev_ms:.1f} ms of device time in {len(ops)} device operations "
+          f"({100 * busy:.1f} % busy); top kernels: {top_kernels(ops, 6)}; "
+          f"alone on the card: AdamW {opt_ms:.1f} ms "
+          f"({100 * opt_ms / dev_ms:.1f} % of the step's device time), the "
+          f"f32 head forward and backward {head_ms:.1f} ms "
+          f"({100 * head_ms / dev_ms:.1f} %)")
+    del params, opt, emb, h
+    return dict(losses=losses, step_ms=med * 1e3, tokens_per_s=B * S / med,
+                mfu=mfu, peak_gb=peak, reckon_gb=sum(reckon.values()),
+                busy=busy, step_device_ms=dev_ms, opt_ms=opt_ms,
+                head_ms=head_ms, tflop=fl)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4708,6 +5084,16 @@ def main() -> int:
         launches[k] += n[k]
     print(f"internvl2-1b: phase 20 took {time.perf_counter() - t20:.1f} s")
 
+    # phase 24: training, card against CPU, then gemma3-1b at full width
+    t24 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_agree = train_agree(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = train_gemma3(dev, smi)
+    print(f"train: phase 24 took {time.perf_counter() - t24:.1f} s")
+
     kernels = [
         dict(name="engram_gather", route="cuda",
              source="src/repro_torch/csrc/engram_gather.cu",
@@ -4811,7 +5197,9 @@ def main() -> int:
                         "gated_fuse_T96": k2[96],
                         "gated_fuse_T128": k2[128],
                         "gated_fuse_T256": k2[256],
-                        "gated_fuse_T2112": k2[2112]}))
+                        "gated_fuse_T2112": k2[2112],
+                        "train_agree_reduced_f32": tr_agree,
+                        "train_gemma3_1b_B4_S1024": tr}))
     print(f"profiler: {len(CUPTI_LOST)} sessions lost {min(CUPTI_LOST)} to "
           f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records "
           f"({CUPTI_LOST.count(CUPTI_PRIME + 1)} lost the marker too and "

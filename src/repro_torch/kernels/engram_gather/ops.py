@@ -19,7 +19,8 @@ and a CPU table that is not mapped for the card raises, never quietly
 copies.
 
 ``gather_rows.launches`` counts the kernel's launches, through whichever
-entry.
+entry. The kernel has no backward (nor has the TPU kernel): a CUDA call
+that autograd would record (grad mode on, a table requiring grad) raises.
 """
 from __future__ import annotations
 
@@ -65,6 +66,11 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
             raise ValueError(f"gather_rows_multi: gid on the CPU, tables on "
                              f"{[str(t.device) for t in tables]}")
         return gather_rows_multi_ref(tables, gid)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        raise RuntimeError("gather_rows_multi: the kernel has no backward "
+                           "and would cut the tables' gradient; train "
+                           "through retrieve_local, or call it under "
+                           "torch.no_grad/inference_mode")
     if not 1 <= len(tables) <= MAX_TABLES:
         raise ValueError(f"gather_rows_multi: 1 to {MAX_TABLES} tables, got "
                          f"{len(tables)}")

@@ -15,7 +15,10 @@ zero). Calls on one device are stream-ordered, as the port's are: two
 concurrent launches on different streams would share the counters.
 float32 runs the CUDA-core kernel, unsplit.
 
-``engram_gated_fuse.launches`` counts kernel launches.
+``engram_gated_fuse.launches`` counts kernel launches. The kernel has no
+backward (nor has the TPU kernel): a CUDA call that autograd would record
+(grad mode on, an operand requiring grad) raises instead of returning a
+result cut from the graph.
 """
 from __future__ import annotations
 
@@ -120,6 +123,12 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
     kernel (bf16 or float32, all four of one dtype, contiguous)."""
     if h.device.type == "cpu":
         return gated_fuse_ref(h, e, wg, wp)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (h, e, wg, wp)):
+        raise RuntimeError("engram_gated_fuse: the kernel has no backward "
+                           "and would cut the gradient; train through "
+                           "engram_fuse(use_kernel=False), or call it under "
+                           "torch.no_grad/inference_mode")
     d, F = h.shape[-1], e.shape[-1]
     if h.device.type != "cuda" or any(t.device != h.device
                                       for t in (e, wg, wp)):

@@ -6,6 +6,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..sharding import collectives as coll
 from ..sharding.rules import current_ctx, rank_block
@@ -143,3 +144,48 @@ def head_logits(params, h: torch.Tensor, final_cap: float = 0.0,
         if tied:
             w = w.T
     return softcap(h.float() @ w, final_cap)
+
+
+def chunked_xent(head_params, h: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None, *, final_cap: float = 0.0,
+                 tied: bool = False, chunk: int = 2048,
+                 remat_body: bool = False) -> torch.Tensor:
+    """h (B,S,d); labels (B,S) int; mean softmax cross-entropy over
+    ``mask`` (all positions when None), an f32 scalar.
+
+    The f32 logits of ``chunk`` positions at a time go through the head
+    (``head_logits``: softcap, tied head), so the (tokens, vocab) logits
+    never materialise at once; the token axis is zero-padded to a whole
+    number of chunks with mask 0, as the reference pads. The head's f32
+    weight is cast once and shared by every chunk. ``remat_body``
+    checkpoints each chunk (``torch.utils.checkpoint``), so backward
+    recomputes its logits instead of keeping every (chunk, vocab) block."""
+    B, S, D = h.shape
+    T = B * S
+    hf = h.reshape(T, D)
+    lf = labels.reshape(T).long()
+    mf = torch.ones(T, dtype=torch.float32, device=h.device) if mask is None \
+        else mask.reshape(T).float()
+    pad = (-T) % chunk
+    if pad:
+        hf = F.pad(hf, (0, 0, 0, pad))
+        lf = F.pad(lf, (0, pad))
+        mf = F.pad(mf, (0, pad))
+    w = head_params["w"].float()
+    head = {"w32": w.T if tied else w}
+
+    def body(hx, lx, mx):
+        logits = head_logits(head, hx, final_cap)              # (chunk, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(1, lx[:, None])[:, 0]
+        return ((logz - gold) * mx).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, T + pad, chunk):
+        xs = (hf[i:i + chunk], lf[i:i + chunk], mf[i:i + chunk])
+        if remat_body:
+            tot = tot + torch.utils.checkpoint.checkpoint(
+                body, *xs, use_reentrant=False)
+        else:
+            tot = tot + body(*xs)
+    return tot / mf.sum().clamp(min=1.0)

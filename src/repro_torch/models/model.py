@@ -3,6 +3,7 @@
 
 Step builders, as in the reference:
 
+  build_loss_fn(cfg, flags)                 (params, batch) -> loss (train)
   build_prefill_step(cfg, flags, max_len)   (params, batch) -> (logits, state)
   build_decode_step(cfg, flags, external_rows)
                                             (params, state, token[, rows])
@@ -10,7 +11,9 @@ Step builders, as in the reference:
 
 The Engram retrieval for every Engram layer is issued before the block
 stack (it depends only on token IDs), and each Engram layer fuses its rows
-into the hidden state through the gated_fuse kernel (K2).
+into the hidden state through the gated_fuse kernel (K2) when serving; the
+loss fuses them in the reference model's plain form under autograd (K2
+has no backward). The serving steps run under ``torch.no_grad``.
 
   build_chunk_prefill(cfg, flags)          (params, state, chunk, lens)
                                               -> (logits, state)
@@ -42,10 +45,11 @@ from ..core.engram import engram_defs, engram_fuse, retrieve
 from ..core.hashing import (decode_engram_indices, engram_indices,
                             update_last_tokens)
 from ..sharding import collectives as coll
-from .layers import (embed_defs, embed_lookup, embed_lookup_local, head_defs,
-                     head_logits, rmsnorm, rmsnorm_defs, scale_embeddings)
+from .layers import (chunked_xent, embed_defs, embed_lookup,
+                     embed_lookup_local, head_defs, head_logits, rmsnorm,
+                     rmsnorm_defs, scale_embeddings)
 from .params import DTYPES, init_params, pd  # noqa: F401  (re-exported)
-from .params import tree_axes
+from .params import tree_axes, tree_map
 from .transformer import (RunFlags, apply_segment, init_segment_cache,
                           segment_defs, segment_plan)
 
@@ -146,10 +150,13 @@ def embed_inputs(cfg: ModelConfig, params, batch,
 
 def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
             positions=None, caches=None, engram_rows=None):
-    """Shared forward. Returns (h_final, new_caches).
+    """Shared forward. Returns (h_final, new_caches, aux): aux is the
+    summed MoE load-balance loss in train mode, else None.
 
-    mode train (the encoder) or prefill: positions (S,) default arange;
-    decode: (B,)."""
+    mode train (the loss, the encoder) or prefill: positions (S,) default
+    arange; decode: (B,). Mode ``train`` fuses the Engram rows in the
+    reference model's plain form (``engram_fuse(use_kernel=False)``),
+    under autograd; every other mode through K2, which has no backward."""
     h = embed_inputs(cfg, params, batch, flags)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
@@ -164,20 +171,52 @@ def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
                 engram_indices(cfg.engram, batch["tokens"]))
 
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device) \
+        if mode == "train" else None
     for si, seg in enumerate(segment_plan(cfg)):
         if si > 0 and rows:
-            # segment boundary == Engram layer: fuse before the block (K2)
+            # segment boundary == Engram layer: fuse before the block
             h = engram_fuse(cfg, params["engram"]["layers"][si - 1], h,
-                            rows[si - 1], use_kernel=True)
+                            rows[si - 1], use_kernel=mode != "train")
         c = caches[si] if caches is not None else None
-        h, nc = apply_segment(cfg, flags, seg, params["segments"][si], h,
-                              positions, c, mode)
+        h, nc, a = apply_segment(cfg, flags, seg, params["segments"][si], h,
+                                 positions, c, mode)
+        if a is not None:
+            aux = aux + a
         new_caches.append(nc)
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps), new_caches
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), new_caches, aux
 
 
 def _head_params(cfg: ModelConfig, params):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def abstract_params(cfg: ModelConfig, dtype: str | None = None):
+    """The parameter tree's shapes and dtypes, as tensors on the ``meta``
+    device (nothing allocated)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=DTYPES[d.dtype],
+                                          device="meta"),
+                    model_defs(cfg, dtype))
+
+
+def build_loss_fn(cfg: ModelConfig, flags: RunFlags):
+    """(params, batch{tokens, labels, [loss_mask], [frames | patches]}) ->
+    the f32 scalar loss: the mean cross-entropy of the f32 head
+    (``chunked_xent`` over ``flags.logits_chunk`` positions a chunk) plus
+    the MoE layers' load-balance losses, differentiable by autograd. Runs
+    no kernel: the Engram rows are gathered by ``retrieve``'s plain
+    strategies and fused in the plain form, as the reference's loss does
+    (K1 and K2 have no backward)."""
+    def loss_fn(params, batch):
+        h, _, aux = forward(cfg, flags, params, batch, "train")
+        loss = chunked_xent(_head_params(cfg, params), h, batch["labels"],
+                            batch.get("loss_mask"),
+                            final_cap=cfg.final_logit_softcap,
+                            tied=cfg.tie_embeddings,
+                            chunk=flags.logits_chunk,
+                            remat_body=flags.xent_remat)
+        return loss + aux
+    return loss_fn
 
 
 def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
@@ -229,10 +268,11 @@ def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):
     state)."""
     _no_encoder(cfg)
 
+    @torch.no_grad()
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h, caches = forward(cfg, flags, params, batch, "prefill")
+        h, caches, _ = forward(cfg, flags, params, batch, "prefill")
         lengths = batch.get("lengths")
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int64,
@@ -255,17 +295,23 @@ def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):
     return prefill_step
 
 
+@torch.no_grad()
 def _decode_one(cfg: ModelConfig, flags: RunFlags, params, state, token,
                 rows=None):
-    """One decode step: (state, token (B,)) -> (logits (B,V), new_state)."""
+    """One decode step: (state, token (B,)) -> (logits (B,V), new_state).
+    Like every serving step it runs under ``torch.no_grad``, so a
+    trainer's parameters (``requires_grad``) serve as they are. Not
+    ``torch.inference_mode``: its outputs could not be updated in place
+    outside it, and the engine's slot surgery does that."""
     positions = state["positions"]
     if cfg.engram_layers() and "engram" in params and rows is None:
         idx = decode_engram_indices(cfg.engram, state["last_tokens"], token)
         rows = _engram_rows_all_layers(cfg, flags, params, idx)
     # int64 once per step: int32 indices would be widened in every layer
-    h, new_caches = forward(cfg, flags, params, {"tokens": token[:, None]},
-                            "decode", positions=positions.long(),
-                            caches=state["caches"], engram_rows=rows)
+    h, new_caches, _ = forward(cfg, flags, params,
+                               {"tokens": token[:, None]}, "decode",
+                               positions=positions.long(),
+                               caches=state["caches"], engram_rows=rows)
     logits = head_logits(_head_params(cfg, params), h[:, 0],
                          cfg.final_logit_softcap, cfg.tie_embeddings)
     new_state = {
@@ -310,6 +356,7 @@ def build_multitoken_decode(cfg: ModelConfig, flags: RunFlags,
     _no_encoder(cfg)
     from ..serving.slots import snapshot_recurrent
 
+    @torch.no_grad()
     def multitoken_step(params, state, block, rows=None):
         snaps = [snapshot_recurrent(state)]
         logits_all = []
@@ -343,6 +390,7 @@ def build_chunk_prefill(cfg: ModelConfig, flags: RunFlags):
     _no_encoder(cfg)
     from ..serving.slots import gate_state
 
+    @torch.no_grad()
     def chunk_step(params, state, chunk, lens):
         logits_keep = None
         st = state
@@ -359,8 +407,9 @@ def build_chunk_prefill(cfg: ModelConfig, flags: RunFlags):
 
 def build_encoder_step(cfg: ModelConfig, flags: RunFlags):
     """Encoder forward: (params, batch) -> logits (B,S,V), f32."""
+    @torch.no_grad()
     def encoder_step(params, batch):
-        h, _ = forward(cfg, flags, params, batch, "train")
+        h, _, _ = forward(cfg, flags, params, batch, "train")
         return head_logits(_head_params(cfg, params), h,
                            cfg.final_logit_softcap, cfg.tie_embeddings)
     return encoder_step

@@ -68,6 +68,26 @@ def tree_leaves(tree):
         yield tree
 
 
+def tree_paths(tree, prefix: str = "", is_leaf=None) -> list:
+    """(path, leaf) pairs in JAX's flatten order (a dict's keys sorted);
+    a path joins the dict keys and list indices above its leaf with "/"
+    (the reference's leaf names). ``is_leaf(x)`` marks containers to keep
+    whole."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(tree_paths(v, f"{prefix}/{k}" if prefix else str(k),
+                              is_leaf))
+    return out
+
+
 def tree_axes(defs):
     """The logical axes of every leaf of a def tree, in its structure."""
     return tree_map(lambda d: d.axes, defs)

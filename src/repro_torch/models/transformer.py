@@ -21,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attention, attn_defs, decode_attention, init_kv_cache
@@ -34,12 +35,19 @@ from .xlstm import (init_xlstm_cache, mlstm_defs, mlstm_forward, slstm_defs,
 
 @dataclass(frozen=True)
 class RunFlags:
-    """Runtime knobs that don't change parameters, only execution."""
+    """Runtime knobs that don't change parameters, only execution.
+
+    ``remat`` checkpoints each period of a segment's stacked tail in train
+    mode (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of its scan body. ``logits_chunk`` and
+    ``xent_remat`` are the loss's (``layers.chunked_xent``)."""
+    remat: bool = False
     moe_strategy: str = "gather"     # dense | ragged | gather | alltoall
     engram_strategy: str | None = None
     q_chunk: int = 1024
     kv_chunk: int = 1024
     chunk_threshold: int = 2048
+    logits_chunk: int = 2048
     # score products from bf16 q/k (or latents) summed in f32, without f32
     # copies of the KV cache (attention.f32_bmm)
     attn_bf16_scores: bool = False
@@ -49,6 +57,9 @@ class RunFlags:
     # vocab-sharded embedding under a mesh: masked local take + all_reduce
     # (layers.embed_lookup_local) instead of a whole-table lookup
     embed_local_gather: bool = False
+    # the loss recomputes each logits chunk in backward instead of
+    # keeping it
+    xent_remat: bool = False
 
 
 def _sig(cfg: ModelConfig, i: int) -> tuple:
@@ -139,11 +150,11 @@ def segment_defs(cfg: ModelConfig, seg: Segment, dtype: str) -> list:
 
 def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
                 positions, cache, mode: str):
-    """Layer ``i``'s block. mode: train (the encoder) | prefill | decode.
-    Returns (h, cache);
-    a MoE FFN's aux loss is dropped (serving has no use for it). A
-    recurrent mixer's prefill starts from zero state (``cache`` None), its
-    decode from ``cache``; both are one call over the token axis."""
+    """Layer ``i``'s block. mode: train (the loss, the encoder) | prefill
+    | decode. Returns (h, cache, aux): ``aux`` is a MoE FFN's load-balance
+    loss, else None. A recurrent mixer's prefill and train start from zero
+    state (``cache`` None), its decode from ``cache``; each is one call
+    over the token axis."""
     t, kind, ffn = _sig(cfg, i)
     pre = rmsnorm(params["ln1"], h, cfg.norm_eps)
     mla = cfg.attn_impl == "mla"
@@ -167,16 +178,17 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
         out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
     h = h + out
     if ffn == "none":
-        return h, new_cache
+        return h, new_cache, None
     pre2 = rmsnorm(params["ln2"], h, cfg.norm_eps)
+    aux = None
     if ffn == "moe":
-        out2, _ = moe_ffn(cfg, params["ffn"], pre2,
-                          strategy=flags.moe_strategy)
+        out2, aux = moe_ffn(cfg, params["ffn"], pre2,
+                            strategy=flags.moe_strategy)
     else:
         out2 = mlp(params["ffn"], pre2, cfg.ffn_act)
     if cfg.post_block_norm:
         out2 = rmsnorm(params["post_ln2"], out2, cfg.norm_eps)
-    return h + out2, new_cache
+    return h + out2, new_cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, i: int, batch: int, max_len: int,
@@ -199,10 +211,38 @@ def init_segment_cache(cfg: ModelConfig, seg: Segment, batch: int,
 
 def apply_segment(cfg: ModelConfig, flags: RunFlags, seg: Segment,
                   params: list, h, positions, cache, mode: str):
-    """Returns (h, per-layer caches)."""
-    new_cache = []
-    for j, (li, p) in enumerate(zip(seg.layers, params)):
-        c = cache[j] if cache is not None else None
-        h, nc = apply_block(cfg, flags, li, p, h, positions, c, mode)
-        new_cache.append(nc)
-    return h, new_cache
+    """Returns (h, per-layer caches, aux): in train mode ``aux`` is the
+    f32 sum of the MoE layers' load-balance losses, which the loss adds;
+    serving drops them (aux None).
+
+    With ``flags.remat`` in train mode each period of the stacked tail
+    (``seg.period`` layers from ``prefix_len``; the reference's scan body)
+    runs under ``torch.utils.checkpoint``: backward recomputes its
+    activations. The unrolled prefix is not checkpointed, as in the
+    reference."""
+    if mode != "train":
+        new_cache = []
+        for j, (li, p) in enumerate(zip(seg.layers, params)):
+            c = cache[j] if cache is not None else None
+            h, nc, _ = apply_block(cfg, flags, li, p, h, positions, c, mode)
+            new_cache.append(nc)
+        return h, new_cache, None
+
+    def run(h_, a, *ps, start):
+        for li, p in zip(seg.layers[start:start + len(ps)], ps):
+            h_, _, ax = apply_block(cfg, flags, li, p, h_, positions, None,
+                                    mode)
+            if ax is not None:
+                a = a + ax
+        return h_, a
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = flags.remat and seg.period
+    for start in range(len(seg.layers)):
+        if start < seg.prefix_len or not remat:
+            h, aux = run(h, aux, params[start], start=start)
+        elif (start - seg.prefix_len) % seg.period == 0:
+            h, aux = torch.utils.checkpoint.checkpoint(
+                run, h, aux, *params[start:start + seg.period], start=start,
+                use_reentrant=False)
+    return h, [None] * len(seg.layers), aux

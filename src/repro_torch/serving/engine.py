@@ -106,7 +106,7 @@ from ..models.layers import with_f32_head
 from ..models.model import (build_chunk_prefill, build_decode_step,
                             build_prefill_step, init_decode_state,
                             init_params)
-from ..models.params import table_memory_for
+from ..models.params import table_memory_for, tree_map
 from ..models.transformer import RunFlags
 from ..pool.kvpool import KVPagePool, PoolArbiter
 from ..pool.scheduler import PrefetchScheduler
@@ -389,6 +389,11 @@ class Engine:
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
                              f"the engine runs on {self.device}")
+        # the engine never differentiates: leaves a trainer holds with
+        # requires_grad are read through detached views of their storage,
+        # so the trainer's in-place updates are what it serves
+        params = tree_map(lambda t: t.detach() if t.requires_grad else t,
+                          params)
         self.params = with_f32_head(params)
         self.has_engram = bool(cfg.engram_layers()) and "engram" in params
         self._n_eng = len(cfg.engram_layers())

@@ -13,6 +13,10 @@ have on CUDA tensors. Nothing here stages a tensor to the host.
   psum_scatter ``jax.lax.psum_scatter(x, axes, scatter_dimension=dim,
                tiled=True)`` (``dist.reduce_scatter_single``, named
                ``reduce_scatter_tensor`` before torch 2.13)
+  all_gather   ``jax.lax.all_gather(x, axes)``: every rank's ``x``
+               stacked on a new leading axis, in rank order
+               (``dist.all_gather_single``, named
+               ``all_gather_into_tensor`` before torch 2.13)
   gather_dim   the blocks of ``dim`` from every rank of ``axes``, in rank
                order: what GSPMD does where a ``shard_map``'s sharded
                output meets an op that needs it whole. Built on
@@ -26,9 +30,12 @@ import torch.distributed as dist
 
 from .rules import current_ctx
 
-# torch 2.13 renamed reduce_scatter_tensor (and deprecates the old name)
+# torch 2.13 renamed reduce_scatter_tensor and all_gather_into_tensor (and
+# deprecates the old names)
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
 
 
 def _mesh():
@@ -74,6 +81,14 @@ def psum_scatter(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     out = xt.new_empty((xt.shape[0] // g.size(),) + tuple(xt.shape[1:]))
     _reduce_scatter(out, xt, group=g)
     return out.movedim(0, dim)
+
+
+def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
+    """(N, *x.shape): rank i's ``x`` at index i, N the ranks of ``axes``."""
+    g = _mesh().group(axes)
+    out = x.new_empty(g.size() * x.numel())
+    _all_gather(out, x.contiguous().view(-1), group=g)
+    return out.view((g.size(),) + tuple(x.shape))
 
 
 def gather_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:

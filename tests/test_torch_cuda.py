@@ -819,3 +819,71 @@ def test_frontends_card_equal_cpu(name):
         want = step(params, batch)
         got = step(on_card, tree_map(lambda t: t.to(dev), batch))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_to_cut_a_gradient_on_the_card():
+    """K1 and K2 on the card, with grad mode on and an operand requiring
+    grad, raise before launching; under no_grad they launch."""
+    dev = _card()
+    h = torch.randn(8, 64, device=dev, requires_grad=True)
+    e, wg, wp = (torch.randn(s, device=dev) for s in
+                 ((8, 32), (64, 64), (32, 64)))
+    before = engram_gated_fuse.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        engram_gated_fuse(h, e, wg, wp)
+    tab = torch.randn(64, 16, device=dev, requires_grad=True)
+    gid = torch.randint(0, 64, (5,), device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gather_rows(tab, gid)
+    with torch.no_grad():
+        engram_gated_fuse(h, e, wg, wp)
+        gather_rows(tab, gid)
+    torch.cuda.synchronize()
+    assert engram_gated_fuse.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["engram_27b", "gemma3_1b",
+                                  "deepseek_v2_236b"])
+def test_train_gradients_card_equal_cpu(name):
+    """Reduced configs (dense, windowed, MLA + MoE) in f32: the loss within
+    1e-5 relative and every leaf's gradient, card against CPU, within
+    max(1e-4, 2 x the median of the CPU's own change under three seeded
+    one-ulp (1e-7 relative) changes of the weights) of the leaf's largest
+    (random weights make the gradients ill-conditioned: chip_smoke.py
+    phase 24(a)); a gradient autograd lost would part by all of it. No
+    kernel launched."""
+    import importlib
+    from repro_torch.data import DataConfig, TokenPipeline, shard_batch
+    from repro_torch.models.model import build_loss_fn
+    from repro_torch.models.params import init_params, tree_map, tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train.loop import value_and_grad
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").reduced()
+    cpu = init_params(cfg, 0, "cpu")
+    b = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                                 seq_len=32, seed=0)).batch_at(0)
+    fn = build_loss_fn(cfg, RunFlags(remat=True))
+    k = (gather_rows.launches, engram_gated_fuse.launches)
+    lc, gc = value_and_grad(fn, tree_map(lambda t: t.to(dev), cpu),
+                            shard_batch(b, device=dev))
+    assert (gather_rows.launches, engram_gated_fuse.launches) == k
+    lh, gh = value_and_grad(fn, cpu, shard_batch(b, device="cpu"))
+    np.testing.assert_allclose(float(lc), float(lh), rtol=1e-5)
+
+    def share(got, want):
+        return max(((a.cpu() - c).abs().max() / c.abs().max().clamp(
+            min=1e-30)).item() for (_, a), (_, c) in zip(tree_paths(got),
+                                                           tree_paths(want)))
+
+    wit = []
+    for seed in (1, 2, 3):
+        gen = torch.Generator().manual_seed(seed)
+        moved = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+            t.shape, generator=gen)), cpu)
+        wit.append(share(value_and_grad(fn, moved, shard_batch(
+            b, device="cpu"))[1], gh))
+    assert share(gc, gh) <= max(1e-4, 2 * sorted(wit)[1]), wit

@@ -304,7 +304,7 @@ def test_forward_logits_match_reference(arch):
     want = np.asarray(ref_layers.head_logits(
         ref_model._head_params(rcfg, rparams), h, rcfg.final_logit_softcap,
         rcfg.tie_embeddings))
-    got, _ = port_model.forward(cfg, RunFlags(), params, pb, "train")
+    got, _, _ = port_model.forward(cfg, RunFlags(), params, pb, "train")
     got = head_logits(port_model._head_params(cfg, params), got,
                       cfg.final_logit_softcap, cfg.tie_embeddings).numpy()
     assert got.shape == (2, 16, cfg.vocab_size) and np.isfinite(got).all()

@@ -306,7 +306,10 @@ def test_port_imports_nothing_of_jax():
         "'serving.workload', 'pool.feasibility', 'pool.simulator', "
         "'launch.serve', 'launch.train', 'launch.mesh', "
         "'examples.serve_pooled', 'examples.serve_router', "
-        "'sharding.rules', 'sharding.collectives'):\n"
+        "'sharding.rules', 'sharding.collectives', 'data.pipeline', "
+        "'train.optimizer', 'train.loop', 'train.compress', 'train.ddp', "
+        "'checkpoint.checkpointer', 'examples.quickstart', "
+        "'examples.train_engram_lm'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

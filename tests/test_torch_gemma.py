@@ -175,7 +175,7 @@ def test_prefill_past_window(bridged, name, chunked):
     rh = jax.jit(lambda p, b: ref_model.forward(
         rcfg, RefFlags(**fl), p, b, "prefill")[0])(rparams, rbatch)
     port_attn._chunk_attn.window_skipped = 0
-    h, _ = port_model.forward(cfg, RunFlags(**fl), params, batch, "prefill")
+    h, _, _ = port_model.forward(cfg, RunFlags(**fl), params, batch, "prefill")
     n_local = sum(k == "local" for k in cfg.attn_kinds)
     assert port_attn._chunk_attn.window_skipped == (3 * n_local if chunked
                                                     else 0)

@@ -211,8 +211,8 @@ def test_prefill_then_decode_matches_full_forward(bridged):
     one 12-token decompressed pass at the same positions."""
     cfg, _, _, params = bridged["deepseek-v2-236b"]
     toks = _t(np.random.RandomState(0).randint(1, cfg.vocab_size, (2, 12)))
-    h, _ = port_model.forward(cfg, RunFlags(), params, {"tokens": toks},
-                              "prefill")
+    h, _, _ = port_model.forward(cfg, RunFlags(), params,
+                                 {"tokens": toks}, "prefill")
     full = head_logits(params["head"], h)
     logits, state = port_model.build_prefill_step(cfg, RunFlags(),
                                                   max_len=16)(

@@ -56,7 +56,8 @@ from repro.models.params import tree_init as ref_tree_init  # noqa: E402
 from repro_torch.configs import deepseek_v3_671b  # noqa: E402
 from repro_torch.configs.base import (EngramConfig, ModelConfig,  # noqa: E402
                                       MoEConfig)
-from repro_torch.models.params import from_jax, to_torch, tree_map  # noqa: E402
+from repro_torch.models.params import (from_jax, to_torch,  # noqa: E402
+                                       tree_map, tree_paths)
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
@@ -82,6 +83,16 @@ def _moe_cfg(mcls, ecls, cf=8.0):
         moe=ecls(n_experts=8, top_k=2, n_shared=1, d_ff_expert=48,
                  capacity_factor=cf),
         ffn_types=("moe", "moe"), dtype="float32")
+
+
+def _ddp_cfg(mcls, ecls):
+    """tests/multidev_checks.py's check_compressed_ddp model."""
+    return mcls(name="d", family="dense", n_layers=2, d_model=32,
+                vocab_size=101, n_heads=2, n_kv_heads=2, head_dim=16,
+                d_ff=64, engram=ecls(orders=(2,), n_heads=2, emb_dim=32,
+                                     table_vocab=1024, layers=(1,),
+                                     strategy="local"),
+                dtype="float32")
 
 
 def _model_cfg(mod):
@@ -128,6 +139,10 @@ def _inputs(d: Path):
         ecfg=_engram_cfg(EngramConfig), moe_cfg=_moe_cfg(ModelConfig,
                                                          MoEConfig),
         moe_params=tree_map(t, mparams), model_cfg=cfg,
+        ddp_cfg=_ddp_cfg(ModelConfig, EngramConfig),
+        ddp_params=from_jax(jax.tree.map(np.asarray, ref_model.init_params(
+            _ddp_cfg(RefModelConfig, RefEngramConfig), 0)),
+            _ddp_cfg(ModelConfig, EngramConfig), "cpu"),
         model_params=from_jax(jax.tree.map(np.asarray, rparams), cfg, "cpu"),
         decode_steps=DECODE_STEPS)
     torch.save(port, d / "inputs.pt")
@@ -292,3 +307,79 @@ def test_deepseek_v3_pooled_mesh_forward_matches_reference_mesh(runs):
     np.testing.assert_allclose(got, want, **LOGITS_TOL)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     assert not np.allclose(want, ref["model/local"], **LOGITS_TOL)
+
+
+# ------------------------------------------------- training on the mesh
+
+DDP_TOL = dict(rtol=0.2, atol=5e-3)          # check_compressed_ddp's
+GRAD_ACCUM_TOL = dict(rtol=5e-3, atol=1e-4)  # tests/test_train_loop.py's
+
+
+def _ref_ddp(ref, name):
+    """The reference's one-step DDP parameters, in the port's layout."""
+    rparams = ref_model.init_params(_ddp_cfg(RefModelConfig,
+                                             RefEngramConfig), 0)
+    leaves, treedef = jax.tree.flatten(rparams)
+    tree = jax.tree.unflatten(treedef, [ref[f"ddp/{name}/p{i}"]
+                                        for i in range(len(leaves))])
+    return {k: v.numpy() for k, v in tree_paths(from_jax(
+        tree, _ddp_cfg(ModelConfig, EngramConfig), "cpu"))}
+
+
+def test_compressed_ddp_matches_exact_and_reference(runs):
+    """check_compressed_ddp's twin on 8 gloo ranks: the int8-wire step
+    within quantisation tolerance of the exact one, both within the
+    reference's grad-accumulation tolerance of the reference's same step,
+    the replicas equal, the loss the reference's."""
+    ref, ranks = runs
+    for name in ("compress", "exact"):
+        want = _ref_ddp(ref, name)
+        for r in ranks:
+            assert r[f"ddp/{name}/params"].keys() == want.keys()
+            for k, v in r[f"ddp/{name}/params"].items():
+                assert torch.equal(v, ranks[0][f"ddp/{name}/params"][k]), k
+                np.testing.assert_allclose(v.numpy(), want[k], err_msg=k,
+                                           **GRAD_ACCUM_TOL)
+            np.testing.assert_allclose(float(r[f"ddp/{name}/loss"]),
+                                       float(ref[f"ddp/{name}/loss"]),
+                                       rtol=1e-5)
+    for k, v in ranks[0]["ddp/compress/params"].items():
+        np.testing.assert_allclose(v.numpy(),
+                                   ranks[0]["ddp/exact/params"][k].numpy(),
+                                   err_msg=k, **DDP_TOL)
+
+
+def test_compressed_ddp_wire_is_int8(runs):
+    """Both wire passes carried int8 (the reference reads ``s8[`` in its
+    HLO), once per gradient leaf; the exact step used neither."""
+    _, ranks = runs
+    n_leaves = len(ranks[0]["ddp/exact/params"])
+    for r in ranks:
+        assert r["ddp/compress/wire"] == {
+            ("all_to_all", "torch.int8"): n_leaves,
+            ("all_gather", "torch.int8"): n_leaves}
+        assert r["ddp/exact/wire"] == {}
+
+
+def test_compressed_ddp_loss_decreases(runs):
+    _, ranks = runs
+    losses = ranks[0]["ddp/losses"]
+    assert len(losses) == 8 and losses[-1] < losses[0], losses
+    for r in ranks[1:]:
+        assert torch.equal(r["ddp/losses"], losses)
+
+
+def test_elastic_checkpoint_relayout(runs):
+    """check_elastic_checkpoint's twin: saved from an (8,) mesh whose ranks
+    held row blocks, restored onto a (2, 4) ("x", "y") mesh, each rank its
+    block; the blocks make the whole leaves again."""
+    _, ranks = runs
+    w = torch.arange(64.0).reshape(8, 8)
+    seen = set()
+    for r in ranks:
+        x, y = (int(c) for c in r["elastic/coords"])
+        seen.add((x, y))
+        assert torch.equal(r["elastic/w"],
+                           w[y * 2:(y + 1) * 2, x * 4:(x + 1) * 4])
+        assert torch.equal(r["elastic/b"], torch.ones(2))
+    assert len(seen) == 8

@@ -272,8 +272,8 @@ def test_prefill_then_decode_matches_full_forward(bridged):
                                  "train")
     want = np.asarray(ref_model.head_logits(rparams["embed"], rh,
                                             tied=True))
-    h, _ = port_model.forward(cfg, RunFlags(), params, {"tokens": _t(toks)},
-                              "prefill")
+    h, _, _ = port_model.forward(cfg, RunFlags(), params,
+                                 {"tokens": _t(toks)}, "prefill")
     full = head_logits(params["embed"], h, tied=True)
     np.testing.assert_allclose(_np(full), want, **LOGITS)
     logits, state = port_model.build_prefill_step(cfg, RunFlags(),

@@ -5,8 +5,10 @@ a (2, 4) ("data", "model") mesh over gloo, on the CPU.
 
 Each rank loads the inputs (``torch.save``d whole tensors), takes its
 blocks (``sharding.rules``), runs every mesh path of the port under the
-mesh and saves what it holds to ``out_dir/rank<r>.pt``. It imports
-nothing of JAX."""
+mesh, the compressed data-parallel train step on an (8,) mesh and the
+elastic checkpoint (saved from an (8,) mesh, restored onto a (2, 4) one),
+and saves what it holds to ``out_dir/rank<r>.pt``. It imports nothing of
+JAX."""
 import dataclasses
 import datetime
 import os
@@ -85,6 +87,76 @@ def _model(ctx, inp, out, strategy: str):
     out[f"model/{strategy}"] = torch.stack(all_logits, dim=1)
 
 
+DDP_STEPS = 8
+
+
+def _ddp(inp, out):
+    """``build_ddp_train_step`` on an (8,) ("data",) mesh: one step with
+    the int8 wire and one exact, from the same weights, then
+    ``DDP_STEPS`` compressed steps; the wire collectives' dtypes
+    counted."""
+    from repro_torch.data import DataConfig, TokenPipeline, shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import tree_map, tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import (AdamWConfig, build_ddp_train_step,
+                                   compressed_psum, init_opt_state)
+    mesh = make_mesh((8,), ("data",), device="cpu")
+    cfg = inp["ddp_cfg"]
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=8,
+                                    seq_len=16, seed=0))
+    batch = shard_batch(pipe.batch_at(0), device="cpu")
+    for name, compress in (("compress", True), ("exact", False)):
+        params = tree_map(torch.clone, inp["ddp_params"])
+        compressed_psum.wire.clear()
+        step = build_ddp_train_step(cfg, RunFlags(), oc, mesh,
+                                    compress=compress)
+        p, _, m = step(params, init_opt_state(params), batch)
+        out[f"ddp/{name}/loss"] = m["loss"]
+        out[f"ddp/{name}/params"] = dict(tree_paths(p))
+        out[f"ddp/{name}/wire"] = dict(compressed_psum.wire)
+    params = tree_map(torch.clone, inp["ddp_params"])
+    opt = init_opt_state(params)
+    step = build_ddp_train_step(cfg, RunFlags(), oc, mesh)
+    losses = []
+    for s in range(DDP_STEPS):
+        params, opt, m = step(params, opt,
+                              shard_batch(pipe.batch_at(s), device="cpu"))
+        losses.append(float(m["loss"]))
+    out["ddp/losses"] = torch.tensor(losses)
+
+
+def _elastic(out_dir, out):
+    """Save on an (8,) mesh, restore onto a (2, 4) ("x", "y") mesh: the
+    ranks of the first hold row blocks of ``w`` and ``b`` and gather them
+    whole for rank 0 to write; each rank of the second reads its block
+    (``w`` rows over y and columns over x, ``b`` over both)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.rules import sharding_ctx
+    whole = {"w": torch.arange(64.0).reshape(8, 8), "b": torch.ones(16)}
+    ck = Checkpointer(os.path.join(out_dir, "elastic"), async_write=False)
+    mesh_a = make_mesh((8,), ("data",), device="cpu")
+    with sharding_ctx(mesh_a) as ctx:
+        held = {"w": ctx.block(whole["w"], ("batch", None)),
+                "b": ctx.block(whole["b"], ("batch",))}
+        gathered = {k: coll.all_gather(v, "data").reshape(whole[k].shape)
+                    for k, v in held.items()}
+    if dist.get_rank() == 0:
+        ck.save(1, gathered)
+    dist.barrier()
+    mesh_b = make_mesh((2, 4), ("x", "y"), device="cpu")
+    with sharding_ctx(mesh_b, rules={"r": ("y",), "c": ("x",),
+                                     "rc": ("x", "y")}):
+        got = ck.restore(1, whole, "cpu", block={"w": ("r", "c"),
+                                                 "b": ("rc",)})
+    out["elastic/coords"] = torch.tensor([mesh_b.coords["x"],
+                                          mesh_b.coords["y"]])
+    out["elastic/w"], out["elastic/b"] = got["w"], got["b"]
+
+
 def rank_main(rank: int, world: int, init: str, inputs: str, out_dir: str):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding.rules import sharding_ctx
@@ -103,6 +175,8 @@ def rank_main(rank: int, world: int, init: str, inputs: str, out_dir: str):
         # tp reads the tables row-sharded over the model axis only
         with sharding_ctx(mesh, rules={"eng_vocab": ("model",)}) as ctx:
             _model(ctx, inp, out, "tp")
+        _ddp(inp, out)
+        _elastic(out_dir, out)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

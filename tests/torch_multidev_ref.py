@@ -6,7 +6,9 @@ subprocess with 8 fake host devices (the pytest process stays at 1):
 Runs the reference's mesh strategies on a (2, 4) ("data", "model") mesh
 (``retrieve`` tp and pooled, ``retrieve_pooled`` at slack 0.25,
 ``moe_ffn`` gather and alltoall at two capacity factors,
-``embed_lookup_local``) and reduced deepseek-v3-671b's single-device
+``embed_lookup_local``), check_compressed_ddp's train step with and
+without the int8 wire on an (8,) mesh, and reduced deepseek-v3-671b's
+single-device
 prefill and greedy decode (local retrieval, ragged MoE), on the inputs the
 test wrote, and saves the outputs."""
 import dataclasses
@@ -43,6 +45,13 @@ MOE_CFG = ModelConfig(
     ffn_types=("moe", "moe"), dtype="float32")
 CAPACITY_FACTORS = (8.0, 1.0)
 DECODE_STEPS = 4
+# tests/multidev_checks.py's check_compressed_ddp model
+DDP_CFG = ModelConfig(
+    name="d", family="dense", n_layers=2, d_model=32, vocab_size=101,
+    n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
+    engram=EngramConfig(orders=(2,), n_heads=2, emb_dim=32, table_vocab=1024,
+                        layers=(1,), strategy="local"),
+    dtype="float32")
 
 
 def model_cfg():
@@ -90,6 +99,23 @@ def main(inputs: str, out_path: str) -> None:
         out["model/pooled"] = greedy(RunFlags(
             moe_strategy="alltoall", engram_strategy="pooled",
             embed_local_gather=True), inp["model_toks"])
+    # check_compressed_ddp's step on an (8,) mesh, int8 wire and exact
+    from repro.data import DataConfig, TokenPipeline
+    from repro.train import AdamWConfig, build_ddp_train_step
+    from repro.train.optimizer import init_opt_state
+    dmesh = make_mesh((8,), ("data",))
+    params = ref_model.init_params(DDP_CFG, 0)
+    batch = {k: jnp.asarray(v) for k, v in TokenPipeline(DataConfig(
+        vocab_size=101, batch=8, seq_len=16, seed=0)).batch_at(0).items()}
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, grad_clip=0.0)
+    with sharding_ctx(dmesh), dmesh:
+        for name, compress in (("compress", True), ("exact", False)):
+            p, _, m = jax.jit(build_ddp_train_step(
+                DDP_CFG, RunFlags(), oc, dmesh, compress=compress))(
+                    params, init_opt_state(params), batch)
+            out[f"ddp/{name}/loss"] = np.asarray(m["loss"])
+            for i, leaf in enumerate(jax.tree.leaves(p)):
+                out[f"ddp/{name}/p{i}"] = np.asarray(leaf)
     # and on one device: local retrieval, ragged MoE
     out["model/local"] = greedy(RunFlags(moe_strategy="ragged",
                                          engram_strategy="local"),
