@@ -270,6 +270,29 @@ result lines are printed):
               beside the memory reckoning; ms a step, tokens/s, model
               FLOPs against 989 TFLOP/s; one step profiled, the optimizer's
               and the f32 head's device time alone.
+ 25. mesh     (run after 24) training under the mesh, ranks spawned on
+     train    the one card over gloo with a ``file://`` rendezvous: (a)
+              reduced engram-27b (pooled, tp; tables at 4096 rows) and
+              deepseek-v2-236b (gather, alltoall; capacity 8.0, no
+              load-balance loss) in f32 on a (2, 2) mesh of 4 ranks
+              against one process on the card from the same weights,
+              within phase 24's witness limits: step-1 gradients gathered
+              whole, 4 steps' losses, grad_norms and parameters; K1 and
+              K2 launched 0 times; the mesh trainer crashed after step 3
+              resumes from step 2 and matches the uninterrupted mesh run.
+              (b) gemma3-1b at full width and depth, bf16, tables cut to
+              282,800 rows, on a (1, 2) mesh (both ranks on the same
+              batch), pooled then tp, 6 steps each at B = 2, S = 1024
+              (remat of the layers and of the head's 512-position
+              chunks):
+              losses finite and falling, step 1 within one bf16 ulp of
+              one process's loss, gradients finite and the table blocks'
+              nonzero on both ranks; ms a step, tokens/s, one step's
+              share in the collectives, each rank's peak and their sum
+              under 80 GB beside the state reckoning. (c) ``python -m
+              torch.distributed.run --standalone --nproc-per-node 2 -m
+              repro_torch.launch.train --arch engram-27b --reduced
+              --mesh data=1,model=2 --steps 3`` exits 0.
 
 Phase 6 also runs reduced internvl2-1b like the other reduced configs,
 reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
@@ -4906,6 +4929,558 @@ def train_gemma3(dev, smi: str) -> dict:
                 head_ms=head_ms, tflop=fl)
 
 
+
+# ---------------------------------------------------- phase 25: mesh train
+
+MESH25 = ((2, 2), ("data", "model"))
+MESH25_CASES = (("engram-27b", "pooled"), ("engram-27b", "tp"),
+                ("deepseek-v2-236b", "gather"),
+                ("deepseek-v2-236b", "alltoall"))
+MESH25_STEPS = 4
+GEMMA3_MESH = ((1, 2), ("data", "model"))
+GEMMA3_MESH_STEPS = 6
+# the f32 head's positions a chunk in phase 25(b) (recomputed in backward):
+# two ranks' training state and this process must share the card
+GEMMA3_MESH_CHUNK = 512
+# step 1's bf16 loss on the mesh against the one-process card's: one bf16
+# ulp (8-bit significand) of the loss
+BF16_LOSS_RTOL = 2.0 ** -8
+
+
+def mesh_train_cfg(arch: str):
+    """Phase 25(a)'s reduced configs in f32: engram-27b with its tables at
+    4096 rows (at 2048 of 4096 padded rows the pooled owners overflow,
+    ROADMAP F13, and the mesh then computes another function than one
+    process), deepseek-v2-236b with the capacity raised to 8.0 (nothing
+    drops) and the load-balance loss off (the mesh sums it over token
+    groups, one process over the whole batch: another function)."""
+    from repro_torch.configs import deepseek_v2_236b, engram_27b
+    if arch == "engram-27b":
+        cfg = engram_27b.reduced()
+        return dataclasses.replace(cfg, engram=dataclasses.replace(
+            cfg.engram, table_vocab=4096))
+    cfg = deepseek_v2_236b.reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0, aux_loss_coef=0.0))
+
+
+def mesh25_flags(arch: str, strategy: str):
+    from repro_torch.models.transformer import RunFlags
+    if arch == "engram-27b":
+        return RunFlags(remat=True, engram_strategy=strategy)
+    return RunFlags(remat=True, moe_strategy=strategy)
+
+
+def mesh25_pipe(cfg, B: int = 4, S: int = 64):
+    from repro_torch.data import DataConfig, TokenPipeline
+    return TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=B,
+                                    seq_len=S, seed=0))
+
+
+def gathered(tree, axes, like) -> dict:
+    """path -> the whole leaf (on the CPU), gathered from every rank's
+    block."""
+    import torch
+    from repro_torch.models.params import tree_paths
+    from repro_torch.sharding import collectives as coll
+    ax = dict(tree_paths(axes, is_leaf=lambda x: isinstance(x, tuple)))
+    whole = dict(tree_paths(like))
+    with torch.no_grad():
+        return {k: coll.gather_block(v, tuple(whole[k].shape), ax[k]).cpu()
+                for k, v in tree_paths(tree)}
+
+
+def train_rank(rank: int, world: int, init: str, job: dict,
+               out_dir: str) -> None:
+    """One rank of phase 25: a gloo process group over ``world`` ranks on
+    ``job["device"]``, the mesh ``job["mesh"]``, then ``job["work"]`` (a
+    function of this module) under it; saves what it returns."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import sharding_ctx
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh(*job["mesh"], device=dev)
+        with sharding_ctx(mesh) as ctx:
+            out = globals()[job["work"]](ctx, job, dev, out_dir)
+        out["coords"] = [mesh.coords[a] for a in job["mesh"][1]]
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        job.clear()
+        gc.collect()
+        dist.destroy_process_group()
+
+
+def spawn_ranks(job: dict, world: int) -> list:
+    """``train_rank`` on ``world`` spawned processes (``file://``
+    rendezvous in a temporary directory); every rank's output."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as td:
+        mp.start_processes(train_rank, args=(world, f"file://{td}/rdzv", job,
+                                             td),
+                           nprocs=world, start_method="spawn")
+        return [torch.load(os.path.join(td, f"rank{r}.pt"))
+                for r in range(world)]
+
+
+def mesh_train_work(ctx, job: dict, dev, out_dir: str) -> dict:
+    """Phase 25(a) on one rank: for each case its step-1 gradients
+    (``build_grad_fn``) gathered whole, then ``MESH25_STEPS`` steps of
+    ``build_train_step`` from fresh moments (losses, grad_norms, the
+    parameters gathered); K1 and K2 launches; then the mesh trainer on
+    engram-27b (pooled): 4 steps with a checkpoint every 2, uninterrupted
+    and crashed after step 3, resumed from step 2."""
+    import torch
+    from repro_torch.data import DataConfig, shard_batch
+    from repro_torch.models.model import abstract_params, train_logical_axes
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding.rules import local_params
+    from repro_torch.train import (AdamWConfig, TrainConfig, build_grad_fn,
+                                   build_train_step, init_opt_state, train,
+                                   train_with_restarts)
+    out = {}
+    reset_launches()
+    for arch, strat in MESH25_CASES:
+        cfg, flags = mesh_train_cfg(arch), mesh25_flags(arch, strat)
+        axes = train_logical_axes(cfg, flags)
+        like = abstract_params(cfg)
+
+        def blocks():
+            return tree_map(lambda t: t.to(dev, copy=True), local_params(
+                job["params"][arch], axes, ctx))
+
+        pipe = mesh25_pipe(cfg)
+        params = blocks()
+        t0 = time.perf_counter()
+        loss, grads = build_grad_fn(cfg, flags, ctx=ctx)(
+            params, shard_batch(pipe.batch_at(0), ctx, dev))
+        out[f"{arch}/{strat}/grad_s"] = time.perf_counter() - t0
+        out[f"{arch}/{strat}/grads"] = gathered(grads, axes, like)
+        del grads
+        step = build_train_step(cfg, flags, AdamWConfig(lr=1e-4,
+                                                        warmup_steps=1),
+                                ctx=ctx)
+        opt = init_opt_state(params)
+        losses, norms = [], []
+        for s in range(MESH25_STEPS):
+            _, opt, m = step(params, opt, shard_batch(pipe.batch_at(s), ctx,
+                                                      dev))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[f"{arch}/{strat}/losses"] = losses
+        out[f"{arch}/{strat}/norms"] = norms
+        out[f"{arch}/{strat}/params"] = gathered(params, axes, like)
+        del params, opt
+    out["launches"] = read_launches()
+    cfg = mesh_train_cfg("engram-27b")
+    tc = TrainConfig(steps=4, ckpt_every=2, log_every=100)
+    dc = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=64, seed=0)
+    kw = dict(flags=mesh25_flags("engram-27b", "pooled"),
+              oc=AdamWConfig(lr=1e-4, warmup_steps=1, decay_steps=4),
+              log=lambda s: None, device=dev)
+    whole = train(cfg, tc, dc, ckpt_dir=os.path.join(out_dir, "whole"), **kw)
+    os.environ["REPRO_FAIL_AT_STEP"] = "3"
+    try:
+        res = train_with_restarts(cfg, tc, dc,
+                                  ckpt_dir=os.path.join(out_dir, "crash"),
+                                  **kw)
+    finally:
+        os.environ.pop("REPRO_FAIL_AT_STEP", None)
+    out["restart"] = dict(whole=whole.losses, crash=res.losses,
+                          restarts=res.restarts, steps_run=res.steps_run)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def train_mesh_agree(dev, smi: str) -> dict:
+    """Phase 25(a): reduced engram-27b (pooled, tp) and deepseek-v2-236b
+    (gather, alltoall) in f32 (``mesh_train_cfg``) on a (2, 2) mesh of 4
+    ranks on the card (``mesh_train_work``), against one process on the
+    card from the same weights, with phase 24's conditioning witnesses
+    (one process on the CPU from the weights moved by ``WITNESS_EPS``):
+    step-1 gradients, blocks gathered, within ``witness_limit(1e-4,
+    ...)`` of a leaf's largest; 4 steps' losses within 1e-4 relative,
+    grad_norms within ``witness_limit(1e-4, ...)`` relative, parameters
+    within ``witness_limit(1, ...)`` x ``TRAIN_PARAM_TOL``; K1 and K2
+    launched 0 times on every rank; the mesh trainer crashed after step 3
+    and resumed from step 2: its last 2 losses within 1e-4 relative of
+    the uninterrupted mesh run's."""
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models.model import build_loss_fn, init_params
+    from repro_torch.models.params import tree_map, tree_paths
+    from repro_torch.train import (AdamWConfig, build_train_step,
+                                   init_opt_state)
+    from repro_torch.train.loop import value_and_grad
+    archs = sorted({a for a, _ in MESH25_CASES})
+    cpu = {a: init_params(mesh_train_cfg(a), 0, "cpu") for a in archs}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dict(device=str(dev), mesh=MESH25,
+                             work="mesh_train_work", params=cpu),
+                        math.prod(MESH25[0]))
+    run_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wit = [f"witness{s}" for s in WITNESS_SEEDS]
+
+    def moved(params, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return tree_map(lambda t: t * (1 + WITNESS_EPS * torch.randn(
+            t.shape, generator=gen)), params)
+
+    out = {}
+    for arch in archs:
+        cfg = mesh_train_cfg(arch)
+        flags = mesh25_flags(arch, "local")
+        pipe = mesh25_pipe(cfg)
+        runs = {"card": tree_map(lambda t: t.to(dev, copy=True), cpu[arch]),
+                "cpu": cpu[arch],
+                **{w: moved(cpu[arch], s) for w, s in zip(wit,
+                                                          WITNESS_SEEDS)}}
+        on = lambda k: dev if k == "card" else "cpu"         # noqa: E731
+        grads = {k: dict(tree_paths(value_and_grad(
+            build_loss_fn(cfg, flags), p, shard_batch(
+                pipe.batch_at(0), device=on(k)))[1]))
+            for k, p in runs.items()}
+        g_wit = [grad_share(grads[w], grads["cpu"]) for w in wit]
+        g_lim = witness_limit(1e-4, g_wit)
+        step = build_train_step(cfg, flags, AdamWConfig(lr=1e-4,
+                                                        warmup_steps=1))
+        opts = {k: init_opt_state(p) for k, p in runs.items()}
+        losses = {k: [] for k in runs}
+        norms = {k: [] for k in runs}
+        for s in range(MESH25_STEPS):
+            for k, p in runs.items():
+                _, opts[k], m = step(p, opts[k], shard_batch(
+                    pipe.batch_at(s), device=on(k)))
+                losses[k].append(float(m["loss"]))
+                norms[k].append(float(m["grad_norm"]))
+        n_wit = [max(abs(a - b) / b for a, b in zip(norms[w], norms["cpu"]))
+                 for w in wit]
+        n_lim = witness_limit(1e-4, n_wit)
+        r_wit = [param_ratio(runs[w], cpu[arch]) for w in wit]
+        r_lim = witness_limit(1.0, r_wit)
+        card_grads = {k: v.cpu() for k, v in grads["card"].items()}
+        card_params = {k: v.cpu() for k, v in tree_paths(runs["card"])}
+        for a, strat in MESH25_CASES:
+            if a != arch:
+                continue
+            key = f"{arch}/{strat}"
+            for r in ranks:
+                check(r["launches"] == {"engram_gather": 0, "gated_fuse": 0},
+                      f"mesh train: rank {r['coords']} launched "
+                      f"{r['launches']}")
+            got = ranks[0]
+            for r in ranks[1:]:
+                check(r[f"{key}/losses"] == got[f"{key}/losses"],
+                      f"mesh train {key}: ranks' losses differ")
+            g = grad_share(got[f"{key}/grads"], card_grads)
+            check(g <= g_lim, f"mesh train {key}: step-1 gradients {g:.2e}"
+                  f" of a leaf's largest from one process's (limit "
+                  f"{g_lim:.2e}, witnesses {g_wit})")
+            rel = max(abs(a_ - b) / abs(b) for a_, b in zip(
+                got[f"{key}/losses"], losses["card"]))
+            check(rel <= 1e-4, f"mesh train {key}: losses "
+                  f"{got[f'{key}/losses']} against {losses['card']}")
+            nrel = max(abs(a_ - b) / b for a_, b in zip(
+                got[f"{key}/norms"], norms["card"]))
+            check(nrel <= n_lim, f"mesh train {key}: grad_norms "
+                  f"{got[f'{key}/norms']} against {norms['card']} (limit "
+                  f"{n_lim:.2e})")
+            r_ = param_ratio(got[f"{key}/params"], card_params)
+            check(r_ <= r_lim, f"mesh train {key}: parameters {r_:.3f} x "
+                  f"{TRAIN_PARAM_TOL} from one process's (limit "
+                  f"{r_lim:.3f}, witnesses {r_wit})")
+            print(f"mesh train {key} [{smi}]: f32, (2, 2) mesh of 4 ranks "
+                  f"on the card against one process on the card: step-1 "
+                  f"gradients {g:.2e} of a leaf's largest (limit "
+                  f"{g_lim:.2e}); 4 steps at lr 1e-4, losses within "
+                  f"{rel:.1e} (limit 1e-4), grad_norms within {nrel:.1e} "
+                  f"(limit {n_lim:.1e}), parameters {r_:.3f} x "
+                  f"{TRAIN_PARAM_TOL} (limit {r_lim:.3f}); step-1 "
+                  f"gradients took {got[f'{key}/grad_s']:.2f} s on rank 0; "
+                  "K1 and K2 launched 0 times")
+            out[key] = dict(grad_share=g, grad_limit=g_lim, loss_rel=rel,
+                            norm_rel=nrel, norm_limit=n_lim, param_ratio=r_,
+                            param_limit=r_lim)
+        del runs, opts, grads
+    rs = ranks[0]["restart"]
+    check(rs["restarts"] == 1 and rs["steps_run"] == 2,
+          f"mesh restart: {rs['restarts']} restarts, {rs['steps_run']} steps "
+          "after the last one (want 1 and 2: resumed at step 2)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rs["crash"],
+                                                   rs["whole"][2:]))
+    check(rel <= 1e-4, f"mesh restart: losses {rs['crash']} against "
+          f"{rs['whole'][2:]}")
+    print(f"mesh train restart [{smi}]: engram-27b pooled on the 4-rank "
+          f"mesh, crashed after step 3, resumed from step 2's checkpoint: "
+          f"last 2 losses within {rel:.2e} of the uninterrupted run's "
+          f"(limit 1e-4); 4 ranks spawn to exit {run_s:.1f} s")
+    out["restart"] = dict(loss_rel=rel, spawn_s=run_s)
+    return out
+
+
+GEMMA3_STRATEGIES = ("pooled", "tp")
+
+
+def gemma3_mesh_cfg():
+    from repro_torch.configs import get_config
+    full = get_config("gemma3-1b")
+    return dataclasses.replace(full, engram=dataclasses.replace(
+        full.engram, table_vocab=GEMMA3_TRAIN_ROWS))
+
+
+class CollectiveClock:
+    """Times the collectives' primitives (``sharding.collectives``) while
+    on: each call's host time from a synchronised device to its return
+    (gloo stages CUDA tensors through the host, so the call returns with
+    the data moved)."""
+    NAMES = ("_all_to_all", "_psum_", "_psum_scatter", "_gather_along")
+
+    def __init__(self, dev):
+        from repro_torch.sharding import collectives as coll
+        self.coll, self.s, self.n, self.dev = coll, 0.0, 0, dev
+        self.saved = {k: getattr(coll, k) for k in self.NAMES}
+
+    def __enter__(self):
+        import torch
+
+        def wrap(fn):
+            def timed(*a, **kw):
+                if self.dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                self.s += time.perf_counter() - t
+                self.n += 1
+                return out
+            return timed
+
+        for k, fn in self.saved.items():
+            setattr(self.coll, k, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.coll, k, fn)
+        return False
+
+
+def gemma3_mesh_work(ctx, job: dict, dev, out_dir: str) -> dict:
+    """Phase 25(b) on one rank: for each of ``GEMMA3_STRATEGIES`` the
+    rank's blocks of the seed-0 draw (``init_params(block=)``), step 1 as
+    ``build_grad_fn`` then ``adamw_update`` (its loss, every gradient
+    finite, the rank's table blocks' gradients nonzero), steps 2 to
+    ``GEMMA3_MESH_STEPS`` through ``build_train_step`` (times), then one
+    step with its collectives timed (``CollectiveClock``); the rank's
+    peak device memory per strategy."""
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models.model import init_params, train_logical_axes
+    from repro_torch.models.params import tree_leaves, tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import (AdamWConfig, adamw_update, build_grad_fn,
+                                   build_train_step, init_opt_state)
+    from repro_torch.train.optimizer import decay_mask
+    cfg = job["cfg"]
+    B, S, steps = job["B"], job["S"], GEMMA3_MESH_STEPS
+    pipe = mesh25_pipe(cfg, B, S)
+    oc = AdamWConfig(lr=3e-4, warmup_steps=3, decay_steps=steps)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    reset_launches()
+    for strat in GEMMA3_STRATEGIES:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        flags = RunFlags(remat=True, xent_remat=True,
+                         logits_chunk=GEMMA3_MESH_CHUNK,
+                         engram_strategy=strat)
+        params = init_params(cfg, 0, dev, block=train_logical_axes(cfg,
+                                                                   flags))
+        opt = init_opt_state(params)
+        if cuda:
+            torch.cuda.empty_cache()
+        counts = {"all": sum(t.numel() for t in tree_leaves(params)),
+                  "tables": sum(layer["tables"].numel() for layer in
+                                params["engram"]["layers"])}
+        grad_fn = build_grad_fn(cfg, flags, ctx=ctx)
+        loss, grads = grad_fn(params, shard_batch(pipe.batch_at(0), ctx,
+                                                  dev))
+        bad = [p for p, g in tree_paths(grads)
+               if not torch.isfinite(g).all()]
+        dead = [j for j, layer in enumerate(grads["engram"]["layers"])
+                if not layer["tables"].abs().max().item() > 0]
+        adamw_update(oc, params, grads, opt, decay_mask(cfg), grad_fn.split)
+        losses = [float(loss)]
+        del grads, loss
+        step = build_train_step(cfg, flags, oc, ctx=ctx)
+        times = []
+        for s in range(1, steps):
+            batch = shard_batch(pipe.batch_at(s), ctx, dev)
+            sync()
+            t0 = time.perf_counter()
+            _, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        batch = shard_batch(pipe.batch_at(steps), ctx, dev)
+        sync()
+        with CollectiveClock(dev) as clock:
+            t0 = time.perf_counter()
+            float(step(params, opt, batch)[2]["loss"])
+            prof_s = time.perf_counter() - t0
+        out[strat] = dict(losses=losses, times=times, bad=bad, dead=dead,
+                          counts=counts, prof_s=prof_s, coll_s=clock.s,
+                          coll_n=clock.n,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9
+                          if cuda else 0.0)
+        del params, opt, step, grad_fn
+    out["launches"] = read_launches()
+    return out
+
+
+def train_mesh_gemma3(dev, smi: str, B: int = 2, S: int = 1024) -> dict:
+    """Phase 25(b): gemma3-1b at full width and depth (26 layers), bf16,
+    its tables cut to ``GEMMA3_TRAIN_ROWS`` rows, on a (1, 2) mesh of 2
+    ranks on the card, both holding the same batch (B = 2, S = 1024; the
+    case where each rank's 1/2 share of the gradient matters), remat on
+    for the layers' periods and for the f32 head's chunks of
+    ``GEMMA3_MESH_CHUNK`` positions (with the layers' alone and chunks of
+    2048, two ranks beside this process did not fit the card after the
+    earlier phases), lr 3e-4, ``pooled`` then ``tp``, ``GEMMA3_MESH_STEPS`` steps each
+    (``gemma3_mesh_work``): every loss finite and the last 3's mean below
+    the first 3's; step 1's loss within ``BF16_LOSS_RTOL`` of one process
+    on the card from the same weights (the seed-0 draw, evaluated here
+    first); every gradient finite and every table block's gradient
+    nonzero on both ranks; K1 and K2 launched 0 times; the ranks' peaks
+    summed under 80 GB, beside the reckoning of their state. Reports ms a
+    step (steps 3 to 6), tokens/s, and one step's share in the
+    collectives."""
+    import statistics
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models.model import build_loss_fn, init_params
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import RunFlags
+    cfg = gemma3_mesh_cfg()
+    held = torch.cuda.memory_allocated() / 1e9
+    check(held < 1, f"gemma3 mesh: {held:.2f} GB allocated before the phase")
+    params = init_params(cfg, 0, dev)
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    n_tab = sum(layer["tables"].numel()
+                for layer in params["engram"]["layers"])
+    with torch.no_grad():
+        one = float(build_loss_fn(cfg, RunFlags(remat=True))(
+            params, shard_batch(mesh25_pipe(cfg, B, S).batch_at(0),
+                                device=dev)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"gemma3 mesh [{smi}]: {free / 2**30:.2f} of {total / 2**30:.2f} "
+          f"GiB of the card free before the ranks start (this process "
+          f"holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated,"
+          f" {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dict(device=str(dev), mesh=GEMMA3_MESH,
+                             work="gemma3_mesh_work", cfg=cfg, B=B, S=S),
+                        math.prod(GEMMA3_MESH[0]))
+    run_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out = {"spawn_s": run_s, "one_process_loss": one}
+    for r in ranks:
+        check(r["launches"] == {"engram_gather": 0, "gated_fuse": 0},
+              f"gemma3 mesh: rank {r['coords']} launched {r['launches']}")
+    for strat in GEMMA3_STRATEGIES:
+        rs = [r[strat] for r in ranks]
+        losses = rs[0]["losses"]
+        label = f"gemma3-1b mesh train {strat}"
+        for r in rs:
+            check(r["losses"] == losses, f"{label}: ranks' losses differ")
+            check(not r["bad"], f"{label}: non-finite gradients in "
+                  f"{r['bad'][:5]}")
+            check(not r["dead"], f"{label}: zero table gradients in Engram "
+                  f"layers {r['dead']}")
+        check(all(math.isfinite(x) for x in losses), f"{label}: {losses}")
+        first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+        check(last < first, f"{label}: the loss did not fall: {losses}")
+        rel = abs(losses[0] - one) / abs(one)
+        check(rel <= BF16_LOSS_RTOL, f"{label}: step 1 loss {losses[0]} "
+              f"against one process's {one}")
+        peaks = [r["peak_gb"] for r in rs]
+        check(sum(peaks) < 80, f"{label}: peaks {peaks} GB")
+        med = statistics.median(rs[0]["times"][1:])
+        share = max(r["coll_s"] / r["prof_s"] for r in rs)
+        c = rs[0]["counts"]
+        # the state a rank holds: its parameters (bf16), their gradients
+        # (bf16) and f32 moments, 12 bytes an element
+        state = [12 * r["counts"]["all"] / 1e9 for r in rs]
+        print(f"{label} [{smi}]: {cfg.n_layers} layers d_model "
+              f"{cfg.d_model}, (1, 2) mesh of 2 ranks on the card over gloo,"
+              f" both ranks on the same batch B = {B}, S = {S}; "
+              f"{(n_all - n_tab) / 1e9:.3f} B dense parameters whole on "
+              f"each rank, {c['tables'] / 1e9:.3f} of {n_tab / 1e9:.3f} B "
+              f"table elements a rank; losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f" (first 3 {first:.4f}, last 3 {last:.4f}); step 1 within "
+              f"{rel:.2e} of one process's {one:.4f} (limit "
+              f"{BF16_LOSS_RTOL:.2e}); steps 3 to {GEMMA3_MESH_STEPS} median "
+              f"{med * 1e3:.1f} ms (min {min(rs[0]['times'][1:]) * 1e3:.1f},"
+              f" max {max(rs[0]['times'][1:]) * 1e3:.1f}), "
+              f"{B * S / med:.0f} tokens/s; one step with its collectives "
+              f"timed: {max(r['prof_s'] for r in rs) * 1e3:.1f} ms, "
+              f"{100 * share:.1f} % in {rs[0]['coll_n']} gloo collectives "
+              f"(slowest rank); peak device memory per rank "
+              + " / ".join(f"{p:.2f}" for p in peaks)
+              + f" GB, summed {sum(peaks):.2f} GB, against a state of "
+              + " / ".join(f"{x:.2f}" for x in state)
+              + " GB a rank (12 B an element: bf16 parameters and "
+              "gradients, f32 moments) plus activations; every gradient "
+              "finite, every table block's nonzero; K1 and K2 launched 0 "
+              "times")
+        out[strat] = dict(losses=losses, step1_rel=rel, step_ms=med * 1e3,
+                          tokens_per_s=B * S / med, collective_share=share,
+                          peak_gb=peaks, state_gb=state)
+    print(f"gemma3 mesh: 2 ranks spawn to exit {run_s:.1f} s")
+    return out
+
+
+def train_cli_torchrun(smi: str) -> dict:
+    """Phase 25(c): the training CLI on a (1, 2) mesh under torchrun, two
+    ranks on the one card: exits 0 and reports its 3 steps."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "engram-27b", "--reduced", "--mesh", "data=1,model=2",
+           "--steps", "3", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env=env, cwd=ROOT)
+    run_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"torchrun train: exit {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    done = [x for x in res.stdout.splitlines() if "[train] done" in x]
+    check(len(done) == 1 and "3 steps" in done[0],
+          f"torchrun train: {res.stdout[-2000:]}")
+    print(f"torchrun train [{smi}]: {' '.join(cmd[1:])}: exit 0 in "
+          f"{run_s:.1f} s; {done[0]}")
+    return dict(seconds=run_s, line=done[0])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5094,6 +5669,17 @@ def main() -> int:
     tr = train_gemma3(dev, smi)
     print(f"train: phase 24 took {time.perf_counter() - t24:.1f} s")
 
+    # phase 25: training under the mesh, ranks on the one card over gloo
+    t25 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_mesh = train_mesh_agree(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_mesh["gemma3-1b"] = train_mesh_gemma3(dev, smi)
+    tr_mesh["torchrun"] = train_cli_torchrun(smi)
+    print(f"mesh train: phase 25 took {time.perf_counter() - t25:.1f} s")
+
     kernels = [
         dict(name="engram_gather", route="cuda",
              source="src/repro_torch/csrc/engram_gather.cu",
@@ -5199,7 +5785,8 @@ def main() -> int:
                         "gated_fuse_T256": k2[256],
                         "gated_fuse_T2112": k2[2112],
                         "train_agree_reduced_f32": tr_agree,
-                        "train_gemma3_1b_B4_S1024": tr}))
+                        "train_gemma3_1b_B4_S1024": tr,
+                        "train_mesh": tr_mesh}))
     print(f"profiler: {len(CUPTI_LOST)} sessions lost {min(CUPTI_LOST)} to "
           f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records "
           f"({CUPTI_LOST.count(CUPTI_PRIME + 1)} lost the marker too and "

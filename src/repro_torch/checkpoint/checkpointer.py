@@ -26,6 +26,12 @@ Fault-tolerance contract:
 ``save`` copies every leaf to the host synchronously (the device->host
 snapshot) and writes the files on a background thread when
 ``async_write``, overlapping the write with the next training steps.
+
+Under a mesh of ranks (``save(block=, like=)``, every rank calling it)
+each sharded leaf is gathered whole over its axes and rank 0 alone takes
+the host copies and writes them (asynchronously if ``async_write``);
+``save`` ends in a barrier, and so does ``wait`` once such a save was
+made, so every rank returns from ``wait`` after rank 0's write is done.
 """
 from __future__ import annotations
 
@@ -98,14 +104,38 @@ class Checkpointer:
         self.async_write = async_write
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._ranked = False          # a save under a mesh was made
 
     # ------------------------------------------------------------------ save
 
-    def save(self, step: int, tree: Any, meta: Optional[dict] = None) -> None:
+    def save(self, step: int, tree: Any, meta: Optional[dict] = None,
+             block=None, like=None) -> None:
         """Snapshot ``tree`` at ``step``. Returns once the host copies are
-        taken; the disk write may continue in the background."""
+        taken; the disk write may continue in the background.
+
+        ``block``: ``tree`` holds this rank's blocks under these logical
+        axes (``restore``'s ``block``) of the whole leaves ``like`` (the
+        same structure, e.g. on the ``meta`` device); every rank of the
+        current sharding context calls it, and the leaves are gathered
+        whole (``sharding.collectives.gather_block``) for rank 0 to
+        write."""
         self.wait()                           # one in-flight write at a time
-        host = [(n, *_to_numpy(t)) for n, t in _flatten(tree)]
+        flat = _flatten(tree)
+        if block is not None:
+            import torch.distributed as dist
+            from ..sharding import collectives as coll
+            axes, whole = dict(_flatten(block)), dict(_flatten(like))
+            with torch.no_grad():
+                flat = [(n, coll.gather_block(t, tuple(whole[n].shape),
+                                              axes[n])) for n, t in flat]
+            self._ranked = True
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return
+        host = [(n, *_to_numpy(t)) for n, t in flat]
+        del flat
+        if block is not None:
+            dist.barrier()
         if self.async_write:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, meta), daemon=True)
@@ -139,6 +169,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._ranked:
+            import torch.distributed as dist
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

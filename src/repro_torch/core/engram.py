@@ -153,7 +153,8 @@ def retrieve_tp(ecfg: EngramConfig, tables, idx):
     return coll.psum_scatter(rows, axes, dim=2)
 
 
-def retrieve_pooled(ecfg: EngramConfig, tables, idx, *, slack: float = 2.0):
+def retrieve_pooled(ecfg: EngramConfig, tables, idx, *, slack: float = 2.0,
+                    use_kernel: bool = True):
     """CXL-pool analogue: fixed-capacity request/reply all_to_all over every
     mesh axis (the table row-sharded over all of them).
 
@@ -163,7 +164,9 @@ def retrieve_pooled(ecfg: EngramConfig, tables, idx, *, slack: float = 2.0):
     n-gram costs one fetch), each owner takes at most
     ``ceil(R / N * slack)`` of a rank's R requests (later ones are dropped:
     their rows come back as zeros, as in the reference), the owner reads
-    the rows through K1 (``gather_rows``: the pool read), and the rows fan
+    the rows through K1 (``gather_rows``: the pool read; with
+    ``use_kernel=False`` by plain indexing, as the reference reads them,
+    which autograd differentiates: training's route), and the rows fan
     out to every duplicate. Returns (B_loc, S, T*hd)."""
     ctx = current_ctx()
     if ctx is None:
@@ -219,10 +222,10 @@ def retrieve_pooled(ecfg: EngramConfig, tables, idx, *, slack: float = 2.0):
     # request -> owner
     recv_req = coll.all_to_all(send_req[:, :cap], pool_axes)
     recv_tid = coll.all_to_all(send_tid[:, :cap], pool_axes)
-    # owner-side gather: the pool read, through K1
+    # owner-side gather: the pool read, through K1 or plain indexing
     safe = recv_req.clamp(0, v_loc - 1).to(torch.int64)
-    rows = gather_rows(flat, (recv_tid.to(torch.int64) * per_table
-                              + safe).reshape(-1))           # (N*cap, hd)
+    gid = (recv_tid.to(torch.int64) * per_table + safe).reshape(-1)
+    rows = gather_rows(flat, gid) if use_kernel else flat[gid]  # (N*cap, hd)
     rows = rows * (recv_req.reshape(-1) >= 0)[:, None].to(rows.dtype)
     # reply -> requester: each row lands in its unique group's slot, then
     # fans out to every duplicate
@@ -259,8 +262,14 @@ STRATEGIES = {
 }
 
 
-def retrieve(ecfg: EngramConfig, tables, idx, strategy: str = None):
-    return STRATEGIES[strategy or ecfg.strategy].fn(ecfg, tables, idx)
+def retrieve(ecfg: EngramConfig, tables, idx, strategy: str = None,
+             use_kernel: bool = True):
+    """Rows by ``strategy`` (default the config's); ``use_kernel=False``
+    makes ``pooled``'s owners read without K1 (training)."""
+    name = strategy or ecfg.strategy
+    if name == "pooled":
+        return retrieve_pooled(ecfg, tables, idx, use_kernel=use_kernel)
+    return STRATEGIES[name].fn(ecfg, tables, idx)
 
 
 def strategy_store(ecfg: EngramConfig, strategy: str = None):

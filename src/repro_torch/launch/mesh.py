@@ -74,6 +74,20 @@ def _rank(mesh: Mesh, coords: dict) -> int:
     return acc
 
 
+def parse_mesh(spec: str, device=None) -> Mesh:
+    """The reference's ``launch.train.parse_mesh`` of a spec:
+    ``"data=4,model=2"`` -> that mesh over the process group's ranks, on
+    ``device`` (``make_mesh``'s). The reference's other branch (no spec:
+    every device on the data axis) has no counterpart: without
+    ``--mesh`` the port's trainer starts no process group."""
+    axes, sizes = [], []
+    for part in spec.split(","):
+        name, size = part.split("=")
+        axes.append(name)
+        sizes.append(int(size))
+    return make_mesh(tuple(sizes), tuple(axes), device)
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")

@@ -6,22 +6,42 @@
 
 The reference's arguments, plus ``--device`` (the card unless it says
 ``cpu``). Restarts resume automatically from the newest complete
-checkpoint in ``--ckpt-dir``. ``--mesh`` names the reference's sharded
-train step, which is not ported (ROADMAP item 10b): it raises rather than
-training on one device.
+checkpoint in ``--ckpt-dir``.
+
+``--mesh data=1,model=2`` trains the sharded step (``train.loop``) on a
+mesh of ranks, one process each, started by torchrun::
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch engram-27b --reduced \
+        --mesh data=1,model=2 --steps 3 [--device cpu]
+
+The process group (gloo) is initialised from torchrun's environment
+(``env://``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
+or from ``main``'s ``init_method`` (e.g. a ``file://`` rendezvous, with
+``RANK`` and ``WORLD_SIZE`` in the environment). A rank trains on card
+``LOCAL_RANK`` modulo the cards present (ranks share a card when there
+are fewer), or on the CPU with ``--device cpu``. Rank 0 prints and writes
+``--metrics-out``.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import importlib
 import json
+import os
 import sys
+
+import torch
+import torch.distributed as dist
 
 from ..configs.base import get_config
 from ..data import DataConfig
 from ..models.transformer import RunFlags
+from ..sharding.rules import sharding_ctx
 from ..train.loop import TrainConfig, train, train_with_restarts
 from ..train.optimizer import AdamWConfig
+from .mesh import parse_mesh
 
 
 def reduced_config(arch: str):
@@ -31,7 +51,32 @@ def reduced_config(arch: str):
     return mod.reduced()
 
 
-def main(argv=None) -> int:
+def _init_ranks(device, init_method):
+    """Initialise the gloo process group (``env://`` unless
+    ``init_method``) and return this rank's device."""
+    if init_method is None and "RANK" not in os.environ:
+        raise RuntimeError(
+            "--mesh trains one process per rank: start it under torchrun "
+            "(python -m torch.distributed.run --nproc-per-node N -m "
+            "repro_torch.launch.train ...), or pass main an init_method "
+            "with RANK and WORLD_SIZE set")
+    kw = {} if init_method is None else dict(
+        rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]))
+    dist.init_process_group("gloo", init_method=init_method or "env://",
+                            timeout=datetime.timedelta(seconds=600), **kw)
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device by default and "
+                           "none is available; pass --device cpu")
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                       % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def main(argv=None, init_method: str | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--reduced", action="store_true",
@@ -54,10 +99,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="'cpu' to train on the host; default the card")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the sharded train step is not ported "
-            "(ROADMAP item 10b, training under the mesh)")
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     tc = TrainConfig(steps=args.steps, grad_accum=args.grad_accum,
@@ -68,11 +109,26 @@ def main(argv=None) -> int:
     flags = RunFlags(remat=not args.no_remat, engram_strategy=args.engram)
     oc = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                      decay_steps=args.steps)
-    kw = dict(flags=flags, oc=oc, device=args.device)
-    if args.ckpt_dir:
-        res = train_with_restarts(cfg, tc, dc, ckpt_dir=args.ckpt_dir, **kw)
-    else:
-        res = train(cfg, tc, dc, **kw)
+    device, mesh, lead = args.device, None, True
+    if args.mesh:
+        device = _init_ranks(args.device, init_method)
+        lead = dist.get_rank() == 0
+    try:
+        if args.mesh:
+            mesh = parse_mesh(args.mesh, device)
+        kw = dict(flags=flags, oc=oc, device=device,
+                  log=print if lead else (lambda s: None))
+        with sharding_ctx(mesh):
+            if args.ckpt_dir:
+                res = train_with_restarts(cfg, tc, dc,
+                                          ckpt_dir=args.ckpt_dir, **kw)
+            else:
+                res = train(cfg, tc, dc, **kw)
+    finally:
+        if args.mesh:
+            dist.destroy_process_group()
+    if not lead:
+        return 0
 
     print(f"[train] done: {res.steps_run} steps, "
           f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}, "

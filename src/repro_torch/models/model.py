@@ -103,11 +103,39 @@ def mesh_logical_axes(cfg: ModelConfig):
     return keep(params_logical_axes(cfg))
 
 
-def _engram_rows_all_layers(cfg: ModelConfig, flags: RunFlags, params, idx):
+def train_logical_axes(cfg: ModelConfig, flags: RunFlags = RunFlags()):
+    """The layout a rank trains on under ``flags``: ``mesh_logical_axes``,
+    except that the token embedding is split only when
+    ``flags.embed_local_gather`` reads it block-wise, and the Engram tables
+    follow the retrieval strategy (``flags.engram_strategy``, else the
+    config's): ``pooled`` keeps them split over every axis; ``tp`` takes
+    the rank's block over the model axis, whole along the others, since
+    ``retrieve_tp`` reads rows split over the model axis alone, as the
+    reference's ``shard_map`` reshards them (their rows then take
+    ``eng_emb``'s axes, the axis ``tp`` splits the fused dim over); any
+    other strategy reads them whole."""
+    axes = mesh_logical_axes(cfg)
+    if not flags.embed_local_gather:
+        axes["embed"] = {k: (None,) * len(v) for k, v in axes["embed"].items()}
+    strategy = flags.engram_strategy or (
+        cfg.engram.strategy if cfg.engram else None)
+    for layer in axes.get("engram", {}).get("layers", []):
+        if strategy == "tp":
+            layer["tables"] = tuple("eng_emb" if a == "eng_vocab" else a
+                                    for a in layer["tables"])
+        elif strategy != "pooled":
+            layer["tables"] = (None,) * len(layer["tables"])
+    return axes
+
+
+def _engram_rows_all_layers(cfg: ModelConfig, flags: RunFlags, params, idx,
+                            mode: str):
     """Retrieve rows for every Engram layer up front. idx (B,S,T). Under a
     mesh ``tp`` gives each rank its block of the fused dim; the blocks are
-    reassembled here, since the port's fusion reads whole rows."""
-    rows = [retrieve(cfg.engram, layer["tables"], idx, flags.engram_strategy)
+    reassembled here, since the port's fusion reads whole rows. In mode
+    ``train`` ``pooled``'s owners read without K1 (no backward)."""
+    rows = [retrieve(cfg.engram, layer["tables"], idx, flags.engram_strategy,
+                     use_kernel=mode != "train")
             for layer in params["engram"]["layers"]]
     F = len(cfg.engram.orders) * cfg.engram.emb_dim
     if rows and rows[0].shape[-1] != F:
@@ -168,7 +196,7 @@ def forward(cfg: ModelConfig, flags: RunFlags, params, batch, mode: str,
         else:
             rows = _engram_rows_all_layers(
                 cfg, flags, params,
-                engram_indices(cfg.engram, batch["tokens"]))
+                engram_indices(cfg.engram, batch["tokens"]), mode)
 
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device) \
@@ -306,7 +334,7 @@ def _decode_one(cfg: ModelConfig, flags: RunFlags, params, state, token,
     positions = state["positions"]
     if cfg.engram_layers() and "engram" in params and rows is None:
         idx = decode_engram_indices(cfg.engram, state["last_tokens"], token)
-        rows = _engram_rows_all_layers(cfg, flags, params, idx)
+        rows = _engram_rows_all_layers(cfg, flags, params, idx, "decode")
     # int64 once per step: int32 indices would be widened in every layer
     h, new_caches, _ = forward(cfg, flags, params,
                                {"tokens": token[:, None]}, "decode",

@@ -131,18 +131,47 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
     return out
 
 
-def tree_init(defs, seed: int = 0, device=None, host_leaves=None):
+def _zip_map(fn, defs, axes):
+    """``fn(def, axes)`` over a def tree and a logical-axes tree of its
+    structure (whose leaves are tuples), in ``tree_map``'s order."""
+    if isinstance(defs, dict):
+        return {k: _zip_map(fn, v, axes[k]) for k, v in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return [_zip_map(fn, v, a) for v, a in zip(defs, axes)]
+    return fn(defs, axes)
+
+
+def tree_init(defs, seed: int = 0, device=None, host_leaves=None,
+              block=None):
     """Materialise a def tree from one seeded ``torch.Generator`` on
     ``device``. The draws are not the reference's (``jax.random`` cannot be
     reproduced in torch); tests bridge the reference's weights instead.
     ``host_leaves`` maps ``id(def)`` to a mapped host tensor that leaf is
-    drawn into (see ``_init_leaf``)."""
+    drawn into (see ``_init_leaf``). ``block``: a logical-axes tree of
+    ``defs``' structure; each leaf is then drawn whole and only this
+    rank's block of it kept, as storage of its own, under the current
+    sharding context (the whole leaf freed before the next is drawn), so
+    a rank holds the blocks of the same draw as every other rank."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     host_leaves = host_leaves or {}
-    return tree_map(lambda d: _init_leaf(d, gen, dev, host_leaves.get(id(d))),
-                    defs)
+    leaf = lambda d: _init_leaf(d, gen, dev, host_leaves.get(id(d)))  # noqa
+    if block is None:
+        return tree_map(leaf, defs)
+    from ..sharding.rules import current_ctx
+    ctx = current_ctx()
+    if ctx is None:
+        raise ValueError("tree_init(block=...) needs a sharding context")
+
+    def own_block(d, axes):
+        whole = leaf(d)
+        part = ctx.block(whole, tuple(axes))
+        if part.shape == whole.shape:
+            return whole
+        return part.clone(memory_format=torch.contiguous_format)
+
+    return _zip_map(own_block, defs, block)
 
 
 def to_torch(a, device: torch.device) -> torch.Tensor:
@@ -167,10 +196,13 @@ def table_memory_for(cfg, flags=None) -> str | None:
 
 
 def init_params(cfg, seed: int = 0, device=None, dtype=None,
-                table_memory: str | None = None, host_tables=None):
+                table_memory: str | None = None, host_tables=None,
+                block=None):
     """Seeded random parameters for ``cfg`` drawn on ``device`` (the card
     unless the caller passes ``device="cpu"``), in ``dtype`` (default
-    ``cfg.dtype``; norm scales stay f32 as in the reference).
+    ``cfg.dtype``; norm scales stay f32 as in the reference). ``block``:
+    keep this rank's blocks only (``tree_init``), e.g. of
+    ``models.model.train_logical_axes(cfg)``.
 
     ``table_memory`` is ``table_memory_for``'s answer for the run:
     ``"pinned_host"`` puts every Engram layer's tables in
@@ -187,6 +219,10 @@ def init_params(cfg, seed: int = 0, device=None, dtype=None,
                          "'pinned_host'")
     defs = model_defs(cfg, dtype)
     dev = resolve_device(device)
+    if block is not None:
+        if table_memory is not None:
+            raise ValueError("init_params: block= with host tables")
+        return tree_init(defs, seed, dev, block=block)
     if table_memory is None or dev.type == "cpu" or "engram" not in defs:
         return tree_init(defs, seed, dev)
     from ..kernels.engram_gather.host import host_empty

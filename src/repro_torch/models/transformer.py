@@ -24,6 +24,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding.rules import current_ctx, use_ctx
 from .attention import attention, attn_defs, decode_attention, init_kv_cache
 from .layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 from .mamba import init_mamba_cache, mamba_defs, mamba_forward
@@ -228,12 +229,18 @@ def apply_segment(cfg: ModelConfig, flags: RunFlags, seg: Segment,
             new_cache.append(nc)
         return h, new_cache, None
 
+    ctx = current_ctx()
+
     def run(h_, a, *ps, start):
-        for li, p in zip(seg.layers[start:start + len(ps)], ps):
-            h_, _, ax = apply_block(cfg, flags, li, p, h_, positions, None,
-                                    mode)
-            if ax is not None:
-                a = a + ax
+        # backward recomputes a checkpointed period on the autograd
+        # engine's thread for CUDA tensors, where the mesh's context (a
+        # thread-local) is not set: the period carries its own
+        with use_ctx(ctx):
+            for li, p in zip(seg.layers[start:start + len(ps)], ps):
+                h_, _, ax = apply_block(cfg, flags, li, p, h_, positions,
+                                        None, mode)
+                if ax is not None:
+                    a = a + ax
         return h_, a
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -141,6 +141,16 @@ class ShardCtx:
             entries.pop()
         return tuple(entries)
 
+    def split_axes(self, shape: tuple[int, ...],
+                   logical_axes: tuple[Optional[str], ...]) -> tuple:
+        """The mesh axes, in layout order, that a whole tensor of ``shape``
+        is split over (``spec_for``'s); it is repeated over the others."""
+        used = set()
+        for entry in self.spec_for(tuple(shape), tuple(logical_axes)):
+            if entry is not None:
+                used.update((entry,) if isinstance(entry, str) else entry)
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
     def block(self, x: torch.Tensor,
               logical_axes: tuple[Optional[str], ...]) -> torch.Tensor:
         """This rank's block of the whole tensor ``x`` under its logical
@@ -197,6 +207,20 @@ def sharding_ctx(mesh: Optional[Mesh], rules: Optional[dict] = None):
         _TLS.ctx = prev
 
 
+@contextlib.contextmanager
+def use_ctx(ctx: Optional[ShardCtx]):
+    """Install ``ctx`` (a ``ShardCtx`` or None) as it is: for code that
+    runs on another thread than the one that built it, such as a
+    checkpointed body recomputed by the autograd engine's device thread
+    (the context is thread-local)."""
+    prev = current_ctx()
+    _TLS.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _TLS.ctx = prev
+
+
 def axis_size(logical: str) -> int:
     """Product of mesh-axis sizes behind a logical axis (1 w/o ctx)."""
     ctx = current_ctx()
@@ -227,3 +251,17 @@ def local_params(tree, axes_tree, ctx: Optional[ShardCtx] = None):
     if isinstance(tree, (list, tuple)):
         return [local_params(v, a, ctx) for v, a in zip(tree, axes_tree)]
     return ctx.block(tree, axes_tree)
+
+
+def split_axes_tree(like, axes_tree, ctx: Optional[ShardCtx] = None) -> dict:
+    """path -> the mesh axes each leaf of the whole tree ``like`` (tensors
+    of the whole shapes, e.g. on the ``meta`` device) is split over under
+    its logical axes (``axes_tree``), paths as ``models.params.tree_paths``
+    names them. What a sharded train step reads to sum a gradient over the
+    axes its leaf is repeated on, and a norm over those it is split on."""
+    from ..models.params import tree_paths
+    ctx = ctx or current_ctx()
+    axes = dict(tree_paths(axes_tree, is_leaf=lambda x: isinstance(
+        x, tuple) and all(a is None or isinstance(a, str) for a in x)))
+    return {path: ctx.split_axes(tuple(t.shape), axes[path])
+            for path, t in tree_paths(like)}

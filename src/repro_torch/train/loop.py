@@ -16,8 +16,38 @@ The control plane on top of the train step, as in the reference:
 The step runs eagerly on the parameters' device (the card unless the
 caller passes ``device="cpu"``). Gradients come from autograd through the
 plain forward (``models.model.build_loss_fn``), so no kernel runs: K1 and
-K2 have no backward. Training under a mesh (a sharded train step) is not
-ported (ROADMAP item 10b); ``train.ddp`` is the data-parallel step.
+K2 have no backward. ``train.ddp`` is the data-parallel step.
+
+Under a sharding context (a mesh of ranks, one process each) the step is
+sharded: each rank holds its blocks of ``models.model.
+train_logical_axes(cfg, flags)`` (the Engram tables, the routed experts,
+an untied embedding read block-wise) and every other leaf whole, takes
+its block of the batch (split over ``data``, repeated over ``model``),
+and runs the forward with the mesh's collectives, whose backwards are
+their transposes (``sharding.collectives``). The gradients follow one
+rule:
+
+  each rank back-propagates its local loss divided by the number of
+  ranks N, then sums every leaf's gradient over the mesh axes that leaf
+  is repeated on (``sync_grads``).
+
+Why it gives the global mean's gradient: rank r's loss L_r is the mean
+over its block of the batch, the same on every rank of a data group, so
+F = (1/N) sum_r L_r = (1/D) sum_d L_d is the mean over the D data
+groups' blocks, the whole batch's mean loss (blocks of equal size).
+Read the ranks together as one program in which each rank's copy of a
+repeated leaf is its own variable: F's gradient with respect to a leaf
+is the sum over its copies of F's gradient with respect to each copy,
+and each collective's transpose carries the cotangents between ranks as
+the program's chain rule does (``psum``'s transpose is ``psum``). Rank r
+back-propagating L_r / N gives its copy's share; ``sync_grads`` sums the
+copies: over every axis for a whole dense leaf, over ``data`` for a
+leaf split over ``model`` (the ``tp`` tables, the experts), over none
+for a leaf split over every axis (the ``pooled`` tables, whose
+cotangents arrive from every requester through the reverse all_to_all,
+duplicates summed by the fan-out's transpose). A rank's batch repeated
+over ``model`` is why the 1/N matters: without it each model rank's
+identical share would be counted once per rank.
 """
 from __future__ import annotations
 
@@ -28,15 +58,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import Checkpointer
 from ..configs.base import ModelConfig
 from ..data import DataConfig, TokenPipeline, frontend_features, shard_batch
 from ..device import resolve_device
-from ..models.model import abstract_params, build_loss_fn, init_params
-from ..models.params import tree_leaves
+from ..models.model import (abstract_params, build_loss_fn, init_params,
+                            train_logical_axes)
+from ..models.params import tree_leaves, tree_paths
 from ..models.transformer import RunFlags
-from ..sharding.rules import current_ctx
+from ..sharding import collectives as coll
+from ..sharding.rules import ShardCtx, current_ctx, split_axes_tree
 from .optimizer import (AdamWConfig, abstract_opt_state, adamw_update,
                         decay_mask, init_opt_state)
 
@@ -67,42 +100,97 @@ def with_leaves(tree, leaves):
     return next(leaves)
 
 
-def value_and_grad(loss_fn, params, batch):
+def value_and_grad(loss_fn, params, batch, scale: float = 1.0):
     """(loss, grads): the loss and its gradient with respect to every leaf
     of ``params``, in the tree's structure, each in its leaf's dtype (a
     leaf the loss does not read gets zeros, as ``jax.grad`` gives). The
     parameters are read through detached views that require grad, so the
-    caller's tensors keep their flags and carry no graph."""
+    caller's tensors keep their flags and carry no graph. ``scale``: the
+    gradients are those of ``scale`` x the loss (the loss returned as
+    it is)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(with_leaves(params, iter(leaves)), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss * scale if scale != 1.0 else loss,
+                                    leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), with_leaves(params, iter(grads))
 
 
-def build_train_step(cfg: ModelConfig, flags: RunFlags, oc: AdamWConfig,
-                     grad_accum: int = 1) -> Callable:
-    """(params, opt_state, batch) -> (params, opt_state, metrics), the
-    parameters and moments updated in place (``adamw_update``).
+# elements a bucket of ``sync_grads`` gathers into one all_reduce
+SYNC_BUCKET = 1 << 24
+
+
+@torch.no_grad()
+def sync_grads(grads, split: dict, ctx: ShardCtx):
+    """Sum every leaf of ``grads`` (this rank's blocks) over the mesh axes
+    of more than one rank that the leaf is repeated on (those of ``ctx``'s
+    mesh not in ``split[path]``, see ``sharding.rules.split_axes_tree``),
+    in place. Leaves sharing axes and dtype go out in buckets of up to
+    ``SYNC_BUCKET`` elements (one all_reduce each); a larger leaf goes
+    alone. Returns ``grads``."""
+    mesh = ctx.mesh
+    groups = {}
+    for path, g in tree_paths(grads):
+        axes = tuple(a for a in mesh.axis_names
+                     if a not in split[path] and mesh.shape[a] > 1)
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(g)
+    for (axes, _), leaves in groups.items():
+        bucket, n = [], 0
+        for g in leaves + [None]:
+            if g is not None and g.numel() >= SYNC_BUCKET \
+                    and g.is_contiguous():
+                coll.psum(g, axes)
+                continue
+            if bucket and (g is None or n + g.numel() > SYNC_BUCKET):
+                flat = coll.psum(torch.cat([b.reshape(-1) for b in bucket]),
+                                 axes)
+                for b, part in zip(bucket, flat.split(
+                        [b.numel() for b in bucket])):
+                    b.copy_(part.view(b.shape))
+                bucket, n = [], 0
+            if g is not None:
+                bucket.append(g)
+                n += g.numel()
+    return grads
+
+
+def build_grad_fn(cfg: ModelConfig, flags: RunFlags, grad_accum: int = 1,
+                  ctx: Optional[ShardCtx] = None) -> Callable:
+    """(params, batch) -> (loss, grads): the first half of the train step.
 
     With ``grad_accum > 1`` the batch's leading dim is split into that
     many microbatches, each one's gradients summed in f32 and the sum
-    divided by their count, as are the losses."""
-    loss_fn = build_loss_fn(cfg, flags)
-    decay = decay_mask(cfg)
+    divided by their count, as are the losses.
 
-    def step(params, opt_state, batch):
+    With ``ctx`` (a mesh of ranks) it is the sharded step's of the module
+    docstring: ``params`` are this rank's blocks of ``train_logical_axes(
+    cfg, flags)`` and ``batch`` its block of the batch;
+    the microbatches' gradients are summed before ``sync_grads``, so each
+    rank returns the global mean loss and its blocks of that loss's
+    gradients. Call it under ``sharding_ctx`` of the same mesh.
+    ``grad_fn.split`` is the layout's ``split_axes_tree`` (None without a
+    mesh), what ``adamw_update`` takes."""
+    loss_fn = build_loss_fn(cfg, flags)
+    split, scale = None, 1.0
+    if ctx is not None:
+        split = split_axes_tree(abstract_params(cfg), train_logical_axes(
+            cfg, flags), ctx)
+        every = ctx.mesh.axis_names
+        scale = 1.0 / ctx.axis_prod(every)
+
+    def grad_fn(params, batch):
         if grad_accum == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, grads = value_and_grad(loss_fn, params, batch, scale)
         else:
             grads = loss = None
             for i in range(grad_accum):
                 micro = {k: v[i * (v.shape[0] // grad_accum):
                               (i + 1) * (v.shape[0] // grad_accum)]
                          for k, v in batch.items()}
-                lv, g = value_and_grad(loss_fn, params, micro)
+                lv, g = value_and_grad(loss_fn, params, micro, scale)
                 gl = [x.float() for x in tree_leaves(g)]
                 if grads is None:
                     grads, loss = gl, lv
@@ -111,8 +199,31 @@ def build_train_step(cfg: ModelConfig, flags: RunFlags, oc: AdamWConfig,
                     loss = loss + lv
             grads = with_leaves(params, (g / grad_accum for g in grads))
             loss = loss / grad_accum
+        if ctx is not None:
+            grads = sync_grads(grads, split, ctx)
+            loss = coll.psum(loss.clone(), every) * scale
+        return loss, grads
+
+    grad_fn.split = split
+    return grad_fn
+
+
+def build_train_step(cfg: ModelConfig, flags: RunFlags, oc: AdamWConfig,
+                     grad_accum: int = 1,
+                     ctx: Optional[ShardCtx] = None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics), the
+    parameters and moments updated in place (``adamw_update``): the
+    gradients of ``build_grad_fn`` (its ``grad_accum`` and ``ctx``), then
+    AdamW, under a mesh with the norm taken over the blocks. Without a
+    mesh, ``metrics["loss"]`` is the batch's mean loss; with one, the
+    global mean."""
+    grad_fn = build_grad_fn(cfg, flags, grad_accum, ctx)
+    decay = decay_mask(cfg)
+
+    def step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
         new_p, new_s, metrics = adamw_update(oc, params, grads, opt_state,
-                                             decay)
+                                             decay, grad_fn.split)
         metrics["loss"] = loss
         return new_p, new_s, metrics
 
@@ -134,30 +245,47 @@ def train(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig,
           log: Callable[[str], None] = print, device=None) -> TrainResult:
     """Run (or resume from ``ckpt_dir``'s latest complete checkpoint)
     training on ``device``. Deterministic given (cfg, tc, dc) on one
-    device; fresh parameters come from ``init_params(cfg, tc.seed)``."""
-    if current_ctx() is not None:
-        raise NotImplementedError(
-            "training under a mesh (a sharded train step) is not ported: "
-            "ROADMAP item 10b; train.ddp.build_ddp_train_step is the "
-            "data-parallel step")
+    device; fresh parameters come from ``init_params(cfg, tc.seed)``.
+
+    Under a sharding context every rank of its mesh calls this: fresh
+    parameters are the same seeded draw, of which the rank keeps its
+    blocks of ``train_logical_axes`` as storage of their own (each whole
+    leaf freed once its block is taken), and a restore reads the rank's
+    blocks (``Checkpointer.restore(block=)``); each batch is sharded
+    (``shard_batch(b, ctx)``), the step is the sharded one
+    (``build_train_step(ctx=)``), checkpoints are gathered whole and
+    written by rank 0, and the watchdog times each rank's own steps."""
+    ctx = current_ctx()
     dev = resolve_device(device)
     ckpt = Checkpointer(ckpt_dir, keep_last=tc.keep_ckpts,
                         async_write=tc.async_ckpt) if ckpt_dir else None
+    ab = abstract_params(cfg)
+    like = {"params": ab, "opt": abstract_opt_state(ab)}
+    layout = None
+    if ctx is not None:
+        axes = train_logical_axes(cfg, flags)
+        layout = {"params": axes, "opt": {"m": axes, "v": axes,
+                                          "step": ()}}
+        if ckpt is not None:
+            # rank 0's last write is on disk before any rank looks
+            dist.barrier()
 
     # ----- init or restore ------------------------------------------------
     start_step = 0
     if ckpt is not None and ckpt.latest_step() is not None:
         start_step = ckpt.latest_step()
-        ab = abstract_params(cfg)
-        tree = ckpt.restore(start_step, {"params": ab,
-                                         "opt": abstract_opt_state(ab)}, dev)
+        tree = ckpt.restore(start_step, like, dev, block=layout)
         params, opt_state = tree["params"], tree["opt"]
         log(f"[train] restored step {start_step} from {ckpt_dir}")
     else:
-        params = init_params(cfg, tc.seed, dev)
+        params = init_params(cfg, tc.seed, dev,
+                             block=layout and layout["params"])
         opt_state = init_opt_state(params)
+    if ctx is not None and dev.type == "cuda":
+        torch.cuda.empty_cache()       # the whole leaves, for the ranks
 
-    step_fn = build_train_step(cfg, flags, oc, tc.grad_accum)
+    step_fn = build_train_step(cfg, flags, oc, tc.grad_accum, ctx)
+    save_kw = {} if ctx is None else dict(block=layout, like=like)
     pipe = TokenPipeline(dc)
     fail_at = int(os.environ.get("REPRO_FAIL_AT_STEP", "-1"))
 
@@ -165,7 +293,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig,
     for step in range(start_step, tc.steps):
         b = pipe.batch_at(step)
         b.update(frontend_features(cfg, b["tokens"], dc.seed))
-        batch = shard_batch(b, None, dev)
+        batch = shard_batch(b, ctx, dev)
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
@@ -183,7 +311,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig,
 
         if ckpt is not None and (step + 1) % tc.ckpt_every == 0:
             ckpt.save(step + 1, {"params": params, "opt": opt_state},
-                      meta={"loss": loss})
+                      meta={"loss": loss}, **save_kw)
         if (step + 1) % tc.log_every == 0:
             log(f"[train] step {step + 1}/{tc.steps} "
                 f"loss={loss:.4f} {dt * 1e3:.0f}ms/step")
@@ -196,7 +324,8 @@ def train(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig,
 
     if ckpt is not None:
         ckpt.save(tc.steps, {"params": params, "opt": opt_state},
-                  meta={"loss": losses[-1] if losses else float("nan")})
+                  meta={"loss": losses[-1] if losses else float("nan")},
+                  **save_kw)
         ckpt.wait()
     return TrainResult(losses=losses, steps_run=tc.steps - start_step,
                        restarts=restarts, stragglers=stragglers,

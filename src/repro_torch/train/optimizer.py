@@ -15,8 +15,14 @@ keeps one leaf per layer, so ``decay_mask(cfg)`` reads the decision from
 the reference's layout (``segment_plan``), not from the port's shapes.
 
 ``opt_state_axes`` maps parameter logical axes to the moments' (ZeRO-1's
-"opt" axis on the first unsharded dim), for a sharded train step, which
-the port does not have yet (ROADMAP item 10b).
+"opt" axis on the first unsharded dim), the reference's layout of them.
+The port's sharded train step keeps each moment beside its parameter's
+block instead, so the update is local to the rank.
+
+Under a mesh a rank holds blocks of some leaves: ``global_norm`` and
+``adamw_update`` then take ``split`` (``sharding.rules.split_axes_tree``:
+each leaf's path -> the mesh axes it is split over) and sum each leaf's
+squares over those axes, counting a repeated leaf once.
 """
 from __future__ import annotations
 
@@ -116,24 +122,40 @@ def decay_mask(cfg) -> dict:
     return mask
 
 
-def global_norm(tree) -> torch.Tensor:
+def _sq(x):
+    x = x.reshape(-1).float()
+    return torch.dot(x, x)
+
+
+def global_norm(tree, split=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (each leaf's sum a
-    dot product with itself: no squared copy)."""
-    def sq(x):
-        x = x.reshape(-1).float()
-        return torch.dot(x, x)
-    return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
+    dot product with itself: no squared copy). With ``split`` (path ->
+    mesh axes, see the module docstring) the tree holds this rank's
+    blocks: each leaf's squares are summed over the axes it is split
+    over, one collective per set of axes, so every rank gets the whole
+    tree's norm."""
+    if split is None:
+        return torch.sqrt(sum(_sq(x) for x in tree_leaves(tree)))
+    from ..sharding import collectives as coll
+    groups = {}
+    for path, x in tree_paths(tree):
+        axes = split[path]
+        groups[axes] = groups.get(axes, 0) + _sq(x)
+    return torch.sqrt(sum(coll.psum(v, axes) if axes else v
+                          for axes, v in groups.items()))
 
 
 @torch.no_grad()
-def adamw_update(c: AdamWConfig, params, grads, state, decay=None):
+def adamw_update(c: AdamWConfig, params, grads, state, decay=None,
+                 split=None):
     """One AdamW step, in place: ``params`` and ``state``'s moments are
     overwritten and its ``step`` advanced. ``decay`` is ``decay_mask``'s
     tree (None: decay where the port's leaf has two or more dims, the
-    reference's rule read on this tree as it is). Returns (params, state,
+    reference's rule read on this tree as it is). ``split``: the leaves
+    are this rank's blocks (``global_norm``). Returns (params, state,
     {grad_norm, lr}), the metrics f32 scalars on the parameters' device."""
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if c.grad_clip > 0 else 1.0
     lr = schedule(c, step)

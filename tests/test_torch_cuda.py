@@ -887,3 +887,77 @@ def test_train_gradients_card_equal_cpu(name):
         wit.append(share(value_and_grad(fn, moved, shard_batch(
             b, device="cpu"))[1], gh))
     assert share(gc, gh) <= max(1e-4, 2 * sorted(wit)[1]), wit
+
+
+def _pooled_rank(rank: int, init: str, out_dir: str) -> None:
+    """One of two ranks on the one card (gloo, a (1, 2) mesh): pooled
+    retrieval from the rank's block of a table set that requires grad,
+    in train mode (``use_kernel=False``) with its gradient, then serving
+    (under ``no_grad``, K1 on the owner read); K1's launches counted."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs.base import EngramConfig
+    from repro_torch.core import engram
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import sharding_ctx
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+        e = EngramConfig(orders=(2, 3), n_heads=4, emb_dim=64,
+                         table_vocab=4096, layers=(1,), strategy="pooled")
+        T, hd = len(e.orders) * e.n_heads, e.emb_dim // e.n_heads
+        gen = torch.Generator().manual_seed(0)
+        whole = torch.randn(T, engram.padded_vocab(e), hd, generator=gen)
+        idx = torch.randint(0, e.table_vocab, (2, 8, T), generator=gen)
+        with sharding_ctx(mesh) as ctx:
+            tab = ctx.block(whole, (None, "eng_vocab", None)).to(
+                dev).requires_grad_()
+            k0 = gather_rows.launches
+            rows = engram.retrieve(e, tab, idx.to(dev), "pooled",
+                                   use_kernel=False)
+            (grad,) = torch.autograd.grad(rows.sum(), tab)
+            k1 = gather_rows.launches
+            with torch.no_grad():
+                served = engram.retrieve(e, tab, idx.to(dev), "pooled")
+            k2 = gather_rows.launches
+        torch.save(dict(rows=rows.detach().cpu(), served=served.cpu(),
+                        grad=grad.cpu(), train=k1 - k0, serve=k2 - k1,
+                        want=engram.retrieve_local(e, whole, idx),
+                        whole=whole, idx=idx),
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_pooled_train_mode_reads_without_k1(tmp_path):
+    """Two ranks on the card: ``retrieve_pooled`` in train mode on a CUDA
+    table block that requires grad runs without K1 and without raising,
+    its rows bit-equal to ``retrieve_local`` and its table gradient each
+    row's request count over both ranks (they hold the same batch); in
+    serving mode it still launches K1 (once per call), with the same
+    rows."""
+    import torch.multiprocessing as mp
+    _card()
+    mp.start_processes(_pooled_rank, args=(f"file://{tmp_path}/rdzv",
+                                           str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert got["train"] == 0 and got["serve"] == 1
+        assert torch.equal(got["rows"], got["want"])
+        assert torch.equal(got["served"], got["want"])
+        w = got["whole"].clone().requires_grad_()
+        from repro_torch.core.engram import retrieve_local
+        from repro_torch.configs.base import EngramConfig
+        e = EngramConfig(orders=(2, 3), n_heads=4, emb_dim=64,
+                         table_vocab=4096, layers=(1,), strategy="pooled")
+        (g,) = torch.autograd.grad(2 * retrieve_local(e, w, got["idx"]).sum(),
+                                   w)
+        n = g.shape[1] // 2
+        assert got["grad"].abs().max() > 0
+        assert torch.equal(got["grad"], g[:, r * n:(r + 1) * n])

@@ -309,7 +309,8 @@ def test_port_imports_nothing_of_jax():
         "'sharding.rules', 'sharding.collectives', 'data.pipeline', "
         "'train.optimizer', 'train.loop', 'train.compress', 'train.ddp', "
         "'checkpoint.checkpointer', 'examples.quickstart', "
-        "'examples.train_engram_lm'):\n"
+        "'examples.train_engram_lm', 'core.engram', 'models.model', "
+        "'models.layers', 'models.moe', 'models.params'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

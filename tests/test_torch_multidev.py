@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX reference: the mesh paths on a (2, 4)
 ("data", "model") mesh, on the CPU.
 
-The reference runs in one subprocess with 8 fake host devices
-(tests/torch_multidev_ref.py; the pytest process stays at 1 device). The
+The reference runs in two subprocesses with 8 fake host devices each
+(tests/torch_multidev_ref.py: the train steps in one, the rest in the
+other, side by side; the pytest process stays at 1 device). The
 port runs 8 gloo ranks, one process each (tests/torch_multidev_ranks.py),
 with a ``file://`` rendezvous under the test's temporary directory. Both
 get the same inputs, made here from numpy seeds and the reference's
@@ -29,6 +30,27 @@ and held against the reference's whole arrays:
     owners overflow, ROADMAP F13): logits within 1e-4, identical greedy
     tokens. Its capacity factor is 8.0, where the expert axis drops
     nothing (the single-device path drops nothing either).
+
+Training under the mesh (each rank its blocks of ``train_logical_axes``,
+gradients gathered whole):
+
+  * each differentiable collective's gradient against the same sum
+    computed whole on one process (f64), and ``embed_lookup_local``'s
+    table gradient against the whole table's;
+  * ``check_tp_train_step``'s twin (pooled and tp): the global loss within
+    rtol 1e-4, every gradient within max(1e-4, the largest of five
+    one-ulp witnesses) of its leaf's largest, grad_norm and one AdamW
+    step at lr 1e-4 within tests/test_torch_train.py's AdamW tolerance or
+    the reference's own one-ulp moves, against the reference's (2, 4)
+    mesh step and its one-device step;
+  * reduced deepseek-v2-236b's expert-parallel step (gather, alltoall) at
+    its capacity factor 1.25 against the reference's mesh step, drops
+    included, and with the capacity raised and the load-balance loss off
+    against its one-device step;
+  * a checkpointed period's backward recomputed on another thread;
+  * the mesh trainer crashed and restarted, bit-equal to an uninterrupted
+    run, its checkpoint restored onto an (8,) mesh; the training CLI on
+    a (1, 2) mesh of ranks 0 and 1.
 
 A hung rank fails the test: the process group times out after 120 s and
 the ranks and the subprocess are killed after 300 s."""
@@ -69,6 +91,7 @@ MOE_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/multidev_checks.py's
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_STEPS = 4
 CAPACITY_FACTORS = (8.0, 1.0)
+EP_CAPACITY = 1.25          # reduced deepseek-v2-236b's own
 
 
 def _engram_cfg(cls):
@@ -102,10 +125,29 @@ def _model_cfg(mod):
         cfg.moe, capacity_factor=8.0))
 
 
+def _tr_cfg(mcls, ecls):
+    """tests/multidev_checks.py's check_tp_train_step model."""
+    return mcls(name="t", family="dense", n_layers=3, d_model=64,
+                vocab_size=128, n_heads=4, n_kv_heads=2, head_dim=16,
+                d_ff=128, engram=_engram_cfg(ecls), dtype="float32")
+
+
+def _ep_cfg(mod, cf: float, aux: bool = True):
+    """Reduced deepseek-v2-236b at capacity factor ``cf``, its load-balance
+    loss off unless ``aux``."""
+    import dataclasses
+    cfg = mod.reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf,
+        aux_loss_coef=cfg.moe.aux_loss_coef if aux else 0.0))
+
+
 def _inputs(d: Path):
     """The inputs: ``inputs.npz`` for the reference, ``inputs.pt`` for the
     ranks (the port's configs and tensors)."""
+    from repro.configs import deepseek_v2_236b as ref_v2
     from repro.configs import deepseek_v3_671b as ref_v3
+    from repro_torch.configs import deepseek_v2_236b
     rng = np.random.RandomState(0)
     ecfg = _engram_cfg(RefEngramConfig)
     n_tab = len(ecfg.orders) * ecfg.n_heads
@@ -131,6 +173,7 @@ def _inputs(d: Path):
     npz["embed_toks"] = rng.randint(0, 4096, (4, 8))
     cfg = _model_cfg(deepseek_v3_671b)
     npz["model_toks"] = rng.randint(1, cfg.vocab_size, (4, 8))
+    npz["embed_cot"] = rng.randn(4, 8, 64).astype(np.float32)
     np.savez(d / "inputs.npz", **npz)
     rparams = ref_model.init_params(_model_cfg(ref_v3), 0)
     t = lambda a: to_torch(a, "cpu")                       # noqa: E731
@@ -144,7 +187,16 @@ def _inputs(d: Path):
             _ddp_cfg(RefModelConfig, RefEngramConfig), 0)),
             _ddp_cfg(ModelConfig, EngramConfig), "cpu"),
         model_params=from_jax(jax.tree.map(np.asarray, rparams), cfg, "cpu"),
-        decode_steps=DECODE_STEPS)
+        decode_steps=DECODE_STEPS,
+        tr_cfg=_tr_cfg(ModelConfig, EngramConfig),
+        tr_params=from_jax(jax.tree.map(np.asarray, ref_model.init_params(
+            _tr_cfg(RefModelConfig, RefEngramConfig), 0)),
+            _tr_cfg(ModelConfig, EngramConfig), "cpu"),
+        ep_cfg=_ep_cfg(deepseek_v2_236b, EP_CAPACITY),
+        ep_cfg_raised=_ep_cfg(deepseek_v2_236b, 8.0, aux=False),
+        ep_params=from_jax(jax.tree.map(np.asarray, ref_model.init_params(
+            _ep_cfg(ref_v2, EP_CAPACITY), 0)),
+            _ep_cfg(deepseek_v2_236b, EP_CAPACITY), "cpu"))
     torch.save(port, d / "inputs.pt")
 
 
@@ -169,20 +221,28 @@ def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("multidev")
     _inputs(d)
     deadline = time.monotonic() + TIMEOUT_S
-    ref = subprocess.Popen(
+    # the reference's train steps in a second subprocess, beside the rest
+    refs = {part: subprocess.Popen(
         [sys.executable, str(HERE / "torch_multidev_ref.py"),
-         str(d / "inputs.npz"), str(d / "ref.npz")],
+         str(d / "inputs.npz"), str(d / f"ref_{part}.npz"), part],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        for part in ("mesh", "train")}
     try:
         _run_ranks(d, deadline)
-        _, err = ref.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        for ref in refs.values():
+            _, err = ref.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            assert ref.returncode == 0, err[-4000:]
     finally:
-        if ref.poll() is None:
-            ref.kill()
-    assert ref.returncode == 0, err[-4000:]
+        for ref in refs.values():
+            if ref.poll() is None:
+                ref.kill()
     ranks = [torch.load(d / f"rank{r}.pt") for r in range(WORLD)]
-    return dict(np.load(d / "ref.npz")), ranks
+    out = {}
+    for part in refs:
+        out.update(np.load(d / f"ref_{part}.npz"))
+    return out, ranks
 
 
 def _whole(ranks, key, split=None, batch_split=True):
@@ -383,3 +443,301 @@ def test_elastic_checkpoint_relayout(runs):
                            w[y * 2:(y + 1) * 2, x * 4:(x + 1) * 4])
         assert torch.equal(r["elastic/b"], torch.ones(2))
     assert len(seen) == 8
+
+
+# ------------------------------------------ gradients through the mesh
+
+from torch_multidev_ranks import (COLL_CASES, TRAIN_LR,  # noqa: E402
+                                  coll_draw, coll_out_shape)
+
+GRAD_FLOOR = 1e-4        # tests/test_torch_train.py's gradient share
+ADAMW_TOL = dict(rtol=1e-6)   # and its AdamW tolerance (of a leaf's scale)
+
+
+def _whole_collective(name, xs, axes):
+    """Collective ``name`` computed whole on one process: ``xs`` holds
+    every rank's input (rank order), the result every rank's output."""
+    (n_data, n_model), _ = MESH
+    if axes == ("model",):
+        groups = [list(range(g * n_model, (g + 1) * n_model))
+                  for g in range(n_data)]
+    else:
+        groups = [list(range(WORLD))]
+    out = [None] * WORLD
+    for grp in groups:
+        x = [xs[r] for r in grp]
+        n = len(grp)
+        for i, r in enumerate(grp):
+            if name == "all_to_all":
+                out[r] = torch.stack([x[j][i] for j in range(n)])
+            elif name == "psum":
+                out[r] = sum(x)
+            elif name == "pmean":
+                out[r] = sum(x) / n
+            elif name == "psum_scatter":
+                k = x[0].shape[1] // n
+                out[r] = sum(x)[:, i * k:(i + 1) * k]
+            elif name == "all_gather":
+                out[r] = torch.stack(x)
+            else:
+                out[r] = torch.cat(x, dim=1)
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(COLL_CASES)),
+                         ids=[c[0] for c in COLL_CASES])
+def test_collective_gradient_is_its_transpose(runs, case):
+    """Each rank's gradient of <collective(x_r), c_r> through the
+    collective's backward equals the gradient of the sum over ranks of the
+    same, computed whole on one process in f64: the backward is the
+    collective's transpose over the ranks."""
+    _, ranks = runs
+    name, axes, shape = COLL_CASES[case]
+    n = 4 if axes == ("model",) else WORLD
+    draws = [coll_draw(r, case, shape, coll_out_shape(name, n, shape))
+             for r in range(WORLD)]
+    xs = [x.clone().requires_grad_() for x, _ in draws]
+    ys = _whole_collective(name, xs, axes)
+    total = sum((y * c).sum() for y, (_, c) in zip(ys, draws))
+    want = torch.autograd.grad(total, xs)
+    for r in ranks:
+        rank = int(r["coords"][0]) * 4 + int(r["coords"][1])
+        torch.testing.assert_close(r[f"coll/{name}"], want[rank], rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_embed_lookup_local_gradient_matches_whole_table(runs):
+    """The vocab-sharded embedding's table gradient (each rank's rows
+    back-propagated through ``psum``'s transpose, then summed over the
+    data axis) equals the whole table's gradient of the mean over the two
+    data groups' rows: equal on every rank, bit for bit up to the order of
+    the sums."""
+    _, ranks = runs
+    inp = np.load(os.path.join(ranks[0]["out_dir"], "inputs.npz"))
+    w = torch.from_numpy(inp["embed_w"]).requires_grad_()
+    toks = torch.from_numpy(inp["embed_toks"])
+    cot = torch.from_numpy(inp["embed_cot"])
+    (want,) = torch.autograd.grad((w[toks] * cot).sum() / 2, w)
+    assert want.abs().max() > 0
+    for r in ranks:
+        torch.testing.assert_close(r["embed_grad"], want, rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _ref_tree(ref, key, cfg_pair, leaf="g"):
+    """The reference's ``key`` leaves (``{key}/{leaf}{i}``) in the port's
+    layout, by path."""
+    rcfg, cfg = cfg_pair
+    leaves, treedef = jax.tree.flatten(ref_model.init_params(rcfg, 0))
+    tree = jax.tree.unflatten(treedef, [ref[f"{key}/{leaf}{i}"]
+                                        for i in range(len(leaves))])
+    return {k: v.numpy() for k, v in tree_paths(from_jax(tree, cfg, "cpu"))}
+
+
+def _grad_share(got: dict, want: dict) -> float:
+    assert got.keys() == want.keys()
+    return max(float(np.abs(got[k].numpy() - w).max()
+                     / max(float(np.abs(w).max()), 1e-30))
+               for k, w in want.items())
+
+
+def _replicas_equal(ranks, key):
+    """Every rank holds the same whole leaves under ``key``; rank 0's."""
+    for r in ranks[1:]:
+        for k, v in r[key].items():
+            assert torch.equal(v, ranks[0][key][k]), (key, k)
+    return ranks[0][key]
+
+
+def _tr_pair():
+    return (_tr_cfg(RefModelConfig, RefEngramConfig),
+            _tr_cfg(ModelConfig, EngramConfig))
+
+
+def _ep_pair(cf=EP_CAPACITY, aux=True):
+    from repro.configs import deepseek_v2_236b as ref_v2
+    from repro_torch.configs import deepseek_v2_236b
+    return (_ep_cfg(ref_v2, cf, aux), _ep_cfg(deepseek_v2_236b, cf, aux))
+
+
+@pytest.mark.parametrize("against", ["mesh", "one"])
+@pytest.mark.parametrize("strategy", ["pooled", "tp"])
+def test_train_step_loss_matches_reference(runs, strategy, against):
+    """check_tp_train_step's twin: the global mean loss on a (2, 4) mesh
+    within rtol 1e-4 of the reference's mesh loss and its one-device
+    loss, the same on every rank, for both the gradient pass and the
+    step."""
+    ref, ranks = runs
+    want = float(ref[f"tr/{strategy if against == 'mesh' else 'one'}/loss"])
+    for r in ranks:
+        for key in ("loss", "step_loss"):
+            np.testing.assert_allclose(float(r[f"tr/{strategy}/{key}"]), want,
+                                       rtol=1e-4)
+        assert float(r[f"tr/{strategy}/loss"]) == \
+            float(ranks[0][f"tr/{strategy}/loss"])
+
+
+@pytest.mark.parametrize("against", ["mesh", "one"])
+@pytest.mark.parametrize("strategy", ["pooled", "tp"])
+def test_train_step_gradients_match_reference(runs, strategy, against):
+    """Every leaf's gradient, blocks gathered, within max(1e-4, the
+    reference's largest one-ulp witness) of that leaf's largest, against
+    the reference's mesh and its one-device gradients; the tables'
+    nonzero."""
+    ref, ranks = runs
+    name = f"tr/{strategy if against == 'mesh' else 'one'}"
+    got = _replicas_equal(ranks, f"tr/{strategy}/grads")
+    want = _ref_tree(ref, name, _tr_pair())
+    limit = max(GRAD_FLOOR, float(ref[f"{name}/wit_g"].max()))
+    share = _grad_share(got, want)
+    print(f"{strategy} against {against}: {share:.2e} of a leaf's largest "
+          f"(limit {limit:.2e})")
+    assert share <= limit
+    assert got["engram/layers/0/tables"].abs().max() > 0
+
+
+@pytest.mark.parametrize("against", ["mesh", "one"])
+@pytest.mark.parametrize("strategy", ["pooled", "tp"])
+def test_train_step_adamw_matches_reference(runs, strategy, against):
+    """One AdamW step at lr 1e-4: grad_norm, taken over the blocks, and the
+    parameters, gathered, against the reference's, at tests/
+    test_torch_train.py's AdamW tolerance (1e-6, of a leaf's largest for
+    the parameters) or, where the reference's own grad_norm and stepped
+    parameters move further when its weights move by about one ulp, the
+    largest such move (the gradients they start from part by the
+    gradient witnesses). Its grad_norm exceeds grad_clip, so the clipping
+    binds on that norm."""
+    ref, ranks = runs
+    name = f"tr/{strategy if against == 'mesh' else 'one'}"
+    want_n = float(ref[f"{name}/gnorm"])
+    assert want_n > 1.0                               # AdamWConfig.grad_clip
+    n_lim = max(ADAMW_TOL["rtol"], float(ref[f"{name}/wit_gnorm"].max()))
+    p_lim = max(ADAMW_TOL["rtol"], float(ref[f"{name}/wit_p"].max()))
+    print(f"{strategy} against {against}: grad_norm "
+          f"{abs(float(ranks[0][f'tr/{strategy}/gnorm']) - want_n) / want_n:.2e}"
+          f" (limit {n_lim:.2e}), parameters (limit {p_lim:.2e})")
+    for r in ranks:
+        np.testing.assert_allclose(float(r[f"tr/{strategy}/gnorm"]), want_n,
+                                   rtol=n_lim)
+    got = _replicas_equal(ranks, f"tr/{strategy}/params")
+    want = _ref_tree(ref, name, _tr_pair(), leaf="p")
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, err_msg=k,
+                                   atol=p_lim * np.abs(w).max(), **ADAMW_TOL)
+
+
+@pytest.mark.parametrize("strategy", ["gather", "alltoall"])
+def test_ep_train_step_matches_reference_mesh(runs, strategy):
+    """Reduced deepseek-v2-236b's expert-parallel step at its capacity
+    factor 1.25, where the mesh drops rows: the loss within rtol 1e-4 and
+    every gradient within 1e-4 of its leaf's largest (the fixed share; no
+    witness is drawn) of the reference's mesh step, drops included."""
+    ref, ranks = runs
+    name = f"ep/{strategy}"
+    for r in ranks:
+        np.testing.assert_allclose(float(r[f"ep_cfg/{strategy}/loss"]),
+                                   float(ref[f"{name}/loss"]), rtol=1e-4)
+    got = _replicas_equal(ranks, f"ep_cfg/{strategy}/grads")
+    share = _grad_share(got, _ref_tree(ref, name, _ep_pair()))
+    print(f"ep {strategy} at 1.25: {share:.2e} (limit {GRAD_FLOOR:.0e})")
+    assert share <= GRAD_FLOOR
+
+
+@pytest.mark.parametrize("strategy", ["gather", "alltoall"])
+def test_ep_train_step_without_drops_matches_one_device(runs, strategy):
+    """With the capacity raised (8.0, nothing drops) and the load-balance
+    loss off (a mean over token groups is not the whole batch's), the
+    mesh step is the one-device (ragged) step: loss within rtol 1e-4,
+    every gradient within 1e-4 of its leaf's largest."""
+    ref, ranks = runs
+    for r in ranks:
+        np.testing.assert_allclose(
+            float(r[f"ep_cfg_raised/{strategy}/loss"]),
+            float(ref["ep/one/loss"]), rtol=1e-4)
+    got = _replicas_equal(ranks, f"ep_cfg_raised/{strategy}/grads")
+    share = _grad_share(got, _ref_tree(ref, "ep/one", _ep_pair(8.0, False)))
+    print(f"ep {strategy} raised: {share:.2e} (limit {GRAD_FLOOR:.0e})")
+    assert share <= GRAD_FLOOR
+
+
+def test_remat_backward_on_another_thread(runs):
+    """A checkpointed period recomputed in backward on a thread without
+    the mesh's context (as the autograd engine's CUDA thread is) runs the
+    expert-parallel path it ran forward: its gradients bit-equal to the
+    same backward on the forward's thread, on every rank."""
+    _, ranks = runs
+    for r in ranks:
+        assert r["remat_thread"] and all(
+            x is True for x in r["remat_thread"]), r["remat_thread"]
+
+
+def test_mesh_trainer_restart_is_bit_equal(runs, tmp_path_factory):
+    """The mesh trainer crashed after step 3 restarts from step 2's
+    checkpoint: its last two losses and its final checkpoint bit-equal to
+    the uninterrupted mesh run's, on every rank."""
+    _, ranks = runs
+    from repro_torch.checkpoint import Checkpointer
+    for r in ranks:
+        assert r["trainer/restarts"] == 1
+        assert torch.equal(r["trainer/crash"], r["trainer/whole"][2:])
+        assert torch.equal(r["trainer/whole"], ranks[0]["trainer/whole"])
+    d = ranks[0]["out_dir"]
+    cfg = _tr_cfg(ModelConfig, EngramConfig)
+    from repro_torch.models.model import abstract_params
+    from repro_torch.train import abstract_opt_state
+    ab = abstract_params(cfg)
+    like = {"params": ab, "opt": abstract_opt_state(ab)}
+    got = [Checkpointer(os.path.join(d, n)).restore(4, like, "cpu")
+           for n in ("crash", "whole")]
+    for (k, a), (_, b) in zip(tree_paths(got[0]), tree_paths(got[1])):
+        assert torch.equal(a, b), k
+
+
+def test_mesh_checkpoint_restores_onto_another_mesh(runs):
+    """The checkpoint the (2, 4) mesh wrote (whole leaves, rank 0) restores
+    onto an (8,) mesh: each rank its block of the pooled tables (rows over
+    the 8 ranks), the dense leaves whole."""
+    _, ranks = runs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.model import abstract_params
+    from repro_torch.train import abstract_opt_state
+    cfg = _tr_cfg(ModelConfig, EngramConfig)
+    ab = abstract_params(cfg)
+    whole = Checkpointer(os.path.join(ranks[0]["out_dir"], "crash")).restore(
+        4, {"params": ab, "opt": abstract_opt_state(ab)}, "cpu")["params"]
+    tab = whole["engram"]["layers"][0]["tables"]
+    n = tab.shape[1] // WORLD
+    seen = set()
+    for r in ranks:
+        i = r["trainer/index8"]
+        seen.add(i)
+        got = r["trainer/restored8"]
+        assert torch.equal(got["engram"]["layers"][0]["tables"],
+                           tab[:, i * n:(i + 1) * n])
+        assert torch.equal(got["final_norm"]["scale"],
+                           whole["final_norm"]["scale"])
+    assert seen == set(range(WORLD))
+
+
+def test_cli_trains_on_a_two_rank_mesh(runs):
+    """``launch.train.main(..., init_method=file://...)`` with ``--mesh
+    data=1,model=2 --engram tp --device cpu`` on ranks 0 and 1: rank 0
+    writes the metrics; the losses are the one-process run's (tp
+    retrieval reads every row exactly)."""
+    import json
+    _, ranks = runs
+    from repro_torch.configs import engram_27b
+    from repro_torch.data import DataConfig
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import AdamWConfig, TrainConfig, train
+    m = json.loads(open(os.path.join(ranks[0]["out_dir"],
+                                     "cli.json")).read())
+    assert m["final_step"] == 2 and len(m["losses"]) == 2
+    cfg = engram_27b.reduced()
+    one = train(cfg, TrainConfig(steps=2, log_every=10, ckpt_every=50),
+                DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=16,
+                           seed=0),
+                flags=RunFlags(remat=True, engram_strategy="tp"),
+                oc=AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=2),
+                log=lambda s: None, device="cpu")
+    np.testing.assert_allclose(m["losses"], one.losses, rtol=1e-5)

@@ -27,7 +27,7 @@ CPU in float32.
   checkpoint), losses within 1e-4; the CLI; a trainer's parameters
   (``requires_grad``) served by ``Engine`` as a detached copy is.
 * The guards: K1 and K2 raise on a device call autograd would record;
-  ``--mesh`` raises.
+  ``--mesh`` outside torchrun raises.
 """
 import dataclasses
 import os
@@ -431,8 +431,13 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     assert len(m["losses"]) == 6 and m["final_step"] == 6
 
 
-def test_cli_mesh_raises():
-    with pytest.raises(NotImplementedError, match="10b"):
+def test_cli_mesh_raises(monkeypatch):
+    """``--mesh`` trains one process per rank: outside torchrun (no
+    ``RANK`` in the environment) and without an ``init_method`` it raises
+    before touching a process group (tests/test_torch_multidev.py trains
+    on a two-rank mesh through ``main``)."""
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_cli.main(["--reduced", "--mesh", "data=2", "--device", "cpu"])
 
 

@@ -7,8 +7,11 @@ Each rank loads the inputs (``torch.save``d whole tensors), takes its
 blocks (``sharding.rules``), runs every mesh path of the port under the
 mesh, the compressed data-parallel train step on an (8,) mesh and the
 elastic checkpoint (saved from an (8,) mesh, restored onto a (2, 4) one),
-and saves what it holds to ``out_dir/rank<r>.pt``. It imports nothing of
-JAX."""
+the sharded train steps (gradients gathered whole), each differentiable
+collective's gradient, the embedding's, and the mesh trainer (a crash
+and restart; its checkpoint restored onto an (8,) mesh), and saves what
+it holds to ``out_dir/rank<r>.pt``. Then ranks 0 and 1 run the training
+CLI on a (1, 2) mesh of their own. It imports nothing of JAX."""
 import dataclasses
 import datetime
 import os
@@ -157,6 +160,234 @@ def _elastic(out_dir, out):
     out["elastic/w"], out["elastic/b"] = got["w"], got["b"]
 
 
+TRAIN_LR = 1e-4
+# (collective, the axes it runs over, the input's shape): each rank's input
+# and cotangent are f64 draws seeded by (rank, case)
+COLL_CASES = (("all_to_all", ("data", "model"), (8, 3)),
+              ("psum", ("data", "model"), (3, 4)),
+              ("pmean", ("data", "model"), (3, 4)),
+              ("psum_scatter", ("model",), (3, 8)),
+              ("all_gather", ("data", "model"), (2, 3)),
+              ("gather_dim", ("data", "model"), (3, 2)))
+
+
+def coll_draw(rank: int, case: int, shape, out_shape):
+    """(input, cotangent) of ``rank`` for case ``case``."""
+    gen = torch.Generator().manual_seed(1000 * rank + case)
+    return (torch.randn(shape, generator=gen, dtype=torch.float64),
+            torch.randn(out_shape, generator=gen, dtype=torch.float64))
+
+
+def coll_out_shape(name: str, n: int, shape):
+    """The output shape of collective ``name`` over ``n`` ranks."""
+    if name == "psum_scatter":
+        return (shape[0], shape[1] // n)
+    if name == "all_gather":
+        return (n,) + tuple(shape)
+    if name == "gather_dim":
+        return (shape[0], shape[1] * n)
+    return tuple(shape)
+
+
+def _collective_grads(ctx, out):
+    """Each collective on an f64 input that requires grad: the gradient of
+    <its output, the rank's cotangent>, for the test to hold against the
+    same sum computed whole on one process."""
+    from repro_torch.sharding import collectives as coll
+    for i, (name, axes, shape) in enumerate(COLL_CASES):
+        n = ctx.axis_prod(axes)
+        x, cot = coll_draw(dist.get_rank(), i, shape,
+                           coll_out_shape(name, n, shape))
+        x.requires_grad_()
+        fn = getattr(coll, name)
+        y = fn(x, axes, 1) if name in ("psum_scatter", "gather_dim") \
+            else fn(x, axes)
+        (g,) = torch.autograd.grad((y * cot).sum(), x)
+        out[f"coll/{name}"] = g
+
+
+def _gathered(tree, axes, like):
+    """path -> the whole leaf, gathered from every rank's block."""
+    from repro_torch.models.params import tree_paths
+    from repro_torch.sharding import collectives as coll
+    ax = dict(tree_paths(axes, is_leaf=lambda x: isinstance(x, tuple)))
+    whole = dict(tree_paths(like))
+    with torch.no_grad():
+        return {k: coll.gather_block(v, tuple(whole[k].shape), ax[k]).clone()
+                for k, v in tree_paths(tree)}
+
+
+def _train_blocks(ctx, cfg, params, flags):
+    from repro_torch.models.model import train_logical_axes
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding.rules import local_params
+    axes = train_logical_axes(cfg, flags)
+    return axes, tree_map(lambda t: t.clone(), local_params(params, axes,
+                                                            ctx))
+
+
+def _batch(cfg, ctx):
+    from repro_torch.data import DataConfig, TokenPipeline, shard_batch
+    return shard_batch(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, batch=4, seq_len=16, seed=0)).batch_at(0),
+        ctx, "cpu")
+
+
+def _train_step(ctx, inp, out, strategy: str):
+    """check_tp_train_step's model on the rank's blocks: the global loss
+    and every gradient (``build_grad_fn``), then one ``build_train_step``
+    step at lr ``TRAIN_LR``: its loss, grad_norm and parameters."""
+    from repro_torch.models.model import abstract_params
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import (AdamWConfig, build_grad_fn,
+                                   build_train_step, init_opt_state)
+    cfg = inp["tr_cfg"]
+    flags = RunFlags(engram_strategy=strategy)
+    axes, params = _train_blocks(ctx, cfg, inp["tr_params"], flags)
+    batch, like = _batch(cfg, ctx), abstract_params(cfg)
+    loss, grads = build_grad_fn(cfg, flags, ctx=ctx)(params, batch)
+    out[f"tr/{strategy}/loss"] = loss
+    out[f"tr/{strategy}/grads"] = _gathered(grads, axes, like)
+    step = build_train_step(cfg, flags, AdamWConfig(lr=TRAIN_LR,
+                                                    warmup_steps=1), ctx=ctx)
+    p, _, m = step(params, init_opt_state(params), batch)
+    out[f"tr/{strategy}/step_loss"] = m["loss"]
+    out[f"tr/{strategy}/gnorm"] = m["grad_norm"]
+    out[f"tr/{strategy}/params"] = _gathered(p, axes, like)
+
+
+def _ep_step(ctx, inp, out):
+    """Reduced deepseek-v2-236b's expert-parallel gradients, gather and
+    alltoall: at capacity factor 1.25 (rows dropped), and with the
+    capacity raised and the load-balance loss off (``ep_cfg_raised``)."""
+    from repro_torch.models.model import abstract_params
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import build_grad_fn
+    for case in ("ep_cfg", "ep_cfg_raised"):
+        cfg = inp[case]
+        for strat in ("gather", "alltoall"):
+            flags = RunFlags(moe_strategy=strat)
+            axes, params = _train_blocks(ctx, cfg, inp["ep_params"], flags)
+            loss, grads = build_grad_fn(cfg, flags, ctx=ctx)(
+                params, _batch(cfg, ctx))
+            out[f"{case}/{strat}/loss"] = loss
+            out[f"{case}/{strat}/grads"] = _gathered(
+                grads, axes, abstract_params(cfg))
+
+
+def _remat_backward_off_thread(ctx, inp, out):
+    """Reduced deepseek-v2-236b's expert-parallel loss with remat on, its
+    backward run on another thread (the autograd engine runs a CUDA
+    graph's backward on its device thread, which does not inherit the
+    mesh's thread-local context, yet recomputes the checkpointed periods
+    there), against the same backward on this thread."""
+    import threading
+    from repro_torch.models.model import build_loss_fn
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train.loop import with_leaves
+    cfg = inp["ep_cfg_raised"]
+    flags = RunFlags(remat=True, moe_strategy="gather")
+    _, params = _train_blocks(ctx, cfg, inp["ep_params"], flags)
+    batch = _batch(cfg, ctx)
+    got = {}
+    for where in ("here", "thread"):
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        loss = build_loss_fn(cfg, flags)(with_leaves(params, iter(leaves)),
+                                         batch)
+
+        def back(loss=loss, leaves=leaves, where=where):
+            try:
+                got[where] = torch.autograd.grad(loss, leaves,
+                                                 allow_unused=True)
+            except Exception as e:           # noqa: BLE001 (reported)
+                got[where] = e
+
+        if where == "here":
+            back()
+        else:
+            t = threading.Thread(target=back)
+            t.start()
+            t.join()
+    if isinstance(got["thread"], Exception):
+        out["remat_thread"] = [repr(got["thread"])]
+        return
+    out["remat_thread"] = [torch.equal(a, b) if a is not None else b is None
+                           for a, b in zip(got["here"], got["thread"])]
+
+
+def _embed_grad(ctx, inp, out):
+    """``embed_lookup_local``'s gradient from the rank's block of the
+    (4096, 64) table: the rank back-propagates <its rows, its cotangent>
+    / 8 and ``sync_grads`` sums the block over the data axis; the blocks
+    gathered whole."""
+    from repro_torch.models.layers import embed_lookup_local
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.train import sync_grads
+    w = inp["embed_w"]
+    blk = ctx.block(w, ("vocab", None)).clone().requires_grad_()
+    toks = ctx.block(inp["embed_toks"], ("batch", None))
+    cot = ctx.block(inp["embed_cot"], ("batch", None, None))
+    rows = embed_lookup_local({"w": blk}, toks, w.shape[0])
+    (g,) = torch.autograd.grad((rows * cot).sum() / 8, blk)
+    g = sync_grads({"w": g}, {"w": ctx.split_axes(tuple(w.shape),
+                                                  ("vocab", None))}, ctx)
+    out["embed_grad"] = coll.gather_block(g["w"], tuple(w.shape),
+                                          ("vocab", None))
+
+
+def _trainer(ctx, inp, out, out_dir):
+    """The mesh trainer on check_tp_train_step's model (pooled): 4 steps
+    with a checkpoint every 2, uninterrupted, and crashed after step 3
+    (``REPRO_FAIL_AT_STEP``) then restarted from step 2's checkpoint;
+    the final checkpoint then restored onto an (8,) ("data",) mesh."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import abstract_params, train_logical_axes
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.sharding.rules import sharding_ctx
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   abstract_opt_state, train,
+                                   train_with_restarts)
+    cfg = inp["tr_cfg"]
+    tc = TrainConfig(steps=4, ckpt_every=2, log_every=100)
+    dc = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=16, seed=0)
+    kw = dict(flags=RunFlags(engram_strategy="pooled"),
+              oc=AdamWConfig(lr=1e-3, warmup_steps=1, decay_steps=4),
+              log=lambda s: None, device="cpu")
+    whole = train(cfg, tc, dc, ckpt_dir=os.path.join(out_dir, "whole"), **kw)
+    os.environ["REPRO_FAIL_AT_STEP"] = "3"
+    res = train_with_restarts(cfg, tc, dc,
+                              ckpt_dir=os.path.join(out_dir, "crash"), **kw)
+    out["trainer/whole"] = torch.tensor(whole.losses)
+    out["trainer/crash"] = torch.tensor(res.losses)
+    out["trainer/restarts"] = res.restarts
+    mesh8 = make_mesh((8,), ("data",), device="cpu")
+    ab = abstract_params(cfg)
+    axes = train_logical_axes(cfg, kw["flags"])
+    with sharding_ctx(mesh8):
+        got = Checkpointer(os.path.join(out_dir, "crash")).restore(
+            4, {"params": ab, "opt": abstract_opt_state(ab)}, "cpu",
+            block={"params": axes, "opt": {"m": axes, "v": axes,
+                                           "step": ()}})
+    out["trainer/restored8"] = got["params"]
+    out["trainer/index8"] = mesh8.index(("data",))
+
+
+def _cli(rank: int, out_dir: str):
+    """``launch.train.main`` on a (1, 2) mesh of ranks 0 and 1 (a fresh
+    process group, ``file://`` rendezvous; tp retrieval), rank 0 writing
+    the metrics."""
+    from repro_torch.launch import train as train_cli
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    train_cli.main(["--arch", "engram-27b", "--reduced", "--mesh",
+                    "data=1,model=2", "--engram", "tp", "--steps", "2",
+                    "--batch", "2", "--seq", "16", "--device", "cpu",
+                    "--metrics-out", os.path.join(out_dir, "cli.json")],
+                   init_method=f"file://{os.path.join(out_dir, 'cli_rdzv')}")
+
+
 def rank_main(rank: int, world: int, init: str, inputs: str, out_dir: str):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding.rules import sharding_ctx
@@ -167,11 +398,19 @@ def rank_main(rank: int, world: int, init: str, inputs: str, out_dir: str):
     try:
         mesh = make_mesh(*MESH, device="cpu")
         inp = torch.load(inputs, weights_only=False)
-        out = {"coords": torch.tensor([mesh.coords[a] for a in MESH[1]])}
+        out = {"coords": torch.tensor([mesh.coords[a] for a in MESH[1]]),
+               "out_dir": out_dir}
         with sharding_ctx(mesh) as ctx:
             for part in (_engram, _moe, _embed):
                 part(ctx, inp, out)
             _model(ctx, inp, out, "pooled")
+            _collective_grads(ctx, out)
+            _embed_grad(ctx, inp, out)
+            for strategy in ("pooled", "tp"):
+                _train_step(ctx, inp, out, strategy)
+            _ep_step(ctx, inp, out)
+            _remat_backward_off_thread(ctx, inp, out)
+            _trainer(ctx, inp, out, out_dir)
         # tp reads the tables row-sharded over the model axis only
         with sharding_ctx(mesh, rules={"eng_vocab": ("model",)}) as ctx:
             _model(ctx, inp, out, "tp")
@@ -180,3 +419,5 @@ def rank_main(rank: int, world: int, init: str, inputs: str, out_dir: str):
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+    if rank < 2:
+        _cli(rank, out_dir)

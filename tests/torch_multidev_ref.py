@@ -1,7 +1,7 @@
 """The reference's side of tests/test_torch_multidev.py, run in a
 subprocess with 8 fake host devices (the pytest process stays at 1):
 
-    python tests/torch_multidev_ref.py <inputs.npz> <out.npz>
+    python tests/torch_multidev_ref.py <inputs.npz> <out.npz> [mesh|train]
 
 Runs the reference's mesh strategies on a (2, 4) ("data", "model") mesh
 (``retrieve`` tp and pooled, ``retrieve_pooled`` at slack 0.25,
@@ -9,8 +9,13 @@ Runs the reference's mesh strategies on a (2, 4) ("data", "model") mesh
 ``embed_lookup_local``), check_compressed_ddp's train step with and
 without the int8 wire on an (8,) mesh, and reduced deepseek-v3-671b's
 single-device
-prefill and greedy decode (local retrieval, ragged MoE), on the inputs the
-test wrote, and saves the outputs."""
+prefill and greedy decode (local retrieval, ragged MoE), the train steps
+(check_tp_train_step's model on one device and under the mesh with tp and
+pooled retrieval: loss, gradients, one AdamW step; reduced
+deepseek-v2-236b's expert-parallel steps at capacity factor 1.25 under the
+mesh, and with the capacity raised and the load-balance loss off on one
+device: loss and gradients), the former with their one-ulp witnesses, on
+the inputs the test wrote, and saves the outputs."""
 import dataclasses
 import os
 import sys
@@ -54,6 +59,105 @@ DDP_CFG = ModelConfig(
     dtype="float32")
 
 
+# tests/multidev_checks.py's check_tp_train_step model
+TR_CFG = ModelConfig(
+    name="t", family="dense", n_layers=3, d_model=64, vocab_size=128,
+    n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, engram=ECFG,
+    dtype="float32")
+TR_LR = 1e-4
+EP_CAPACITY = 1.25          # reduced deepseek-v2-236b's own
+WITNESS_SEEDS = (1, 2, 3, 4, 5)   # tests/test_torch_train.py's
+WITNESS_EPS = 1e-7
+
+
+def _moved(tree, seed):
+    """Each element times (1 + WITNESS_EPS N(0, 1)): about one f32 ulp."""
+    leaves, tdef = jax.tree.flatten(tree)
+    keys = jax.random.split(jax.random.PRNGKey(seed), len(leaves))
+    return jax.tree.unflatten(tdef, [
+        x * (1 + WITNESS_EPS * jax.random.normal(k, x.shape, x.dtype))
+        for x, k in zip(leaves, keys)])
+
+
+def _share(got, want) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                     / max(float(np.abs(np.asarray(b)).max()), 1e-30))
+               for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)))
+
+
+def train_case(out, name, cfg, flags, params, batch, mesh, step: bool):
+    """The loss and gradients of ``cfg`` under ``mesh`` (None: one
+    device) and, with ``step``, one AdamW step at ``TR_LR`` from fresh
+    moments and the witnesses: the shares by which the gradients,
+    grad_norm and the stepped parameters move when the weights move by
+    about one ulp (per ``WITNESS_SEEDS``)."""
+    import contextlib
+    from repro.train import AdamWConfig
+    from repro.train.optimizer import adamw_update, init_opt_state
+    vg = jax.jit(jax.value_and_grad(ref_model.build_loss_fn(cfg, flags)))
+    oc = AdamWConfig(lr=TR_LR, warmup_steps=1)
+    adam = jax.jit(lambda p, g: adamw_update(oc, p, g, init_opt_state(p)))
+    wit = {"g": [0.0], "gnorm": [0.0], "p": [0.0]}
+    with contextlib.ExitStack() as on_mesh:
+        if mesh is not None:
+            on_mesh.enter_context(sharding_ctx(mesh))
+            on_mesh.enter_context(mesh)
+        loss, grads = vg(params, batch)
+        moved = [_moved(params, s) for s in (WITNESS_SEEDS if step else ())]
+        moved_g = [vg(p, batch)[1] for p in moved]
+    out[f"{name}/loss"] = np.asarray(loss)
+    for i, leaf in enumerate(jax.tree.leaves(grads)):
+        out[f"{name}/g{i}"] = np.asarray(leaf)
+    if step:
+        p, _, m = adam(params, grads)
+        gn = float(m["grad_norm"])
+        out[f"{name}/gnorm"] = np.asarray(gn)
+        for i, leaf in enumerate(jax.tree.leaves(p)):
+            out[f"{name}/p{i}"] = np.asarray(leaf)
+        for pw, gw in zip(moved, moved_g):
+            p_w, _, m_w = adam(pw, gw)
+            wit["g"].append(_share(gw, grads))
+            wit["gnorm"].append(abs(float(m_w["grad_norm"]) - gn) / gn)
+            wit["p"].append(_share(p_w, p))
+    for k, v in wit.items():
+        out[f"{name}/wit_{k}"] = np.asarray(v)
+
+
+def ep_cfg(cf: float, aux: bool = True):
+    """Reduced deepseek-v2-236b at capacity factor ``cf``, its
+    load-balance loss off unless ``aux``."""
+    from repro.configs import deepseek_v2_236b
+    cfg = deepseek_v2_236b.reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf,
+        aux_loss_coef=cfg.moe.aux_loss_coef if aux else 0.0))
+
+
+def train_steps(out, mesh):
+    """check_tp_train_step's twin and the expert-parallel train steps."""
+    from repro.data import DataConfig, TokenPipeline
+
+    def batch(cfg):
+        return {k: jnp.asarray(v) for k, v in TokenPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, batch=4, seq_len=16, seed=0)
+        ).batch_at(0).items()}
+
+    params = ref_model.init_params(TR_CFG, 0)
+    b = batch(TR_CFG)
+    train_case(out, "tr/one", TR_CFG, RunFlags(), params, b, None, True)
+    for strat in ("pooled", "tp"):
+        train_case(out, f"tr/{strat}", TR_CFG,
+                   RunFlags(engram_strategy=strat), params, b, mesh, True)
+    cfg = ep_cfg(EP_CAPACITY)
+    params, b = ref_model.init_params(cfg, 0), batch(cfg)
+    for strat in ("gather", "alltoall"):
+        train_case(out, f"ep/{strat}", cfg, RunFlags(moe_strategy=strat),
+                   params, b, mesh, False)
+    train_case(out, "ep/one", ep_cfg(8.0, aux=False),
+               RunFlags(moe_strategy="ragged"), params, b, None, False)
+
+
 def model_cfg():
     """Reduced deepseek-v3-671b with a capacity factor at which the mesh's
     expert-parallel paths drop no row (the single-device path is
@@ -63,10 +167,17 @@ def model_cfg():
         cfg.moe, capacity_factor=8.0))
 
 
-def main(inputs: str, out_path: str) -> None:
+def main(inputs: str, out_path: str, part: str = "mesh") -> None:
+    """``part`` "mesh": every output but the train steps; "train": the
+    train steps alone (the test runs both at once)."""
+    mesh = make_mesh((2, 4), ("data", "model"))
+    if part == "train":
+        out = {}
+        train_steps(out, mesh)
+        np.savez(out_path, **out)
+        return
     inp = dict(np.load(inputs))
     out = {}
-    mesh = make_mesh((2, 4), ("data", "model"))
     tab = jnp.asarray(inp["tables"])
     with sharding_ctx(mesh), mesh:
         for case in ("idx", "idx1", "idx_hot"):
@@ -142,4 +253,4 @@ def greedy(flags, toks):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:])
