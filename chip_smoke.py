@@ -293,6 +293,25 @@ result lines are printed):
               torch.distributed.run --standalone --nproc-per-node 2 -m
               repro_torch.launch.train --arch engram-27b --reduced
               --mesh data=1,model=2 --steps 3`` exits 0.
+ 26. dryrun   (run after 21, on phase 7's weights) engram-27b's decode
+              step at B = 8, max_len 512 (K1 inside the step,
+              ``engram_strategy="local_kernel"``): (a) counted by
+              ``roofline.counting.CountingMode`` on the card and traced
+              on fake CUDA tensors and on the meta device: equal FLOPs,
+              bytes and K1 / K2 calls; the real step launches each
+              kernel twice, the traces never; (b) its device time
+              (CUPTI) against the H100 roofline of its counts, the share
+              at most ``ROOFLINE_SHARE_MAX``; (c) the fake trace's peak
+              within ``PEAK_EST_TOL`` of ``max_memory_allocated`` and
+              its transient (peak less arguments) within
+              ``PEAK_EST_TOL`` plus ``TRANSIENT_SLACK`` of the
+              allocator's, for this step and for a prefill of 2 x 2048
+              tokens (a transient of about a GB); (d) ``python -m
+              repro_torch.launch.dryrun`` on gemma3-1b x decode_32k,
+              single pod and multi-pod, ``roofline.report`` over their
+              records and ``examples.multipod_dryrun``, each a
+              subprocess that exits 0; (e) K1's and K2's host time per
+              call through each route to the launch (``op_routes``).
 
 Phase 6 also runs reduced internvl2-1b like the other reduced configs,
 reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
@@ -300,8 +319,9 @@ prefill with patch tokens card = CPU, and the overload and tier runs on
 reduced jamba-1.5-large-398b and xlstm-125m.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 18 and 20 to 23; training launches neither); the
-last is ``{"ok": true, "device": {...}}``.
+summed over phases 7 to 18 and 20 to 23; training launches neither, and
+phase 26's counted step is reported on its own); the last is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -5481,6 +5501,307 @@ def train_cli_torchrun(smi: str) -> dict:
     return dict(seconds=run_s, line=done[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the dry-run tooling against the card
+# ---------------------------------------------------------------------------
+
+# limits of phase 26: the roofline share of a counted step's device time
+# (above 1 the count is wrong; 5 % for the profiler's record boundaries),
+# and the fake trace's peak estimate against the allocator's peak, both
+# the whole peak and its transient (the peak less the arguments), the
+# transient with a fixed slack for the allocator's rounding (each block a
+# multiple of 512 B, a large cached block reused unsplit up to 1 MiB over)
+ROOFLINE_SHARE_MAX = 1.05
+PEAK_EST_TOL = 0.15
+TRANSIENT_SLACK = 4 << 20
+
+
+def fake_like(tree, mode, device=None):
+    """``tree`` (dicts, lists, tensors) with every tensor replaced by a fake
+    one in ``mode``: of its shape, strides, dtype and device, or with
+    ``device`` (``"meta"``) of its shape, strides and dtype there."""
+    import torch
+    from repro_torch.models.params import tree_map
+    if device is None:
+        return tree_map(mode.from_tensor, tree)
+    with mode:
+        return tree_map(lambda t: torch.empty_strided(
+            t.shape, t.stride(), dtype=t.dtype, device=device), tree)
+
+
+def hold_peak(label: str, smi: str, real: dict, fake: dict) -> dict:
+    """Phase 26 (c) for one step: the fake trace's ``LiveBytes`` against the
+    allocator, each a dict of ``args`` (what the step's arguments hold)
+    and ``peak``; the allocator's args are what was allocated before the
+    step. The whole peak and the transient (peak less args) each within
+    ``PEAK_EST_TOL``, the transient with ``TRANSIENT_SLACK`` besides."""
+    rel = abs(fake["peak"] / real["peak"] - 1)
+    tr_real = real["peak"] - real["args"]
+    tr_fake = fake["peak"] - fake["args"]
+    tr_gap = abs(tr_fake - tr_real)
+    tr_lim = PEAK_EST_TOL * tr_real + TRANSIENT_SLACK
+    print(f"dryrun memory [{smi}]: {label}: arguments: allocated before the "
+          f"step {real['args'] / 1e9:.4f} GB, fake {fake['args'] / 1e9:.4f};"
+          f" peak: allocator {real['peak'] / 1e9:.4f} GB, fake trace "
+          f"{fake['peak'] / 1e9:.4f} GB ({100 * rel:.2f} % apart, limit "
+          f"{100 * PEAK_EST_TOL:.0f} %); transient: allocator "
+          f"{tr_real / 1e9:.4f} GB, fake {tr_fake / 1e9:.4f} GB ("
+          f"{tr_gap / 1e6:.3f} MB apart, limit {tr_lim / 1e6:.3f} MB)")
+    check(rel <= PEAK_EST_TOL, f"dryrun memory: {label}: the fake peak is "
+          f"{100 * rel:.2f} % from the allocator's")
+    check(tr_gap <= tr_lim, f"dryrun memory: {label}: the fake transient "
+          f"{tr_fake / 1e6:.3f} MB is {tr_gap / 1e6:.3f} MB from the "
+          f"allocator's {tr_real / 1e6:.3f} MB (limit {tr_lim / 1e6:.3f})")
+    return dict(peak_gb=real["peak"] / 1e9, peak_est_gb=fake["peak"] / 1e9,
+                transient_gb=tr_real / 1e9, transient_est_gb=tr_fake / 1e9)
+
+
+def fake_peak(step, args, mode) -> dict:
+    """``args`` made fake in ``mode`` and ``step`` traced on them under a
+    ``CountingMode`` fed a ``LiveBytes``: its stats, the storages the
+    arguments hold and the peak, and the trace's seconds."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.roofline.counting import CountingMode, LiveBytes
+    mem = LiveBytes()
+    for t in tree_leaves(args):
+        mem.hold(t)
+    fake_args = mem.current
+    counter = CountingMode(memory=mem)
+    t0 = time.perf_counter()
+    with mode, counter:
+        out = step(*args)
+    trace_s = time.perf_counter() - t0
+    del out
+    return dict(stats=counter.stats(), args=fake_args, peak=mem.peak,
+                trace_s=trace_s)
+
+
+def prefill_peak(cfg, tree, dev, smi: str, B: int = 2,
+                 S: int = 2048) -> dict:
+    """Phase 26 (c) on a step with a real transient: engram-27b's prefill
+    of B x S tokens (``RunFlags(engram_strategy="local_kernel")``, its
+    decode state of ``max_len`` S among the outputs) on the card, against
+    its trace on fake CUDA tensors (``hold_peak``)."""
+    import torch
+    from repro_torch.launch.specs import fake_mode
+    from repro_torch.models.model import build_prefill_step
+    from repro_torch.models.transformer import RunFlags
+    step = build_prefill_step(cfg, RunFlags(engram_strategy="local_kernel"),
+                              max_len=S)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(26))
+    batch = {"tokens": tokens.to(dev),
+             "lengths": torch.full((B,), S, dtype=torch.int32, device=dev)}
+    step(tree, batch)                        # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = step(tree, batch)
+    torch.cuda.synchronize()
+    real = dict(args=held, peak=torch.cuda.max_memory_allocated())
+    del out
+    mode = fake_mode(dev.type)
+    fake = fake_peak(step, fake_like([tree, batch], mode), mode)
+    print(f"dryrun memory [{smi}]: prefill B={B} S={S}: fake CUDA trace in "
+          f"{fake['trace_s']:.2f} s, {fake['stats']['n_ops']:.0f} "
+          f"operations")
+    return hold_peak(f"prefill B={B} S={S}", smi, real, fake)
+
+
+def op_routes(cfg, dev, smi: str) -> dict:
+    """Phase 26 (e): host ms per call with launch (``call_ms``) of K1 at a
+    decode wave's rows (every Engram layer's tables, 8 slots x 16 tables)
+    and K2 at T = 8, through each route to the launch: the wrapper (its
+    checks, then the operator's overload), the ``CustomOpDef``, the
+    overload, the overload below the autograd key, and the CUDA
+    implementation called with no dispatcher (the launch as it was before
+    the kernels became custom operators)."""
+    import torch
+    from repro_torch.kernels.engram_gather import gather_rows_multi
+    from repro_torch.kernels.engram_gather import ops as k1_ops
+    from repro_torch.kernels.gated_fuse import engram_gated_fuse
+    from repro_torch.kernels.gated_fuse import ops as k2_ops
+    e = cfg.engram
+    L = len(cfg.engram_layers())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # the host's cost does not depend on the table's length: 2^20 rows each
+    # (engram-27b's are 10.8 GB, beside phase 7's weights on the card)
+    tables = [torch.randn(1 << 20, e.head_dim, generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(L)]
+    gids = [torch.randint(0, tables[0].shape[0], (L, 16 * 8),
+                          generator=gen, device=dev) for _ in range(40)]
+    F = len(e.orders) * e.emb_dim
+    k2_sets = [k2_operands(gen, dev, 8, cfg.d_model, F, torch.bfloat16)
+               for _ in range(4)] * 10
+
+    def below_autograd(op):
+        def call(*a):
+            with torch._C._AutoDispatchBelowAutograd():
+                return op(*a)
+        return call
+
+    out = {}
+    with torch.no_grad():
+        for name, wrapper, opdef, args in (
+                ("K1", gather_rows_multi, k1_ops._gather_op,
+                 [(tables, g) for g in gids]),
+                ("K2", engram_gated_fuse, k2_ops._fuse_op, k2_sets)):
+            raw = [(list(a[0]), a[1]) for a in args] if name == "K1" \
+                else args
+            routes = {"wrapper": (wrapper, args),
+                      "CustomOpDef": (opdef, raw),
+                      "overload": (opdef._opoverload, raw),
+                      "overload below autograd":
+                          (below_autograd(opdef._opoverload), raw),
+                      "no dispatcher": (opdef._init_fn, raw)}
+            out[name] = {r: call_ms(fn, a) for r, (fn, a) in routes.items()}
+            print(f"op routes [{smi}]: {name} host ms per call with launch: "
+                  + ", ".join(f"{r} {ms:.5f}" for r, ms in out[name].items()))
+    reset_launches()
+    return out
+
+
+def counted_decode(cfg, params, dev, smi: str, B: int = 8,
+                   max_len: int = 512) -> dict:
+    """Phase 26 (a) to (c): engram-27b's decode step at phase 7's shapes
+    (``RunFlags(engram_strategy="local_kernel")``, so K1 runs inside the
+    step; the f32 head prepared once, as the engine does), counted by
+    ``roofline.counting.CountingMode`` on the card and traced on fake
+    tensors of the card's device and on the meta device: equal FLOPs,
+    bytes and K1 / K2 calls, the launch counters moved by the real step
+    alone; its device time against the H100 roofline of its counts; the
+    fake trace's peak and transient against the allocator's, for this step
+    and for a prefill (``prefill_peak``)."""
+    import torch
+    from repro_torch.launch.specs import fake_mode, tree_bytes
+    from repro_torch.models.layers import with_f32_head
+    from repro_torch.models.model import build_decode_step, init_decode_state
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.roofline.analysis import roofline
+    from repro_torch.roofline.counting import K1, K2, CountingMode
+    flags = RunFlags(engram_strategy="local_kernel")
+    step = build_decode_step(cfg, flags)
+    tree = with_f32_head(params)
+    state = init_decode_state(cfg, flags, B, max_len, dev)
+    state["positions"].fill_(100)
+    token = torch.randint(1, cfg.vocab_size, (B,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(26)).to(dev)
+    step(tree, state, token)                 # warm-up (cuBLAS, kernels)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    arg_bytes = tree_bytes([tree, state, token])
+    reset_launches()
+    real = CountingMode()
+    with real:
+        out = step(tree, state, token)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    real_launch = read_launches()
+    peak_real = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+        else 0
+    del out
+    rs = real.stats()
+
+    traced = {}
+    # the meta device takes the card's path; the CPU rehearsal compares
+    # its own
+    for fake_dev in (dev.type, "meta") if dev.type == "cuda" else \
+            (dev.type,):
+        reset_launches()
+        mode = fake_mode(fake_dev)
+        traced[fake_dev] = fake_peak(step, fake_like(
+            [tree, state, token], mode,
+            None if fake_dev == dev.type else "meta"), mode)
+        traced[fake_dev]["launches"] = read_launches()
+    fs = traced[dev.type]["stats"]
+    for name, t in traced.items():
+        st = t["stats"]
+        print(f"dryrun step [{smi}]: fake {name} trace in {t['trace_s']:.2f}"
+              f" s: flops_dot {st['flops_dot']:.6e}, bytes "
+              f"{st['bytes_accessed']:.6e}, {st['n_ops']:.0f} operations, "
+              f"kernels {st['kernel_calls']}, launches {t['launches']}")
+        for k in ("flops_dot", "bytes_accessed", "kernel_calls"):
+            check(st[k] == rs[k], f"dryrun step: fake {name} {k} {st[k]} "
+                  f"!= the real step's {rs[k]}")
+        check(t["launches"] == {"engram_gather": 0, "gated_fuse": 0},
+              f"dryrun step: the fake {name} trace launched {t['launches']}")
+    print(f"dryrun step [{smi}]: real on {dev}: flops_dot "
+          f"{rs['flops_dot']:.6e}, bytes {rs['bytes_accessed']:.6e}, "
+          f"{rs['n_ops']:.0f} operations, kernels {rs['kernel_calls']}, "
+          f"launches {real_launch}: equal to both fake traces")
+    if dev.type == "cuda":
+        check(rs["kernel_calls"] == {K1: 2, K2: 2},
+              f"dryrun step: kernel calls {rs['kernel_calls']}, want K1 and "
+              "K2 twice (one per Engram layer)")
+        check(real_launch == {"engram_gather": 2, "gated_fuse": 2},
+              f"dryrun step: the real step launched {real_launch}")
+
+    # (b) the step's device time against the roofline of its counts
+    r = roofline(rs["flops_dot"], rs["bytes_accessed"], 0.0)
+    ms = device_ms(step, [(tree, state, token)] * 10)
+    share = r.step_time_s * 1e3 / ms
+    print(f"dryrun roofline [{smi}]: decode step B={B} max_len={max_len}: "
+          f"device {ms:.4f} ms (CUPTI), roofline {r.step_time_s * 1e3:.4f} ms"
+          f" ({r.bound}-bound: compute {r.compute_s * 1e3:.4f}, memory "
+          f"{r.memory_s * 1e3:.4f} ms), share {share:.4f} (limit "
+          f"{ROOFLINE_SHARE_MAX})")
+    check(share <= ROOFLINE_SHARE_MAX, f"dryrun roofline: share {share:.4f} "
+          f"above {ROOFLINE_SHARE_MAX}: the count is wrong")
+
+    # (c) the fake traces' peaks and transients against the allocator's:
+    # this step's (a transient of some 35 MB) and a prefill's
+    print(f"dryrun memory [{smi}]: decode B={B}: arguments "
+          f"{arg_bytes / 1e9:.4f} GB")
+    mem = {}
+    if dev.type == "cuda":
+        mem["decode"] = hold_peak(f"decode B={B}", smi, dict(
+            args=held, peak=peak_real), traced[dev.type])
+        mem["prefill"] = prefill_peak(cfg, tree, dev, smi)
+    return dict(flops_dot=rs["flops_dot"], bytes=rs["bytes_accessed"],
+                device_ms=ms, roofline_ms=r.step_time_s * 1e3,
+                bound=r.bound, share=share, memory=mem)
+
+
+def dryrun_cli(smi: str) -> dict:
+    """Phase 26 (d): ``python -m repro_torch.launch.dryrun`` on gemma3-1b x
+    decode_32k, single pod and multi-pod, then ``roofline.report`` over
+    both records and the example twin, each in a subprocess: exit 0, the
+    records ok, the report's tables rendered."""
+    out = ROOT / "build" / "dryrun_phase26"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            "gemma3-1b", "--shape", "decode_32k", "--out", str(out)]
+    for label, cmd in (
+            ("dryrun pod1", base), ("dryrun pod2", base + ["--multi-pod"]),
+            ("report", [sys.executable, "-m", "repro_torch.roofline.report",
+                        "--dir", str(out)]),
+            ("example", [sys.executable, "-m",
+                         "repro_torch.examples.multipod_dryrun"])):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, env=env, cwd=ROOT)
+        runs[label] = time.perf_counter() - t0
+        check(res.returncode == 0, f"{label}: exit {res.returncode}: "
+              f"{res.stdout[-1500:]} {res.stderr[-3000:]}")
+        lines = res.stdout.strip().splitlines()
+        print(f"{label} [{smi}]: exit 0 in {runs[label]:.1f} s")
+        for line in (lines if label != "report" else lines[:12]):
+            print(f"{label}:   {line}")
+    for tag in ("pod1", "pod2"):
+        rec = json.loads((out / f"{tag}__gemma3-1b__decode_32k.json")
+                         .read_text())
+        check(rec["ok"] and rec["device"] == "cuda",
+              f"dryrun {tag}: record {rec.get('error')}")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5553,6 +5874,15 @@ def main() -> int:
     for k, n in cli["launches"].items():
         launches[k] += n
     print(f"cli: phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    # phase 26: the dry-run tooling against phase 7's decode step
+    t26 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = counted_decode(cfg, params, dev, smi)
+    dry["op_routes_ms"] = op_routes(cfg, dev, smi)
+    dry["cli_s"] = dryrun_cli(smi)
+    print(f"dryrun: phase 26 took {time.perf_counter() - t26:.1f} s")
 
     # phase 14: the tables in host memory; each model freed before the next
     t14 = time.perf_counter()
@@ -5786,7 +6116,8 @@ def main() -> int:
                         "gated_fuse_T2112": k2[2112],
                         "train_agree_reduced_f32": tr_agree,
                         "train_gemma3_1b_B4_S1024": tr,
-                        "train_mesh": tr_mesh}))
+                        "train_mesh": tr_mesh,
+                        "dryrun_decode_step": dry}))
     print(f"profiler: {len(CUPTI_LOST)} sessions lost {min(CUPTI_LOST)} to "
           f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records "
           f"({CUPTI_LOST.count(CUPTI_PRIME + 1)} lost the marker too and "

@@ -47,7 +47,7 @@ import torch
 from ..configs.base import EngramConfig, ModelConfig
 from ..kernels.engram_gather import engram_gather, gather_rows
 from ..kernels.gated_fuse import engram_gated_fuse
-from ..models.layers import rmsnorm
+from ..models.layers import rmsnorm, value_counts
 from ..models.params import pd
 from ..sharding import collectives as coll
 from ..sharding.rules import current_ctx, rank_block
@@ -204,8 +204,8 @@ def retrieve_pooled(ecfg: EngramConfig, tables, idx, *, slack: float = 2.0,
     s_dst, order = torch.sort(dest, stable=True)
     s_row, s_tid = u_row[order], u_tid[order]
     cap = int(math.ceil(R / N * slack))
-    # jnp.bincount(length=N) drops the values >= N; torch's keeps them
-    counts = torch.bincount(dest, minlength=N + 1)[:N]
+    # jnp.bincount(length=N) drops the values >= N (dest N: dropped)
+    counts = value_counts(dest, N + 1)[:N]
     starts = torch.cumsum(counts, 0) - counts
     pos = ar(R) - starts[s_dst.clamp(max=N - 1)]
     ok = (pos < cap) & (s_dst < N)

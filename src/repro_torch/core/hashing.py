@@ -19,6 +19,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..configs.base import EngramConfig
 
@@ -87,8 +88,16 @@ def engram_indices(ecfg: EngramConfig, tokens: torch.Tensor) -> torch.Tensor:
     Table t = order_idx * n_heads + head. All heads of one order are hashed
     together along a trailing head axis."""
     H = ecfg.n_heads
-    consts = _device_constants(ecfg.seed, H, tuple(ecfg.orders),
-                               tokens.device)
+    if is_fake(tokens) or tokens.device.type == "meta":
+        # a trace (launch.dryrun) reads no values: stand-ins of the
+        # constants' shapes, made without traffic and cached nowhere (a
+        # fake tensor in the cache would reach the next real call)
+        consts = [(torch.empty((H, o), dtype=torch.int64,
+                               device=tokens.device),) * 2
+                  for o in ecfg.orders]
+    else:
+        consts = _device_constants(ecfg.seed, H, tuple(ecfg.orders),
+                                   tokens.device)
     heads = torch.arange(H, device=tokens.device, dtype=torch.int64)
     outs = []
     for oi, order in enumerate(ecfg.orders):

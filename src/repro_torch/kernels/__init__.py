@@ -5,5 +5,7 @@ its plain PyTorch version (``ref.py``) and a launch counter on its wrapper.
   gated_fuse     K2: fused gated fusion (replaces the Pallas gated_fuse)
 
 A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches its kernel or raises.
+tensor it launches its kernel or raises. Each launch is a custom operator
+(``torch.library.custom_op``) with a shape function, so meta and fake
+tensors pass through a wrapper as the kernel's output shape.
 """

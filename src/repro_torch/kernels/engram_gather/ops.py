@@ -21,6 +21,13 @@ copies.
 ``gather_rows.launches`` counts the kernel's launches, through whichever
 entry. The kernel has no backward (nor has the TPU kernel): a CUDA call
 that autograd would record (grad mode on, a table requiring grad) raises.
+
+The launch is the custom operator ``repro_torch::engram_gather``
+(``torch.library.custom_op``) with a shape function (``register_fake``):
+a fake or meta tensor passes through it and comes out with the kernel's
+output shape and dtype, launching nothing and touching no module cache,
+so a trace (``launch.dryrun``, ``roofline.counting``) sees the call by
+name. Its CUDA implementation is the launch.
 """
 from __future__ import annotations
 
@@ -59,8 +66,9 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
     gid on the CPU takes the plain version, over CPU tables. gid on CUDA
     launches the kernel on the current stream, over tables on gid's device
     or in mapped host memory (read in place); a pageable CPU table raises.
-    Row ids are not range-checked on the host (that would need a sync) —
-    the kernel traps on one outside its table."""
+    gid on the meta device (or a fake CUDA gid) gives the output's shape
+    alone. Row ids are not range-checked on the host (that would need a
+    sync) — the kernel traps on one outside its table."""
     if gid.device.type == "cpu":
         if any(t.device.type != "cpu" for t in tables):
             raise ValueError(f"gather_rows_multi: gid on the CPU, tables on "
@@ -74,11 +82,15 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
     if not 1 <= len(tables) <= MAX_TABLES:
         raise ValueError(f"gather_rows_multi: 1 to {MAX_TABLES} tables, got "
                          f"{len(tables)}")
-    if gid.device.type != "cuda":
+    if gid.device.type not in ("cuda", "meta"):
         raise ValueError(f"gather_rows_multi: gid on {gid.device}")
     first = tables[0]
     hd = first.shape[-1]
     for t in tables:
+        if t.device != gid.device and not (t.device.type == "cpu"
+                                           and gid.device.type == "cuda"):
+            raise ValueError(f"gather_rows_multi: a table on {t.device}, "
+                             f"row ids on {gid.device}")
         if t.dim() != 2 or t.stride(1) != 1 or t.shape[1] != hd or \
                 t.dtype != first.dtype:
             raise ValueError("gather_rows_multi: each table must be (rows, "
@@ -89,10 +101,19 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
             gid.dtype not in (torch.int64, torch.int32):
         raise ValueError(f"gather_rows_multi: gid must be ({len(tables)}, N) "
                          f"int64/int32, got {gid.dtype} {tuple(gid.shape)}")
+    return torch.ops.repro_torch.engram_gather.default(
+        list(tables), gid.to(torch.int64).contiguous())
+
+
+@torch.library.custom_op("repro_torch::engram_gather", mutates_args=(),
+                         device_types="cuda")
+def _gather_op(tables: list[torch.Tensor], gid: torch.Tensor) -> torch.Tensor:
+    """The launch: ``gather_rows_multi``'s checked operands, gid (L, N)
+    contiguous int64 on the card."""
     ptrs = [_device_address(t, gid.device) for t in tables]
-    gid = gid.to(torch.int64).contiguous()
     L, N = gid.shape
-    item = first.element_size()
+    first = tables[0]
+    hd, item = first.shape[-1], first.element_size()
     out = torch.empty((L, N, hd), dtype=first.dtype, device=gid.device)
     if out.numel() == 0:
         return out                       # nothing to copy: no launch
@@ -107,6 +128,12 @@ def gather_rows_multi(tables: Sequence[torch.Tensor],
                            f"cudaError {rc}")
     gather_rows.launches += 1
     return out
+
+
+@_gather_op.register_fake
+def _(tables, gid):
+    return torch.empty((*gid.shape, tables[0].shape[-1]),
+                       dtype=tables[0].dtype, device=gid.device)
 
 
 def _device_address(t: torch.Tensor, device: torch.device) -> int:

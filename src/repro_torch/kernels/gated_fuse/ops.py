@@ -19,6 +19,13 @@ float32 runs the CUDA-core kernel, unsplit.
 backward (nor has the TPU kernel): a CUDA call that autograd would record
 (grad mode on, an operand requiring grad) raises instead of returning a
 result cut from the graph.
+
+The launch is the custom operator ``repro_torch::gated_fuse``
+(``torch.library.custom_op``) with a shape function (``register_fake``):
+a fake or meta tensor passes through it and comes out with the kernel's
+output shape and dtype, launching nothing and touching no module cache
+(the arrival counters are allocated only by the CUDA implementation), so
+a trace (``launch.dryrun``, ``roofline.counting``) sees the call by name.
 """
 from __future__ import annotations
 
@@ -120,7 +127,8 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
                       wp: torch.Tensor) -> torch.Tensor:
     """h (..., d); e (..., F); wg (d, d); wp (F, d) -> (..., d) in h's
     dtype. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16 or float32, all four of one dtype, contiguous)."""
+    kernel (bf16 or float32, all four of one dtype, contiguous); meta
+    tensors (and fake CUDA ones) give the output's shape alone."""
     if h.device.type == "cpu":
         return gated_fuse_ref(h, e, wg, wp)
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -130,8 +138,8 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
                            "engram_fuse(use_kernel=False), or call it under "
                            "torch.no_grad/inference_mode")
     d, F = h.shape[-1], e.shape[-1]
-    if h.device.type != "cuda" or any(t.device != h.device
-                                      for t in (e, wg, wp)):
+    if h.device.type not in ("cuda", "meta") or any(
+            t.device != h.device for t in (e, wg, wp)):
         raise ValueError("engram_gated_fuse: all operands must be on one "
                          "CUDA device")
     if h.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -146,6 +154,15 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
                          f"{tuple(wp.shape)} do not match")
     if not all(t.is_contiguous() for t in (h, e, wg, wp)):
         raise ValueError("engram_gated_fuse: operands must be contiguous")
+    return torch.ops.repro_torch.gated_fuse.default(h, e, wg, wp)
+
+
+@torch.library.custom_op("repro_torch::gated_fuse", mutates_args=(),
+                         device_types="cuda")
+def _fuse_op(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
+             wp: torch.Tensor) -> torch.Tensor:
+    """The launch: ``engram_gated_fuse``'s checked operands on the card."""
+    d, F = h.shape[-1], e.shape[-1]
     out = torch.empty_like(h)
     if out.numel() == 0:
         return out                       # nothing to compute: no launch
@@ -167,6 +184,11 @@ def engram_gated_fuse(h: torch.Tensor, e: torch.Tensor, wg: torch.Tensor,
         raise RuntimeError(f"gated_fuse kernel launch failed: cudaError {rc}")
     engram_gated_fuse.launches += 1
     return out
+
+
+@_fuse_op.register_fake
+def _(h, e, wg, wp):
+    return torch.empty_like(h)
 
 
 engram_gated_fuse.launches = 0

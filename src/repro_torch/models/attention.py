@@ -32,6 +32,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import apply_rope, rmsnorm, softcap
+from .loops import trips
 from .params import pd
 
 NEG_INF = -2.0 ** 30
@@ -167,7 +168,7 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
         m_run = torch.full((B, hkv, g, q_chunk), NEG_INF, device=q.device)
         l_run = torch.zeros((B, hkv, g, q_chunk), device=q.device)
         acc = torch.zeros((B, hkv, g, q_chunk, hd_v), device=q.device)
-        for j in range(lo, hi):
+        for j in trips(lo, hi, q):
             ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
                              k[:, ks].float()) * scale

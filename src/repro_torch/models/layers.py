@@ -75,6 +75,16 @@ def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return (a * u) @ params["down"]
 
 
+def value_counts(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(x, minlength=n)`` for int values known to lie in
+    [0, n): the same int64 counts, in a tensor whose length is ``n``
+    whatever the values (bincount's is ``max(x) + 1`` when that is larger,
+    so a fake or meta trace cannot pass it), with no device->host read."""
+    x = x.reshape(-1)
+    return torch.zeros(n, dtype=torch.int64, device=x.device).index_add_(
+        0, x, torch.ones(x.shape, dtype=torch.int64, device=x.device))
+
+
 def embed_lookup(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["w"][tokens]
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from .loops import stack_positions, trips
 from .params import pd
 
 
@@ -67,13 +68,14 @@ def _ssm_step(h, x_t, dt_t, B_t, C_t, A):
 def selective_scan(h, x, dt, Bm, Cm, A):
     """The scan over time in f32: ``_ssm_step`` once per position, one
     after the other. h (B,di,N); x/dt (B,S,di); Bm/Cm (B,S,N). Returns the
-    final state and the outputs y (B,S,di), f32."""
+    final state and the outputs y (B,S,di), f32. The dry run may sample
+    the positions of fake or meta tensors (``loops.trips``)."""
     xs, dts, Bs, Cs = (t.float() for t in (x, dt, Bm, Cm))
     ys = []
-    for t in range(x.shape[1]):
+    for t in trips(0, x.shape[1], xs):
         h, y = _ssm_step(h, xs[:, t], dts[:, t], Bs[:, t], Cs[:, t], A)
         ys.append(y)
-    return h, torch.stack(ys, dim=1)
+    return h, stack_positions(ys, x.shape[1], dim=1)
 
 
 def mamba_forward(cfg: ModelConfig, params, x, cache=None):

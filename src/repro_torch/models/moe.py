@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, MoEConfig
 from ..sharding import collectives as coll
 from ..sharding.rules import current_ctx, mesh_axes, rank_block
-from .layers import mlp, mlp_defs
+from .layers import mlp, mlp_defs, value_counts
 from .params import pd
 
 
@@ -193,8 +193,8 @@ def _ep_local(cfg: ModelConfig, params_local, xf, eids, w, e0: int,
     sel_e, sel_t, sel_w = se[idx], st[idx], sw[idx]
     valid = in_range & (sel_e >= e0) & (sel_e < e0 + e_loc)
     rows = xf[sel_t] * valid[:, None].to(xf.dtype)
-    group_sizes = torch.bincount(torch.where(valid, sel_e - e0, e_loc),
-                                 minlength=e_loc + 1)[:e_loc]
+    group_sizes = value_counts(torch.where(valid, sel_e - e0, e_loc),
+                               e_loc + 1)[:e_loc]
     # the valid rows lead the window, sorted by expert; the grouped GEMM
     # does not define the rows past the last group (on the card), so they
     # are masked by ``where``, not by a product
@@ -279,7 +279,7 @@ def moe_ep_alltoall(cfg: ModelConfig, params, x):
     s_dst, order = torch.sort(dest, stable=True)  # rows by peer
     s_e, s_t = flat_e[order], order // k
     cap = int(math.ceil(R / ep * m.capacity_factor))
-    counts = torch.bincount(dest, minlength=ep)
+    counts = value_counts(dest, ep)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(R, device=dev) - starts[s_dst]   # rank within bucket
     pos_c = torch.where(pos < cap, pos, cap)     # overflow -> spill slot
@@ -297,7 +297,7 @@ def moe_ep_alltoall(cfg: ModelConfig, params, x):
     # grouped GEMMs on the owner rank
     rl = recv_le.reshape(ep * cap)
     sl, o2 = torch.sort(rl, stable=True)
-    gs = torch.bincount(rl, minlength=e_loc + 1)[:e_loc]
+    gs = value_counts(rl, e_loc + 1)[:e_loc]
     out_rows = _expert_mlp_rows(pl, recv_rows.reshape(ep * cap, d)[o2],
                                 _offsets(gs), cfg.ffn_act)
     # empty slots (expert e_loc) sort last, past the last group, which the

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from .loops import stack_positions, trips
 from .mamba import _conv_causal
 from .params import pd
 
@@ -97,11 +98,11 @@ def mlstm_forward(cfg: ModelConfig, params, x, cache=None):
         st = (torch.zeros((B, H, dh, dh), **f32),
               torch.zeros((B, H, dh), **f32), torch.zeros((B, H), **f32))
     hs = []
-    for t in range(S):
+    for t in trips(0, S, q):
         st, h = _mlstm_step(st, q[:, t], k[:, t], v[:, t], i_raw[:, t],
                             f_raw[:, t], dh)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
+    h = stack_positions(hs, S, dim=1).reshape(B, S, di).to(x.dtype)
     # per-feature norm (out_norm), then the z gate
     h = _group_norm(h, params["out_norm"]["scale"])
     out = (h * F.silu(z)) @ params["down"]
@@ -174,10 +175,10 @@ def slstm_forward(cfg: ModelConfig, params, x, cache=None):
         st = (zero, zero, zero,
               torch.zeros((B, H), dtype=torch.float32, device=x.device))
     hs = []
-    for t in range(S):
+    for t in trips(0, S, xg):
         st, h = _slstm_step(params, st, xg[:, t], H, dh)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = stack_positions(hs, S, dim=1).reshape(B, S, d).to(x.dtype)
     h = _group_norm(h, params["norm"]["scale"])
     # post up/down GeGLU feed-forward (proj_factor 4/3)
     f = params["ff_down"].shape[0]

@@ -467,7 +467,10 @@ def test_trainer_params_serve_like_a_detached_copy():
 def test_kernels_refuse_to_cut_a_gradient():
     """A device call that autograd would record raises before launching
     (``meta`` tensors stand for the card's: they reach the same branch);
-    under ``no_grad`` the guard lets it through to the device checks."""
+    under ``no_grad`` the guard lets it through to the device checks,
+    which refuse operands on two devices, and a meta call passes them to
+    the kernel's shape function (the custom operator's, which launches
+    nothing)."""
     h = torch.empty(4, 8, device="meta", requires_grad=True)
     e, wg, wp = (torch.empty(s, device="meta") for s in
                  ((4, 6), (8, 8), (6, 8)))
@@ -479,9 +482,13 @@ def test_kernels_refuse_to_cut_a_gradient():
         gather_rows_multi([tab], gid)
     with torch.no_grad():
         with pytest.raises(ValueError):
-            engram_gated_fuse(h, e, wg, wp)
+            engram_gated_fuse(h, torch.empty(4, 6), wg, wp)
         with pytest.raises(ValueError):
-            gather_rows_multi([tab], gid)
+            gather_rows_multi([torch.empty(16, 4)], gid)
+        out = engram_gated_fuse(h, e, wg, wp)
+        assert (out.device.type, tuple(out.shape)) == ("meta", (4, 8))
+        rows = gather_rows_multi([tab], gid)
+        assert (rows.device.type, tuple(rows.shape)) == ("meta", (1, 3, 4))
 
 
 def test_example_twins_run(monkeypatch, capsys):

@@ -1,0 +1,82 @@
+"""The dry-run cells of tests/test_torch_dryrun.py, in a process of their
+own: ``launch.dryrun`` makes this process rank 0 of a fake world of 256
+(or 512) ranks, a process group no test process may keep.
+
+    PYTHONPATH=src python tests/torch_dryrun_cells.py OUT.json
+
+Writes one JSON object: the records of a full-width cell (gemma3-1b x
+decode_32k, single pod on the meta device and on the CPU path, the
+multi-pod mesh, and again with ``unroll``), of reduced deepseek-v2's
+train and decode steps in bf16 with 16 experts (one a rank of the model
+axis: MoE under expert parallelism, ``torch._grouped_mm`` on the meta
+device, whose shape function takes bf16 only, as the card's kernel
+does), the collectives recorded by ``roofline.counting.CountingMode``
+from c10d calls on a (2, 8, 16) mesh of the fake world, the report
+rendered over the records, and whether ``zero1`` raised.
+"""
+import dataclasses
+import json
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+
+def collective_calls() -> dict:
+    """tests/test_roofline.py's four collectives, issued through the
+    port's collectives on a (pod=2, data=8, model=16) mesh of the fake
+    world of 256 ranks (model groups of 16, data groups of 8)."""
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.roofline.counting import CountingMode
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.rules import sharding_ctx
+    fake_world(256)
+    mesh = make_mesh((2, 8, 16), ("pod", "data", "model"), "cpu")
+    with sharding_ctx(mesh), CountingMode() as mode:
+        coll.psum(torch.zeros(1024, 256), ("model",))
+        coll.all_gather(torch.zeros(8, 128, dtype=torch.bfloat16),
+                        ("data",))
+        coll.psum_scatter(torch.zeros(64, 128), ("data",), dim=0)
+        coll.all_to_all(torch.zeros(16, 32), ("model",))
+    return mode.stats()["collectives"]
+
+
+def main(out: str) -> None:
+    torch.set_num_threads(2)
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.roofline import report
+    recs = {
+        "meta": lower_cell("gemma3-1b", "decode_32k", device="meta"),
+        "cpu": lower_cell("gemma3-1b", "decode_32k", device="cpu"),
+        "unroll": lower_cell("gemma3-1b", "decode_32k", device="meta",
+                             unroll=True),
+        "pod2": lower_cell("gemma3-1b", "decode_32k", device="meta",
+                           multi_pod=True),
+    }
+    v2 = reduced_config("deepseek-v2-236b")
+    v2 = dataclasses.replace(v2, dtype="bfloat16", moe=dataclasses.replace(
+        v2.moe, n_experts=16))
+    for shape in ("train_4k", "decode_32k"):
+        recs[f"moe_{shape}"] = lower_cell("deepseek-v2-236b", shape,
+                                          device="meta", cfg=v2)
+    try:
+        lower_cell("gemma3-1b", "decode_32k", zero1=True)
+        zero1 = "returned"
+    except NotImplementedError as e:
+        zero1 = f"raised: {e}"
+    with tempfile.TemporaryDirectory() as d:
+        for name, rec in recs.items():
+            tag = "pod2" if name == "pod2" else "pod1"
+            Path(d, f"{tag}__{name}__{rec['shape']}.json").write_text(
+                json.dumps(rec))
+        rendered = report.render(report.load_cells(Path(d)))
+    Path(out).write_text(json.dumps({
+        "records": recs, "collectives": collective_calls(),
+        "report": rendered, "zero1": zero1}))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
