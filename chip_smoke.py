@@ -274,7 +274,9 @@ result lines are printed):
      train    the one card over gloo with a ``file://`` rendezvous: (a)
               reduced engram-27b (pooled, tp; tables at 4096 rows) and
               deepseek-v2-236b (gather, alltoall; capacity 8.0, no
-              load-balance loss) in f32 on a (2, 2) mesh of 4 ranks
+              load-balance loss) in f32 on a (2, 2) mesh of 4 ranks, on
+              the reference's layout (dense weights over "model", ZeRO-1
+              moments over "data"),
               against one process on the card from the same weights,
               within phase 24's witness limits: step-1 gradients gathered
               whole, 4 steps' losses, grad_norms and parameters; K1 and
@@ -282,7 +284,9 @@ result lines are printed):
               resumes from step 2 and matches the uninterrupted mesh run.
               (b) gemma3-1b at full width and depth, bf16, tables cut to
               282,800 rows, on a (1, 2) mesh (both ranks on the same
-              batch), pooled then tp, 6 steps each at B = 2, S = 1024
+              batch; the dense weights and the 262,144-word vocabulary
+              split over the 2 ranks, the loss vocab-parallel), pooled
+              then tp, 6 steps each at B = 2, S = 1024
               (remat of the layers and of the head's 512-position
               chunks):
               losses finite and falling, step 1 within one bf16 ulp of
@@ -313,14 +317,34 @@ result lines are printed):
               subprocess that exits 0; (e) K1's and K2's host time per
               call through each route to the launch (``op_routes``).
 
+ 27. mesh     (run after 25) engram-27b at full width and depth on the
+     layout   reference's mesh layout: a (1, 4) ("data", "model") mesh
+              of 4 ranks on the card over gloo, every dense weight split
+              over the model axis (40 heads, 8 KV heads, ffn 13,824 and
+              the 129,280-word vocabulary over 4; each Engram layer's
+              ``proj`` whole), the tables pooled (a quarter of the rows
+              a rank, read through K1), weights at unit gain. One
+              process first (49 GB, freed before the ranks start): phase
+              7's 8 prompts, a prefill and 8 greedy decode steps, and
+              the same teacher-forced from weights moved by one bf16 ulp
+              (three witnesses). The ranks, teacher-forced on that
+              stream: (a) logits within max(1e-3, 2 x the median
+              witness) of the largest, greedy tokens equal wherever one
+              process's top-2 margin exceeds that bound, K1 and K2
+              launched on every rank; (b) each rank's parameter bytes
+              equal to the reference's ``shard_shape`` bytes with
+              ``whole_leaves`` whole, the ranks' peaks summed under 80
+              GB; (c) a decode step's host-clock time on rank 0 and its
+              share in the gloo collectives, printed.
+
 Phase 6 also runs reduced internvl2-1b like the other reduced configs,
 reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
 prefill with patch tokens card = CPU, and the overload and tier runs on
 reduced jamba-1.5-large-398b and xlstm-125m.
 
 The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 18 and 20 to 23; training launches neither, and
-phase 26's counted step is reported on its own); the last is
+summed over phases 7 to 18, 20 to 23 and 27; training launches neither,
+and phase 26's counted step is reported on its own); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -4178,17 +4202,18 @@ def planted_mask(fault: str):
         sound.window_skipped = planted.window_skipped
 
 
-def unit_gain_params(cfg, seed: int, dev):
+def unit_gain_params(cfg, seed: int, dev, block=None):
     """Seeded weights of ``cfg`` drawn on ``dev`` at unit gain: every leaf
     at 1/sqrt of its own first dimension. ``init_params`` draws a stacked
     layer's leaves as the reference does, at 1/sqrt(n_periods), and that
     gain turns attention into an argmax (PERF.md §7): a deep stack's bf16
     and f32 logits then part by about their size (phase 19 prints it for
-    hubert-xlarge), so no precision can be held on it."""
+    hubert-xlarge), so no precision can be held on it. ``block``: the
+    rank's blocks of the same draw (``tree_init``)."""
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import tree_init, tree_map
     return tree_init(tree_map(lambda d: dataclasses.replace(d, fan_in=0),
-                              model_defs(cfg)), seed, dev)
+                              model_defs(cfg)), seed, dev, block=block)
 
 
 def to_f32(tree, in_place: bool = False):
@@ -5091,7 +5116,7 @@ def mesh_train_work(ctx, job: dict, dev, out_dir: str) -> dict:
         step = build_train_step(cfg, flags, AdamWConfig(lr=1e-4,
                                                         warmup_steps=1),
                                 ctx=ctx)
-        opt = init_opt_state(params)
+        opt = init_opt_state(params, step.zero)
         losses, norms = [], []
         for s in range(MESH25_STEPS):
             _, opt, m = step(params, opt, shard_batch(pipe.batch_at(s), ctx,
@@ -5452,9 +5477,10 @@ def train_mesh_gemma3(dev, smi: str, B: int = 2, S: int = 1024) -> dict:
         print(f"{label} [{smi}]: {cfg.n_layers} layers d_model "
               f"{cfg.d_model}, (1, 2) mesh of 2 ranks on the card over gloo,"
               f" both ranks on the same batch B = {B}, S = {S}; "
-              f"{(n_all - n_tab) / 1e9:.3f} B dense parameters whole on "
-              f"each rank, {c['tables'] / 1e9:.3f} of {n_tab / 1e9:.3f} B "
-              f"table elements a rank; losses "
+              f"{(c['all'] - c['tables']) / 1e9:.3f} of "
+              f"{(n_all - n_tab) / 1e9:.3f} B dense parameters a rank (the "
+              f"reference's layout), {c['tables'] / 1e9:.3f} of "
+              f"{n_tab / 1e9:.3f} B table elements a rank; losses "
               + " ".join(f"{x:.4f}" for x in losses)
               + f" (first 3 {first:.4f}, last 3 {last:.4f}); step 1 within "
               f"{rel:.2e} of one process's {one:.4f} (limit "
@@ -5477,6 +5503,267 @@ def train_mesh_gemma3(dev, smi: str, B: int = 2, S: int = 1024) -> dict:
                           peak_gb=peaks, state_gb=state)
     print(f"gemma3 mesh: 2 ranks spawn to exit {run_s:.1f} s")
     return out
+
+
+MESH27 = ((1, 4), ("data", "model"))
+MESH27_STEPS = 8
+BF16_WITNESS_EPS = 2.0 ** -8     # one bf16 ulp, relative
+WITNESS_FLOOR27 = 1e-3
+
+
+def prompt_batch(cfg):
+    """Phase 7's 8 prompts as one (8, 32) batch, padded with token 0,
+    and their lengths."""
+    import torch
+    prompts = serve_prompts(cfg)
+    toks = torch.zeros((len(prompts), 32), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    return toks, torch.tensor([len(p) for p in prompts])
+
+
+def forced_run(cfg, params, toks, lens, stream, flags) -> list:
+    """The prefill of ``toks`` (lengths ``lens``), then ``MESH27_STEPS``
+    decode steps fed ``stream``'s tokens (teacher forcing; None: each
+    step's own argmax): every step's f32 logits, and the tokens fed."""
+    import torch
+    from repro_torch.models.model import build_decode_step, build_prefill_step
+    dev = toks.device
+    logits, state = build_prefill_step(cfg, flags, 32 + MESH27_STEPS + 8)(
+        params, {"tokens": toks, "lengths": lens})
+    out = [logits]
+    decode = build_decode_step(cfg, flags)
+    for i in range(MESH27_STEPS):
+        tok = logits.argmax(-1) if stream is None else stream[:, i].to(dev)
+        logits, state = decode(params, state, tok)
+        out.append(logits)
+    return out, state
+
+
+def perturb_(params, seed: int, eps: float) -> None:
+    """Every leaf times (1 + eps N(0, 1)) in place, chunk by chunk (no
+    temporary of a whole table set)."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    gen = torch.Generator(device=next(tree_leaves(params)).device)
+    gen.manual_seed(seed)
+    for t in tree_leaves(params):
+        flat = t.view(-1)
+        for i in range(0, flat.numel(), 1 << 26):
+            part = flat[i:i + (1 << 26)]
+            noise = torch.randn(part.shape, generator=gen, device=t.device,
+                                dtype=torch.float32)
+            part.copy_((part.float() * noise.mul_(eps).add_(1.0)).to(t.dtype))
+
+
+def mesh27_rank(rank: int, world: int, init: str, job: dict,
+                out_dir: str) -> None:
+    """One rank of phase 27: the (1, 4) mesh over gloo; the rank's blocks
+    of the seed-0 unit-gain draw (``unit_gain_params(block=
+    mesh_logical_axes)``, the ranks drawing one after the other: each
+    draws every whole leaf, an 11.6 GB table set among them); the
+    teacher-forced run; one more decode step with its collectives timed;
+    its bytes and peak."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import mesh_logical_axes
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.sharding.rules import sharding_ctx
+    dev = torch.device(job["device"])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        cfg = job["cfg"]
+        mesh = make_mesh(*MESH27, device=dev)
+        with sharding_ctx(mesh) as ctx:
+            t0 = time.perf_counter()
+            for turn in range(world):
+                if turn == rank:
+                    params = unit_gain_params(cfg, 0, dev,
+                                              block=mesh_logical_axes(cfg))
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            draw_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            flags = RunFlags()
+            reset_launches()
+            toks, lens = job["toks"].to(dev), job["lens"].to(dev)
+            logits, state = forced_run(cfg, params, toks, lens,
+                                       job["stream"], flags)
+            launches = read_launches()
+            from repro_torch.models.model import build_decode_step
+            decode = build_decode_step(cfg, flags)
+            tok = logits[-1].argmax(-1)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tok = decode(params, state, tok)[0].argmax(-1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            with CollectiveClock(dev) as clock:
+                t1 = time.perf_counter()
+                decode(params, state, tok)[0].argmax(-1).cpu()
+                clock_s = time.perf_counter() - t1
+            out = {"logits": torch.stack(logits, 1).cpu(),
+                   "launches": launches, "draw_s": draw_s,
+                   "param_bytes": sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(params)),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "step_s": sorted(times)[1], "clock_s": clock_s,
+                   "coll_s": clock.s, "coll_n": clock.n,
+                   "whole": ctx.mesh.coords}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        job.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+def mesh_layout_27b(dev, smi: str) -> dict:
+    """Phase 27: engram-27b at full width and depth on the reference's
+    mesh layout, a (1, 4) ("data", "model") mesh of 4 rank processes on
+    the one card over gloo: every dense weight split over the model axis
+    (40 query heads, 8 KV heads, ffn 13,824 and the 129,280-word
+    vocabulary over 4), each Engram layer's ``proj`` whole (``WHOLE_
+    LEAVES``), the tables pooled (the config's strategy: each rank owns a
+    quarter of the rows and reads them through K1); seeded weights at unit
+    gain (``unit_gain_params``: at the reference's stacked gain a deep
+    stack's logits move by half their size when the weights move by an
+    ulp, so nothing could be held). (a) One process first (the whole
+    draw, 49 GB: it cannot share the card with the ranks):
+    phase 7's 8 prompts as an (8, 32) prefill group and 8 greedy decode
+    steps, its logits and stream kept on the host, and the same run
+    teacher-forced on that stream from the weights moved by one bf16 ulp
+    (three witnesses); freed. Then the ranks, teacher-forced on the same
+    stream: their logits within max(``WITNESS_FLOOR27``, 2 x the median
+    witness) of the largest logit (phase 24's rule), their argmax equal
+    to the stream wherever one process's top-2 margin exceeds that bound
+    in logits; K1 and K2 launched on every rank. (b) Each rank's
+    parameter bytes equal, to the byte, the reference's ``shard_shape``
+    bytes with ``whole_leaves`` whole; the ranks' peaks summed under 80
+    GB. (c) A decode step's host-clock time on rank 0 and its share in
+    the collectives (``CollectiveClock``), printed."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import block_shape
+    from repro_torch.models.model import (abstract_params,
+                                          params_logical_axes, whole_leaves)
+    from repro_torch.models.params import tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.sharding.rules import Mesh, ShardCtx, DEFAULT_RULES
+    cfg = get_config("engram-27b")
+    toks, lens = prompt_batch(cfg)
+    flags = RunFlags()
+    t0 = time.perf_counter()
+    runs = {}
+    for name, seed in (("one", None), *(
+            (f"witness{s}", s) for s in WITNESS_SEEDS)):
+        params = unit_gain_params(cfg, 0, dev)
+        if seed is not None:
+            perturb_(params, seed, BF16_WITNESS_EPS)
+        stream = None if name == "one" else runs["stream"]
+        logits, _ = forced_run(cfg, params, toks.to(dev), lens.to(dev),
+                               stream, flags)
+        logits = torch.stack(logits, 1).cpu()
+        if name == "one":
+            runs["stream"] = logits.argmax(-1)[:, :MESH27_STEPS]
+            runs["one_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        runs[name] = logits
+        del params, logits, _
+        gc.collect()
+        torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    one = runs["one"]
+    top = one.abs().max().item()
+    wit = [(runs[f"witness{s}"] - one).abs().max().item() / top
+           for s in WITNESS_SEEDS]
+    limit = witness_limit(WITNESS_FLOOR27, wit)
+    world = math.prod(MESH27[0])
+    job = dict(device=str(dev), cfg=cfg, toks=toks, lens=lens,
+               stream=runs["stream"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        mp.start_processes(mesh27_rank, args=(world, f"file://{td}/rdzv",
+                                              job, td),
+                           nprocs=world, start_method="spawn")
+        ranks = [torch.load(os.path.join(td, f"rank{r}.pt"))
+                 for r in range(world)]
+    run_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    label = "mesh layout engram-27b"
+    for r in ranks:
+        check(torch.equal(r["logits"], ranks[0]["logits"]),
+              f"{label}: the ranks' logits differ")
+        check(r["launches"]["engram_gather"] > 0 and
+              r["launches"]["gated_fuse"] > 0,
+              f"{label}: rank {r['whole']} launched {r['launches']}")
+    got = ranks[0]["logits"]
+    share = (got - one).abs().max().item() / top
+    check(share <= limit, f"{label}: teacher-forced logits {share:.3e} of "
+          f"the largest from one process's (limit {limit:.3e}, witnesses "
+          f"{wit})")
+    two = one.topk(2, dim=-1).values
+    margin = two[..., 0] - two[..., 1]
+    sure = margin > limit * top
+    flips = (got.argmax(-1) != one.argmax(-1)) & sure
+    check(not flips.any(), f"{label}: {int(flips.sum())} greedy tokens "
+          f"differ where one process's top-2 margin exceeds {limit * top}")
+    # (b) bytes against the reference's layout
+    ab = dict(tree_paths(abstract_params(cfg)))
+    axes = dict(tree_paths(params_logical_axes(cfg),
+                           is_leaf=lambda x: isinstance(x, tuple)))
+    ctx = ShardCtx(Mesh.of(*MESH27, coords={"data": 0, "model": 0}),
+                   dict(DEFAULT_RULES))
+    held = whole_leaves(cfg, ctx)
+    ref_bytes = sum(math.prod(block_shape(t.shape, axes[k], ctx))
+                    * t.element_size() for k, t in ab.items())
+    want = sum((t.numel() if k in held else math.prod(block_shape(
+        t.shape, axes[k], ctx))) * t.element_size() for k, t in ab.items())
+    for r in ranks:
+        check(r["param_bytes"] == want, f"{label}: rank {r['whole']} holds "
+              f"{r['param_bytes']} parameter bytes, the layout {want}")
+    peaks = [r["peak_gb"] for r in ranks]
+    check(sum(peaks) < 80, f"{label}: peaks {peaks} GB")
+    r0 = ranks[0]
+    coll_share = r0["coll_s"] / r0["clock_s"]
+    draw_s = max(r["draw_s"] for r in ranks)
+    print(f"{label} [{smi}]: {cfg.n_layers} layers d_model {cfg.d_model}, "
+          f"(1, 4) mesh of 4 ranks on the card over gloo, pooled tables "
+          f"(K1 launches a rank {ranks[0]['launches']['engram_gather']}, "
+          f"K2 {ranks[0]['launches']['gated_fuse']}); one process "
+          f"{one_s:.1f} s (peak {runs['one_peak_gb']:.2f} GB), ranks spawn "
+          f"to exit {run_s:.1f} s (draws {draw_s:.1f} s); teacher-forced "
+          f"logits (8 prompts, prefill and {MESH27_STEPS} steps) "
+          f"{share:.3e} of the largest ({top:.3f}) from one process's, "
+          f"limit {limit:.3e} (witnesses "
+          + ", ".join(f"{w:.3e}" for w in wit)
+          + f"); {int(sure.sum())} of {sure.numel()} greedy tokens past "
+          f"the margin, all equal; parameter bytes a rank {want} = the "
+          f"reference's shard bytes {ref_bytes} + "
+          f"{want - ref_bytes} for the whole leaves {sorted(held)}; peaks "
+          + " / ".join(f"{p:.2f}" for p in peaks)
+          + f" GB, summed {sum(peaks):.2f} GB; a decode step (B = 8) "
+          f"{r0['step_s'] * 1e3:.1f} ms host clock on rank 0, "
+          f"{100 * coll_share:.1f} % of a step timed with its collectives "
+          f"({r0['clock_s'] * 1e3:.1f} ms) in {r0['coll_n']} gloo "
+          "collectives")
+    return dict(launches={k: sum(r["launches"][k] for r in ranks)
+                          for k in ranks[0]["launches"]},
+                share=share, limit=limit, witnesses=wit,
+                param_bytes=want, ref_shard_bytes=ref_bytes,
+                whole_leaves=held, peak_gb=peaks,
+                step_ms=r0["step_s"] * 1e3, collective_share=coll_share,
+                one_process_s=one_s, ranks_s=run_s)
 
 
 def train_cli_torchrun(smi: str) -> dict:
@@ -6010,6 +6297,15 @@ def main() -> int:
     tr_mesh["torchrun"] = train_cli_torchrun(smi)
     print(f"mesh train: phase 25 took {time.perf_counter() - t25:.1f} s")
 
+    # phase 27: engram-27b on the reference's mesh layout, 4 ranks
+    t27 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    layout = mesh_layout_27b(dev, smi)
+    for k, n in layout.pop("launches").items():
+        launches[k] += n
+    print(f"mesh layout: phase 27 took {time.perf_counter() - t27:.1f} s")
+
     kernels = [
         dict(name="engram_gather", route="cuda",
              source="src/repro_torch/csrc/engram_gather.cu",
@@ -6027,8 +6323,9 @@ def main() -> int:
           "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
           "engram-40b), deepseek-v2-236b (9 layers), jamba-1.5-large-398b "
           "(7 layers), deepseek-v3-671b (5 layers), gemma3-1b, xlstm-125m, "
-          "CLI (bf16 and f32 scores) and internvl2-1b runs and the mesh "
-          "ranks' owner-side reads; also measured (mesh: one call's host "
+          "CLI (bf16 and f32 scores) and internvl2-1b runs, the mesh "
+          "ranks' owner-side reads and phase 27's 4 ranks (engram-27b on "
+          "the reference's layout); also measured (mesh: one call's host "
           "and CUDA-event ms on the slowest rank; owner-side read: K1 at N "
           "x cap rows of a rank's block, library_ms one index_select); "
           "(deepseek-v2's MoE layer: ms the grouped-GEMM path, plain_ms "
@@ -6117,7 +6414,8 @@ def main() -> int:
                         "train_agree_reduced_f32": tr_agree,
                         "train_gemma3_1b_B4_S1024": tr,
                         "train_mesh": tr_mesh,
-                        "dryrun_decode_step": dry}))
+                        "dryrun_decode_step": dry,
+                        "mesh_layout_27b": layout}))
     print(f"profiler: {len(CUPTI_LOST)} sessions lost {min(CUPTI_LOST)} to "
           f"{max(CUPTI_LOST)} of their {CUPTI_PRIME + 1} priming records "
           f"({CUPTI_LOST.count(CUPTI_PRIME + 1)} lost the marker too and "

@@ -234,7 +234,7 @@ class Checkpointer:
                                  f"{list(leaf.shape)} in the model")
             t = _from_numpy(np.load(d / info["file"]), info["dtype"])
             if ctx is not None:
-                t = ctx.block(t, tuple(axes[name]))
+                t = ctx.block(t, axes[name])
             loaded[name] = t.to(dev, copy=True)
         return _rebuild(like, loaded)
 

@@ -14,13 +14,16 @@ collectives move nothing, with every tensor fake (``FakeTensorMode``:
 shapes, dtypes and a device, nothing allocated, no kernel launched; on
 the meta device plain meta tensors, ``launch.specs.fake_mode``).
 Rank 0 holds its blocks of the parameters (``models.model.
-mesh_logical_axes``; in training ``train_logical_axes``), of the batch
-and of the decode state (``launch.specs.mesh_state_axes``: the batch's
-share, the rest whole as the dense weights that write it), and runs the
-step the card runs: the train step of ``train.loop.build_train_step``
-(gradients, their sync over the mesh and AdamW), or ``models.model``'s
-prefill, decode or encoder step. ``roofline.counting.CountingMode``
-counts it.
+mesh_logical_axes``; in training ``train_logical_axes``: the reference's
+layout, the dense weights split over "model", but for the leaves of
+``models.model.WHOLE_LEAVES``, recorded under ``whole_leaves`` with
+their bytes), of the optimizer's moments (ZeRO-1: split over "data" as
+``train.optimizer.opt_state_axes`` lays them out), of the batch and of
+the decode state (``launch.specs.state_axes``, the reference's), and
+runs the step the card runs: the train step of ``train.loop.
+build_train_step`` (gradients, their sync over the mesh and AdamW), or
+``models.model``'s prefill, decode or encoder step. ``roofline.
+counting.CountingMode`` counts it.
 
 ``device``: ``"cuda"`` (the default) traces the card's path on fake CUDA
 tensors, K1 and K2 as their custom operators and the MoE's grouped GEMM
@@ -43,15 +46,21 @@ the rank's arguments and the step), ``ok``, ``error``, ``traceback``,
 trace's time is ``trace_s``), ``hlo_chars``, ``cost.transcendentals`` and
 ``memory.alias_bytes`` (no HLO; in-place updates write into the
 arguments). The port adds ``device``, ``kernel_calls``, ``n_ops``,
-``sampled_loops``, ``trace_s`` and ``unmirrored``.
+``sampled_loops``, ``trace_s``, ``unmirrored``, ``whole_leaves``, ``zero1`` and
+``memory.recompute_counted_as_run``: a sampled loop's storages are
+counted for the iterations not run (``roofline.counting.LiveBytes``), but
+in a train cell with remat the loops the backward recomputes are counted
+as run, so that cell's ``peak_bytes_est`` is an estimate whose backward
+part may be low.
 
-Options the port does not mirror are recorded or refused: ``cell_rules``'
-``kv_seq`` (the reference's flash-decode layout, a GSPMD sharding of the
-KV cache's sequence) is listed under ``unmirrored`` and not applied;
-``zero1=True`` raises; ``unroll`` is recorded, and changes nothing (the
-port runs layer by layer either way). The recurrent mixers' scans over
-positions and chunked attention's loops over KV blocks run
-``LOOP_SAMPLE`` + 1 iterations, scaled to the rest
+``cell_rules``' ``kv_seq`` (the reference's flash-decode layout, a GSPMD
+sharding of the KV cache's sequence) is not mirrored: it is listed under
+``unmirrored`` and not applied. ``zero1=True`` (the reference's ZeRO-1
+gradient constraint) is recorded: the port's train step always lays its
+gradients and moments out so. ``unroll`` is recorded, and changes
+nothing (the port runs layer by layer either way). The recurrent
+mixers' scans over positions and chunked attention's loops over KV
+blocks run ``LOOP_SAMPLE`` + 1 iterations, scaled to the rest
 (``roofline.counting.sample_loops``, ``models.loops.trips``).
 """
 from __future__ import annotations
@@ -67,7 +76,8 @@ import torch.distributed as dist
 from ..configs.base import SHAPES, applicable_shapes, get_config, list_archs
 from ..models.model import (abstract_params, build_decode_step,
                             build_encoder_step, build_prefill_step,
-                            mesh_logical_axes, train_logical_axes)
+                            mesh_logical_axes, train_logical_axes,
+                            whole_leaves)
 from ..models.params import tree_leaves
 from ..models.transformer import RunFlags
 from ..roofline.analysis import model_flops
@@ -77,8 +87,8 @@ from ..train.loop import build_train_step
 from ..train.optimizer import AdamWConfig, init_opt_state
 from .mesh import make_production_mesh
 from .specs import (abstract_decode_state, batch_shardings, fake_mode,
-                    input_specs, mesh_state_axes, param_shardings,
-                    rank_blocks, state_shardings)
+                    input_specs, param_shardings, rank_blocks,
+                    state_shardings)
 
 RECORD_VERSION = 2
 # the reference's keys that have no counterpart here (module docstring)
@@ -115,12 +125,9 @@ def cell_rules(cfg, shape, mesh, optimized: bool = False) -> dict:
 
 def build_step(cfg, shape, flags, zero1: bool = False, ctx=None):
     """Returns (fn, kind) for the cell. ``zero1`` (the reference's ZeRO-1
-    gradient constraint, a GSPMD sharding) has no counterpart and
-    raises."""
-    if zero1:
-        raise NotImplementedError("zero1: the reference's ZeRO-1 constraint "
-                                  "is a GSPMD sharding the port does not "
-                                  "mirror")
+    gradient constraint) changes nothing: the port's sharded train step
+    always reduce-scatters its gradients onto the moments' ZeRO-1 layout
+    (``train.loop``)."""
     if shape.kind == "train":
         return build_train_step(cfg, flags, AdamWConfig(), ctx=ctx), "train"
     if shape.kind == "prefill":
@@ -152,8 +159,6 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                cfg=None) -> dict:
     """Trace rank 0's step of one cell (module docstring); the record.
     ``cfg``: a config to trace in place of ``arch``'s (a reduced one)."""
-    if zero1:
-        build_step(None, None, None, zero1=True)      # raises
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     fake_world(512 if multi_pod else 256)
@@ -175,7 +180,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "engram_strategy": engram_strategy or
         (cfg.engram.strategy if cfg.engram else None),
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
-        "device": device,
+        "device": device, "zero1": zero1,
     }
     rules = cell_rules(cfg, shape, mesh, optimized=optimized)
     if rules_extra:
@@ -188,7 +193,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     try:
         with sharding_ctx(mesh, applied) as ctx:
             mode = fake_mode(device)
-            step, kind = build_step(cfg, shape, flags, ctx=ctx)
+            step, kind = build_step(cfg, shape, flags, zero1, ctx=ctx)
             specs = input_specs(cfg, shape, device, mode)
             batch = rank_blocks(specs, batch_shardings(specs, ctx), mode,
                                 device)
@@ -197,17 +202,18 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             params = rank_blocks(abstract_params(cfg),
                                  param_shardings(cfg, ctx, layout), mode,
                                  device)
+            rec["whole_leaves"] = whole_leaves(cfg, ctx)
             if kind == "train":
                 with mode:
-                    opt = init_opt_state(params)
+                    opt = init_opt_state(params, step.zero)
                 args = (params, opt, batch)
             elif kind == "prefill":
                 args = (params, batch)
             else:
                 whole = abstract_decode_state(cfg, flags, shape.global_batch,
                                               shape.seq_len, device, mode)
-                state = rank_blocks(whole, state_shardings(
-                    whole, ctx, mesh_state_axes(whole)), mode, device)
+                state = rank_blocks(whole, state_shardings(whole, ctx),
+                                    mode, device)
                 del whole
                 args = (params, state, batch["token"])
             mem = LiveBytes()
@@ -222,13 +228,18 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             rec["trace_s"] = round(time.time() - t1, 2)
             out_bytes = mem.current - arg_bytes
             del out
+            st = counter.stats()
             rec["memory"] = {
                 "argument_bytes": int(arg_bytes),
                 "output_bytes": int(out_bytes),
                 "temp_bytes": int(mem.peak - arg_bytes - out_bytes),
                 "peak_bytes_est": int(mem.peak),
+                # a remat period's sampled scans recomputed in the backward
+                # hold k + 1 positions' storages, counted as run
+                "recompute_counted_as_run": bool(
+                    kind == "train" and flags.remat and
+                    st["sampled_loops"]),
             }
-            st = counter.stats()
             rec["cost"] = {"flops": st["flops_dot"],
                            "bytes_accessed": st["bytes_accessed"]}
             rec["collectives"] = st["collectives"]

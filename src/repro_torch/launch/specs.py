@@ -22,7 +22,7 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..models.model import init_decode_state, params_logical_axes
 from ..models.params import tree_map
 from ..models.transformer import RunFlags
-from ..sharding.rules import ShardCtx
+from ..sharding.rules import ShardCtx, use_ctx
 
 
 def fake_mode(device="cuda"):
@@ -70,8 +70,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="cuda",
 
 def abstract_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
                           max_len: int, device="cuda", mode=None):
-    """``init_decode_state``'s tree as fake tensors."""
-    with mode or fake_mode(device):
+    """``init_decode_state``'s whole tree (outside any sharding context)
+    as fake tensors."""
+    with mode or fake_mode(device), use_ctx(None):
         return init_decode_state(cfg, flags, batch, max_len, device)
 
 
@@ -110,27 +111,10 @@ def state_axes(state):
     return walk(state, None)
 
 
-def mesh_state_axes(state):
-    """``state_axes`` as the port lays a decode state out under a mesh:
-    split along "batch" only. The reference also splits the recurrent
-    and KV leaves over "heads", "kv_heads" and "ffn" because GSPMD splits
-    the dense weights that write them; the port keeps dense weights whole
-    on every rank (``models.model.mesh_logical_axes``), so each rank's
-    state is whole along those dims too."""
-    return _zip(lambda t, ax: tuple(a if a == "batch" else None
-                                    for a in ax), state, state_axes(state))
-
-
 def block_shape(shape, logical_axes, ctx: ShardCtx) -> tuple:
     """The shape of one rank's block of a tensor of ``shape`` under
     ``logical_axes`` (the reference's ``NamedSharding.shard_shape``)."""
-    out = list(shape)
-    for dim, entry in enumerate(ctx.spec_for(tuple(shape),
-                                             tuple(logical_axes))):
-        if entry is not None:
-            axes = (entry,) if isinstance(entry, str) else entry
-            out[dim] //= ctx.axis_prod(axes)
-    return tuple(out)
+    return ctx.block_shape(shape, logical_axes)
 
 
 def _zip(fn, tree, other):
@@ -145,8 +129,9 @@ def _zip(fn, tree, other):
 
 def state_shardings(state, ctx: ShardCtx, axes=None):
     """The rank's block shape of every leaf of a decode state under
-    ``axes`` (default ``state_axes(state)``, the reference's; the port's
-    steps read ``mesh_state_axes``)."""
+    ``axes`` (default ``state_axes(state)``, the reference's layout, which
+    the port's steps hold: KV caches split over "kv_heads", recurrent
+    state over "ffn" and "heads", each where the axis divides the dim)."""
     axes = state_axes(state) if axes is None else axes
     return _zip(lambda t, ax: block_shape(t.shape, ax, ctx), state, axes)
 
@@ -160,8 +145,8 @@ def batch_shardings(specs: dict, ctx: ShardCtx) -> dict:
 def param_shardings(cfg: ModelConfig, ctx: ShardCtx, axes=None):
     """The rank's block shape of every parameter under ``axes`` (default
     ``params_logical_axes(cfg)``, the reference's; the port's forward
-    reads ``models.model.mesh_logical_axes``, its train step
-    ``train_logical_axes``)."""
+    holds ``models.model.mesh_logical_axes``, its train step
+    ``train_logical_axes``: the same but for ``WHOLE_LEAVES``)."""
     from ..models.model import abstract_params
     axes = params_logical_axes(cfg) if axes is None else axes
     return _zip(lambda t, ax: block_shape(t.shape, ax, ctx),
@@ -190,5 +175,5 @@ def tree_bytes(tree) -> int:
 
 
 __all__ = ["abstract_decode_state", "batch_shardings", "block_shape",
-           "fake_mode", "input_specs", "mesh_state_axes", "param_shardings",
+           "fake_mode", "input_specs", "param_shardings",
            "rank_blocks", "state_axes", "state_shardings", "tree_bytes"]

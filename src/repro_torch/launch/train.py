@@ -9,7 +9,9 @@ The reference's arguments, plus ``--device`` (the card unless it says
 checkpoint in ``--ckpt-dir``.
 
 ``--mesh data=1,model=2`` trains the sharded step (``train.loop``) on a
-mesh of ranks, one process each, started by torchrun::
+mesh of ranks, one process each, on the reference's layout (the dense
+weights split over ``model``, ZeRO-1's moments over ``data``), started
+by torchrun::
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --arch engram-27b --reduced \

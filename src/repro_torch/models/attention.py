@@ -23,6 +23,17 @@ On the CPU, where ``aten::bmm.dtype`` has no kernel, the operands are
 upcast to f32 first: a product of two bf16 numbers is exact in f32, so
 this is the same sum, the plain route and not a fallback. The route is
 picked from the operands' device.
+
+Under a sharding context the layer runs on the rank's heads
+(``_head_plan``): ``wq``/``wk``/``wv`` column-parallel over "heads" and
+"kv_heads", ``wo`` row-parallel with a ``psum`` of the partial outputs.
+The rank computes the query heads its block of ``wo``'s rows reads, and
+keeps the KV heads of its block of the KV cache (the reference's state
+layout: split over "kv_heads" where the axis divides the KV heads, else
+whole). A projection whose block does not fall on a head's boundary (the
+divisibility fallback splits the reference's ``hq * hd`` columns, not its
+heads) is gathered whole first (``layers.tp_cols``); query heads that do
+not start a KV group attend their KV heads expanded one per query head.
 """
 from __future__ import annotations
 
@@ -31,7 +42,11 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, rmsnorm, softcap
+import dataclasses
+
+from ..sharding.rules import current_ctx
+from .layers import (apply_rope, mesh_blocks, rmsnorm, row_psum, softcap,
+                     tp_cols)
 from .loops import trips
 from .params import pd
 
@@ -64,14 +79,75 @@ def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window_size if kind == "local" else 0
 
 
-def _qkv(cfg: ModelConfig, params, h, positions, kind: str):
-    """q, k, v of h (B, S, d): the qk-norms (when the config has them),
-    then RoPE at the layer kind's base. positions (S,) or (B, S)."""
-    B, S, _ = h.shape
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """What a rank computes of an attention layer: query heads [h0, h1),
+    the KV heads [k0, k1) they read, the KV heads [c0, c1) of its cache
+    block, the ``dim_block`` of each projection's columns (``cols``) and
+    of ``wo``'s rows (``rows``), and whether the query heads start KV
+    groups (``grouped``). Without a context: every head, nothing split."""
+    h0: int
+    h1: int
+    k0: int
+    k1: int
+    c0: int
+    c1: int
+    cols: dict
+    rows: tuple
+    grouped: bool
+
+
+def head_range(rows: tuple, width: int, total: int) -> tuple:
+    """[h0, h1): the heads of ``width`` features that a rank's block
+    ``rows`` (a ``dim_block`` of ``total`` heads' features) touches."""
+    start, size, axes = rows
+    if not axes:
+        return 0, total
+    return start // width, -(-(start + size) // width)
+
+
+def cache_heads(n_kv: int) -> tuple:
+    """[c0, c1): the KV heads of a rank's cache block, the reference's
+    state layout (split over "kv_heads" where it divides them)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return 0, n_kv
+    start, size, _ = ctx.dim_block((n_kv,), ("kv_heads",), 0)
+    return start, start + size
+
+
+def _head_plan(cfg: ModelConfig, split) -> HeadPlan:
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ params["wq"]).reshape(B, S, hq, hd)
-    k = (h @ params["wk"]).reshape(B, S, hkv, hd)
-    v = (h @ params["wv"]).reshape(B, S, hkv, hd)
+    g = hq // hkv
+    rows = split("wo", 0)
+    h0, h1 = head_range(rows, hd, hq)
+    k0, k1 = h0 // g, -(-h1 // g)
+    c0, c1 = cache_heads(hkv)
+    if not (c0 <= k0 and k1 <= c1):
+        raise ValueError(f"query heads [{h0}, {h1}) read KV heads [{k0}, "
+                         f"{k1}) outside the cache block [{c0}, {c1})")
+    return HeadPlan(h0, h1, k0, k1, c0, c1,
+                    {n: split(n, 1) for n in ("wq", "wk", "wv")}, rows,
+                    h0 % g == 0 and h1 % g == 0)
+
+
+def _qkv(cfg: ModelConfig, params, h, positions, kind: str, plan=None):
+    """q, k, v of h (B, S, d): the qk-norms (when the config has them),
+    then RoPE at the layer kind's base. positions (S,) or (B, S). With a
+    ``plan`` (a sharding context; ``params`` the rank's blocks) q holds
+    the plan's query heads and k, v its cache block's KV heads."""
+    B, S, _ = h.shape
+    hd = cfg.head_dim
+    if plan is None:
+        q = (h @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
+        k = (h @ params["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+        v = (h @ params["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    else:
+        c = plan.cols
+        q = tp_cols(h @ params["wq"], c["wq"], plan.h0 * hd, plan.h1 * hd)
+        k = tp_cols(h @ params["wk"], c["wk"], plan.c0 * hd, plan.c1 * hd)
+        v = tp_cols(h @ params["wv"], c["wv"], plan.c0 * hd, plan.c1 * hd)
+        q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -193,33 +269,77 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
 _chunk_attn.window_skipped = 0
 
 
+def mesh_layer(cfg: ModelConfig, params):
+    """(params, plan): under a sharding context the rank's blocks of the
+    layer's weights and its ``HeadPlan``; without one (params, None)."""
+    if current_ctx() is None:
+        return params, None
+    params, split = mesh_blocks(params, attn_defs(cfg, "float32"))
+    return params, _head_plan(cfg, split)
+
+
+def kv_for_queries(plan, g: int, k, v):
+    """The KV heads the plan's query heads read, of k/v (B, S, Hkv, D)
+    holding its cache block's heads; expanded one per query head (group
+    size 1) when the query heads do not start KV groups of ``g``."""
+    if plan is None:
+        return k, v
+    k = k[:, :, plan.k0 - plan.c0:plan.k1 - plan.c0]
+    v = v[:, :, plan.k0 - plan.c0:plan.k1 - plan.c0]
+    if not plan.grouped:
+        idx = torch.arange(plan.h0, plan.h1, device=k.device) // g - plan.k0
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return k, v
+
+
+def out_proj(wo, out, width: int, rows=None, h0: int = 0):
+    """``out`` (B, S, heads, width), heads from ``h0``, through ``wo``:
+    with ``rows`` (the ``dim_block`` of ``wo``'s rows a rank holds) the
+    columns of that block, and the partial products summed over its axes
+    (row-parallel)."""
+    out = out.reshape(*out.shape[:2], -1)
+    if rows is None:
+        return out @ wo
+    start, size, axes = rows
+    return row_psum(out.narrow(-1, start - h0 * width, size) @ wo, axes)
+
+
+def _out(plan, wo, out, width: int):
+    return out_proj(wo, out, width) if plan is None else \
+        out_proj(wo, out, width, plan.rows, plan.h0)
+
+
 def attention(cfg: ModelConfig, params, h, positions, kind: str = "global",
               *, q_chunk: int = 1024, kv_chunk: int = 1024,
               chunk_threshold: int = 2048, bf16_scores: bool = False):
     """Prefill (or encoder) attention. h (B,S,d), positions (S,). Returns
     (out, kv). ``local`` layers attend within ``cfg.window_size``; an
     encoder attends every position. More than ``chunk_threshold`` tokens
-    take ``_chunk_attn`` (f32 scores either way, as in the reference)."""
-    B, S, _ = h.shape
-    q, k, v = _qkv(cfg, params, h, positions, kind)
+    take ``_chunk_attn`` (f32 scores either way, as in the reference).
+    Under a sharding context the rank's heads (module docstring); kv holds
+    its cache block's KV heads."""
+    params, plan = mesh_layer(cfg, params)
+    q, k, v = _qkv(cfg, params, h, positions, kind, plan)
+    ka, va = kv_for_queries(plan, cfg.n_heads // cfg.n_kv_heads, k, v)
     causal = not cfg.is_encoder
     window = _window(cfg, kind)
-    if S <= chunk_threshold:
+    if h.shape[1] <= chunk_threshold:
         mask = _mask(positions, positions, causal=causal,
                      window=window)[None]
-        out = _sdpa(cfg, q, k, v, mask, bf16_scores)
+        out = _sdpa(cfg, q, ka, va, mask, bf16_scores)
     else:
-        out = _chunk_attn(cfg, q, k, v, positions, positions, causal=causal,
-                          window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"], {"k": k, "v": v}
+        out = _chunk_attn(cfg, q, ka, va, positions, positions,
+                          causal=causal, window=window, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk)
+    return _out(plan, params["wo"], out, cfg.head_dim), {"k": k, "v": v}
 
 
 def decode_attention(cfg: ModelConfig, params, h, cache, positions,
                      kind: str = "global", *, bf16_scores: bool = False,
                      window_slice: bool = False):
-    """Single-token decode. h (B,1,d); cache {k,v}: (B,Smax,Hkv,D);
-    positions (B,) current index per sequence. Returns (out, cache).
+    """Single-token decode. h (B,1,d); cache {k,v}: (B,Smax,Hkv,D), under
+    a sharding context the rank's block of the KV heads; positions (B,)
+    current index per sequence. Returns (out, cache).
 
     The new k/v rows are written INTO ``cache`` at each row's position
     (clamped to the last row, as the reference's dynamic_update_slice
@@ -231,8 +351,8 @@ def decode_attention(cfg: ModelConfig, params, h, cache, positions,
     into the cache) instead of masking the whole context; the gather's
     indices stay on the device. ``bf16_scores``: see ``_sdpa``."""
     B = h.shape[0]
-    hq, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = _qkv(cfg, params, h, positions[:, None], kind)
+    params, plan = mesh_layer(cfg, params)
+    q, k, v = _qkv(cfg, params, h, positions[:, None], kind, plan)
 
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[1]
@@ -253,13 +373,17 @@ def decode_attention(cfg: ModelConfig, params, h, cache, positions,
         valid = kpos <= positions[:, None]
         if window > 0:
             valid &= kpos > positions[:, None] - window
+    k_att, v_att = kv_for_queries(plan, cfg.n_heads // cfg.n_kv_heads,
+                                  k_att, v_att)
     out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :], bf16_scores)
-    out = out.reshape(B, 1, hq * hd)
-    return out @ params["wo"], cache
+    return _out(plan, params["wo"], out, cfg.head_dim), cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device) -> dict:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Zero k/v caches (batch, max_len, Hkv, D): under a sharding context
+    the rank's block of the KV heads (``cache_heads``)."""
+    c0, c1 = cache_heads(cfg.n_kv_heads)
+    shape = (batch, max_len, c1 - c0, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

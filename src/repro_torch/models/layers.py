@@ -1,5 +1,17 @@
 """Common layers: RMSNorm, RoPE, MLP, embeddings, softcap, f32 head
-(PyTorch port of ``repro.models.layers``)."""
+(PyTorch port of ``repro.models.layers``).
+
+Under a sharding context the layers run on the rank's blocks of the
+reference's layout (``sharding.rules``): the MLP's hidden features split
+over "ffn" (gate and up column-parallel, down row-parallel, one ``psum``
+of the partial outputs), the embedding and the head over "vocab" (a
+masked local gather summed over the axis; logits for the rank's block
+of the vocabulary; a vocab-parallel cross-entropy). A layer's weights may
+be given whole or as the rank's block (``mesh_blocks``); the whole sizes
+come from its defs, and a dim the axis does not divide stays whole, as
+in the reference. ``tp_cols`` gives a rank the columns it computes on
+of an activation split over an axis.
+"""
 from __future__ import annotations
 
 import math
@@ -9,8 +21,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..sharding import collectives as coll
-from ..sharding.rules import current_ctx, rank_block
-from .params import pd
+from ..sharding.rules import current_ctx, rank_block, use_ctx
+from .params import leaf_axes, pd
 
 
 def rmsnorm_defs(d: int):
@@ -67,12 +79,68 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU (``act="silu"``) or GeGLU with the tanh-approximate GELU."""
+def mesh_blocks(params: dict, defs: dict):
+    """(params, split): under a sharding context each leaf of the flat
+    dict ``params`` as the rank's block of its def in ``defs`` (a whole
+    leaf narrowed, ``ShardCtx.block``; a block of the def's block shape as
+    it is; another shape raises), and ``split(name, dim)``, the
+    ``ShardCtx.dim_block`` of that leaf's dim. Without a context the
+    leaves as they are and every dim whole."""
+    ctx = current_ctx()
+    if ctx is None:
+        return params, lambda name, dim: (0, defs[name].shape[dim], ())
+    out = dict(params)
+    for name, d in defs.items():
+        if name not in params or not hasattr(d, "shape"):
+            continue
+        w, axes = params[name], leaf_axes(d)
+        if tuple(w.shape) == d.shape and ctx.spec_for(d.shape, axes):
+            out[name] = ctx.block(w, axes)
+        elif tuple(w.shape) != ctx.block_shape(d.shape, axes):
+            raise ValueError(f"{name} of shape {tuple(w.shape)}: neither "
+                             f"the whole {d.shape} nor its block")
+    return out, lambda name, dim: ctx.dim_block(
+        defs[name].shape, leaf_axes(defs[name]), dim)
+
+
+def tp_cols(y: torch.Tensor, block: tuple, lo: int, hi: int,
+            dim: int = -1) -> torch.Tensor:
+    """Columns [lo, hi) along ``dim`` of an activation of which ``y``
+    holds the rank's block ``block`` = (start, size, axes) (a
+    ``dim_block``): narrowed from ``y`` when the block covers them, else
+    gathered whole over the axes first (a block that does not fall on a
+    head's boundary)."""
+    start, size, axes = block
+    if axes and not (start <= lo and hi <= start + size):
+        y = coll.gather_dim(y, axes, dim % y.dim())
+        start = 0
+    if lo - start == 0 and hi - lo == y.shape[dim]:
+        return y
+    return y.narrow(dim, lo - start, hi - lo)
+
+
+def row_psum(y: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """A row-parallel product's partial sums added over ``axes`` (none:
+    the product was whole)."""
+    return coll.psum(y, axes) if axes else y
+
+
+def mlp(params, x: torch.Tensor, act: str = "silu",
+        ffn: int | None = None) -> torch.Tensor:
+    """SwiGLU (``act="silu"``) or GeGLU with the tanh-approximate GELU.
+    ``ffn``: the whole hidden width, which a sharding context splits over
+    "ffn" (the module docstring; default: the weights' own)."""
+    if current_ctx() is not None:
+        ffn = ffn or params["down"].shape[0]
+        params, split = mesh_blocks(params, mlp_defs(x.shape[-1], ffn,
+                                                     "float32"))
+        axes = split("down", 0)[2]
+    else:
+        axes = ()
     g = x @ params["gate"]
     u = x @ params["up"]
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (a * u) @ params["down"]
+    return row_psum((a * u) @ params["down"], axes)
 
 
 def value_counts(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -144,22 +212,39 @@ def with_f32_head(params: dict) -> dict:
     return out
 
 
+def vocab_block(vocab: int) -> tuple:
+    """The ``dim_block`` of a vocabulary of ``vocab`` words over "vocab"
+    under the current context: the rank's (start, size, axes)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return 0, vocab, ()
+    return ctx.dim_block((vocab,), ("vocab",), 0)
+
+
 def head_logits(params, h: torch.Tensor, final_cap: float = 0.0,
-                tied: bool = False) -> torch.Tensor:
+                tied: bool = False, vocab: int | None = None) -> torch.Tensor:
     """f32 logits ``h.float() @ W.float()``; with ``tied``, ``params`` is
-    the embedding and ``W`` its transpose."""
+    the embedding and ``W`` its transpose. ``vocab``: the whole
+    vocabulary, which a sharding context splits over "vocab": the logits
+    are then those of the rank's block of it (``vocab_block``), from the
+    whole weight or its block."""
     w = params.get("w32")
     if w is None:
         w = params["w"].float()
         if tied:
             w = w.T
+    if vocab is not None and current_ctx() is not None:
+        _, _, axes = vocab_block(vocab)
+        if axes:
+            w = rank_block(w, 1, vocab, axes, current_ctx())
     return softcap(h.float() @ w, final_cap)
 
 
 def chunked_xent(head_params, h: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor | None = None, *, final_cap: float = 0.0,
                  tied: bool = False, chunk: int = 2048,
-                 remat_body: bool = False) -> torch.Tensor:
+                 remat_body: bool = False,
+                 vocab: int | None = None) -> torch.Tensor:
     """h (B,S,d); labels (B,S) int; mean softmax cross-entropy over
     ``mask`` (all positions when None), an f32 scalar.
 
@@ -169,7 +254,14 @@ def chunked_xent(head_params, h: torch.Tensor, labels: torch.Tensor,
     number of chunks with mask 0, as the reference pads. The head's f32
     weight is cast once and shared by every chunk. ``remat_body``
     checkpoints each chunk (``torch.utils.checkpoint``), so backward
-    recomputes its logits instead of keeping every (chunk, vocab) block."""
+    recomputes its logits instead of keeping every (chunk, vocab) block.
+
+    ``vocab``: the whole vocabulary; a sharding context that splits it
+    over "vocab" makes the loss vocab-parallel: each rank computes the
+    logits of its block of words, the log-partition is the max over the
+    ranks (``pmax``, held constant) plus the log of the exp sums summed
+    over them (``psum``), and the label's logit comes from the rank whose
+    block holds it (a masked gather summed over them)."""
     B, S, D = h.shape
     T = B * S
     hf = h.reshape(T, D)
@@ -182,12 +274,32 @@ def chunked_xent(head_params, h: torch.Tensor, labels: torch.Tensor,
         lf = F.pad(lf, (0, pad))
         mf = F.pad(mf, (0, pad))
     w = head_params["w"].float()
-    head = {"w32": w.T if tied else w}
+    w = w.T if tied else w
+    v0, v_loc, axes = vocab_block(vocab or w.shape[1])
+    if axes:
+        w = rank_block(w, 1, vocab, axes, current_ctx())
+    head = {"w32": w}
+    ctx = current_ctx()
 
     def body(hx, lx, mx):
-        logits = head_logits(head, hx, final_cap)              # (chunk, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(1, lx[:, None])[:, 0]
+        logits = head_logits(head, hx, final_cap)          # (chunk, V_loc)
+        if not axes:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(1, lx[:, None])[:, 0]
+            return ((logz - gold) * mx).sum()
+        # a chunk recomputed in backward runs on the autograd engine's
+        # thread for CUDA tensors, where the mesh's context is not set
+        with use_ctx(ctx):
+            return vocab_parallel(logits, lx, mx)
+
+    def vocab_parallel(logits, lx, mx):
+        m = coll.pmax(logits.detach().amax(dim=-1), axes)
+        logz = m + torch.log(coll.psum(
+            torch.exp(logits - m[:, None]).sum(dim=-1), axes))
+        rel = lx - v0
+        own = (rel >= 0) & (rel < v_loc)
+        gold = logits.gather(1, rel.clamp(0, v_loc - 1)[:, None])[:, 0]
+        gold = coll.psum(torch.where(own, gold, 0.0), axes)
         return ((logz - gold) * mx).sum()
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -26,7 +26,8 @@ _SAMPLER = None     # an object with ``k`` and ``loop(n)``, or None
 def sampling(sampler):
     """Sample the loops over fake or meta tensors run inside: ``sampler.k``
     iterations after the first, each run inside ``sampler.loop(n)``,
-    which counts them for the n - 1 not all run."""
+    which counts them for the n - 1 not all run and may yield a function
+    each of them begins with (None: nothing to call)."""
     global _SAMPLER
     prev, _SAMPLER = _SAMPLER, sampler
     try:
@@ -52,8 +53,11 @@ def trips(lo: int, hi: int, like: torch.Tensor):
         yield from range(lo, hi)
         return
     yield lo
-    with s.loop(n):
-        yield from range(lo + 1, lo + s.k + 1)
+    with s.loop(n) as begin:
+        for i in range(lo + 1, lo + s.k + 1):
+            if begin is not None:
+                begin()
+            yield i
 
 
 def stack_positions(ys: list, n: int, dim: int) -> torch.Tensor:

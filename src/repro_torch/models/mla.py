@@ -13,6 +13,12 @@ With ``bf16_scores`` both paths take the reference's
 ``preferred_element_type=f32`` products (``attention.f32_bmm``): decode
 reads the latent cache in its own dtype, for the scores and for the
 latent output, where the f32 path reads an f32 copy of it.
+
+Under a sharding context the layer runs on the rank's heads, as GQA's
+does (``attention.out_proj``, ``layers.tp_cols``): ``wuq``, ``wuk`` and
+``wuv`` are column-parallel over "heads" and ``wo`` row-parallel with a
+``psum``; the latents (``wdq``, ``wdkv`` and their norms) and the latent
+caches have no heads axis and are whole on every rank.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import NEG_INF, _chunk_attn, _mask, _sdpa, f32_bmm
-from .layers import apply_rope, rmsnorm
+from ..sharding.rules import current_ctx
+from .attention import (NEG_INF, _chunk_attn, _mask, _sdpa, f32_bmm,
+                        head_range, out_proj)
+from .layers import apply_rope, mesh_blocks, rmsnorm, tp_cols
 from .params import pd
 
 
@@ -50,16 +58,39 @@ def mla_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     }
 
 
-def _latents(cfg: ModelConfig, params, h, positions):
+def _mesh_layer(cfg: ModelConfig, params):
+    """(params, heads, out): under a sharding context the rank's blocks, a
+    function giving a head-split leaf's columns of the query heads the
+    rank's block of ``wo``'s rows reads, and the output projection over
+    those heads (``attention.out_proj``, row-parallel); without one the
+    leaves as they are and the plain projection."""
+    m = cfg.mla
+    if current_ctx() is None:
+        return (params, lambda t, name, width: t,
+                lambda wo, out: out_proj(wo, out, m.v_head_dim))
+    params, split = mesh_blocks(params, mla_defs(cfg, "float32"))
+    rows = split("wo", 0)
+    h0, h1 = head_range(rows, m.v_head_dim, cfg.n_heads)
+
+    def heads(t, name, width):
+        return tp_cols(t, split(name, 1), h0 * width, h1 * width)
+    return params, heads, lambda wo, out: out_proj(wo, out, m.v_head_dim,
+                                                   rows, h0)
+
+
+def _latents(cfg: ModelConfig, params, h, positions,
+             heads=lambda t, name, width: t):
     """Shared by prefill and decode: the query heads' nope and rope parts
     and the compressed latents. h (B,S,d), positions (S,) or (B,S).
     Returns q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kv_lora),
-    k_rope (B,S,1,rope)."""
-    m, H = cfg.mla, cfg.n_heads
+    k_rope (B,S,1,rope); ``heads`` (``_mesh_layer``'s) gives the rank's
+    query heads."""
+    m = cfg.mla
     B, S, _ = h.shape
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
     cq = rmsnorm(params["q_ln"], h @ params["wdq"], cfg.norm_eps)
-    q = (cq @ params["wuq"]).reshape(B, S, H, nope + rope)
+    q = heads(cq @ params["wuq"], "wuq", nope + rope).reshape(
+        B, S, -1, nope + rope)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     ckv_full = h @ params["wdkv"]
@@ -75,12 +106,16 @@ def mla_attention(cfg: ModelConfig, params, h, positions,
                   kv_chunk: int = 1024, chunk_threshold: int = 2048,
                   bf16_scores: bool = False):
     """Prefill. h (B,S,d), positions (S,). Returns (out, {c_kv, k_rope})."""
-    m, H = cfg.mla, cfg.n_heads
+    m = cfg.mla
     B, S, _ = h.shape
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q_nope, q_rope, c_kv, k_rope = _latents(cfg, params, h, positions)
-    k_nope = (c_kv @ params["wuk"]).reshape(B, S, H, nope)
-    v = (c_kv @ params["wuv"]).reshape(B, S, H, m.v_head_dim)
+    params, heads, project = _mesh_layer(cfg, params)
+    q_nope, q_rope, c_kv, k_rope = _latents(cfg, params, h, positions,
+                                            heads)
+    H = q_nope.shape[2]
+    k_nope = heads(c_kv @ params["wuk"], "wuk", nope).reshape(B, S, H, nope)
+    v = heads(c_kv @ params["wuv"], "wuv", m.v_head_dim).reshape(
+        B, S, H, m.v_head_dim)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     if S <= chunk_threshold:
@@ -89,8 +124,8 @@ def mla_attention(cfg: ModelConfig, params, h, positions,
     else:
         out = _chunk_attn(cfg, q, k, v, positions, positions,
                           q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = out.reshape(B, S, H * m.v_head_dim) @ params["wo"]
-    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
+    return project(params["wo"], out), {"c_kv": c_kv,
+                                        "k_rope": k_rope[:, :, 0]}
 
 
 def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
@@ -100,13 +135,15 @@ def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
     written INTO the cache at each row's position, clamped to the last row
     (the reference's dynamic_update_slice clamps), with device indices.
     Returns (out, cache)."""
-    m, H = cfg.mla, cfg.n_heads
+    m = cfg.mla
     B = h.shape[0]
     nope, rope, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    params, heads, project = _mesh_layer(cfg, params)
     q_nope, q_rope, c_new, kr_new = _latents(cfg, params, h,
-                                             positions[:, None])
+                                             positions[:, None], heads)
+    H = q_nope.shape[2]
     # W_uk absorbed into the query: q_lat[h] = q_nope[h] @ W_uk[h].T
-    wuk = params["wuk"].reshape(R, H, nope)
+    wuk = heads(params["wuk"], "wuk", nope).reshape(R, H, nope)
     q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wuk)     # (B,1,H,R)
 
     ckv, krp = cache["c_kv"], cache["k_rope"]
@@ -132,10 +169,10 @@ def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
         out_lat = f32_bmm(p[:, :, 0].to(ckv.dtype), ckv)[:, None]
     else:
         out_lat = torch.einsum("bhsS,bSl->bshl", p, ckv32)
-    wuv = params["wuv"].reshape(R, H, m.v_head_dim)
+    wuv = heads(params["wuv"], "wuv", m.v_head_dim).reshape(
+        R, H, m.v_head_dim)
     out = torch.einsum("bshl,lhv->bshv", out_lat.to(h.dtype), wuv)
-    out = out.reshape(B, 1, H * m.v_head_dim) @ params["wo"]
-    return out, cache
+    return project(params["wo"], out), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -35,6 +35,13 @@ Decode updates the state's KV caches in place (see
 ``positions`` and ``last_tokens`` are new tensors each step, the last two
 int32 as in the reference (a prefix snapshot's byte count, which the pool
 link is charged, depends on their width).
+
+Under a sharding context every step runs on the rank's blocks of
+``mesh_logical_axes`` (the reference's layout but for ``WHOLE_LEAVES``)
+and its share of the batch; the serving steps return the logits of the
+whole vocabulary, gathered over "vocab" (``head_logits`` computes the
+rank's block of them), and the decode state's blocks are those of the
+reference's state layout (``init_decode_state``).
 """
 from __future__ import annotations
 
@@ -45,11 +52,12 @@ from ..core.engram import engram_defs, engram_fuse, retrieve
 from ..core.hashing import (decode_engram_indices, engram_indices,
                             update_last_tokens)
 from ..sharding import collectives as coll
+from ..sharding.rules import current_ctx
 from .layers import (chunked_xent, embed_defs, embed_lookup,
                      embed_lookup_local, head_defs, head_logits, rmsnorm,
-                     rmsnorm_defs, scale_embeddings)
+                     rmsnorm_defs, scale_embeddings, vocab_block)
 from .params import DTYPES, init_params, pd  # noqa: F401  (re-exported)
-from .params import tree_axes, tree_map
+from .params import tree_axes, tree_map, tree_paths
 from .transformer import (RunFlags, apply_segment, init_segment_cache,
                           segment_defs, segment_plan)
 
@@ -80,43 +88,54 @@ def params_logical_axes(cfg: ModelConfig):
     return tree_axes(model_defs(cfg))
 
 
+# leaves the port keeps whole where the reference's layout splits them,
+# by leaf name, and why (ROADMAP lists them too)
+WHOLE_LEAVES = {
+    "proj": "each Engram layer's fusion projection: K2 fuses e·Wp with the "
+            "gate and reads Wp whole, and the RMS norm before it needs "
+            "whole rows",
+}
+
+
+def _is_whole_leaf(path: str) -> bool:
+    return path.startswith("engram/") and path.rsplit("/", 1)[-1] in \
+        WHOLE_LEAVES
+
+
 def mesh_logical_axes(cfg: ModelConfig):
-    """``params_logical_axes`` with the axes kept only on the leaves that a
-    collective of the forward reads block-wise: each Engram layer's tables,
-    the routed experts and, when the head is not tied to it, the token
-    embedding. Every other leaf is whole on every rank: the reference
-    shards the dense layers through GSPMD, the compiler's tensor
-    parallelism, which the port does not mirror. ``sharding.rules.
-    local_params(params, mesh_logical_axes(cfg))`` gives a rank what the
-    forward under a mesh reads."""
-    blockwise = {"tables", "w_gu", "w_down"}
-    if not cfg.tie_embeddings:
-        blockwise.add("embed")
+    """The layout a rank serves on: ``params_logical_axes`` (the
+    reference's, which ``params_shardings`` places) with the leaves of
+    ``WHOLE_LEAVES`` whole. ``sharding.rules.local_params(params,
+    mesh_logical_axes(cfg))`` gives a rank what the forward under a mesh
+    reads."""
+    axes = params_logical_axes(cfg)
+    for layer in axes.get("engram", {}).get("layers", []):
+        for name in WHOLE_LEAVES:
+            layer[name] = (None,) * len(layer[name])
+    return axes
 
-    def keep(tree, on=False):
-        if isinstance(tree, dict):
-            return {k: keep(v, on or k in blockwise) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [keep(v, on) for v in tree]
-        return tree if on else (None,) * len(tree)
 
-    return keep(params_logical_axes(cfg))
+def whole_leaves(cfg: ModelConfig, ctx) -> dict:
+    """path -> bytes of every leaf the rank holds whole under ``ctx``
+    where the reference's layout would split it (``WHOLE_LEAVES``)."""
+    axes = dict(tree_paths(params_logical_axes(cfg), is_leaf=lambda x:
+                           isinstance(x, tuple)))
+    return {path: t.numel() * t.element_size()
+            for path, t in tree_paths(abstract_params(cfg))
+            if _is_whole_leaf(path) and ctx.spec_for(tuple(t.shape),
+                                                     axes[path])}
 
 
 def train_logical_axes(cfg: ModelConfig, flags: RunFlags = RunFlags()):
     """The layout a rank trains on under ``flags``: ``mesh_logical_axes``,
-    except that the token embedding is split only when
-    ``flags.embed_local_gather`` reads it block-wise, and the Engram tables
-    follow the retrieval strategy (``flags.engram_strategy``, else the
-    config's): ``pooled`` keeps them split over every axis; ``tp`` takes
-    the rank's block over the model axis, whole along the others, since
-    ``retrieve_tp`` reads rows split over the model axis alone, as the
-    reference's ``shard_map`` reshards them (their rows then take
-    ``eng_emb``'s axes, the axis ``tp`` splits the fused dim over); any
-    other strategy reads them whole."""
+    except that the Engram tables follow the retrieval strategy
+    (``flags.engram_strategy``, else the config's): ``pooled`` keeps them
+    split over every axis; ``tp`` takes the rank's block over the model
+    axis, whole along the others, since ``retrieve_tp`` reads rows split
+    over the model axis alone, as the reference's ``shard_map`` reshards
+    them (their rows then take ``eng_emb``'s axes, the axis ``tp`` splits
+    the fused dim over); any other strategy reads them whole."""
     axes = mesh_logical_axes(cfg)
-    if not flags.embed_local_gather:
-        axes["embed"] = {k: (None,) * len(v) for k, v in axes["embed"].items()}
     strategy = flags.engram_strategy or (
         cfg.engram.strategy if cfg.engram else None)
     for layer in axes.get("engram", {}).get("layers", []):
@@ -158,12 +177,13 @@ def embed_inputs(cfg: ModelConfig, params, batch,
     vision]. Audio frames replace the token embedding; vision patches
     overwrite positions [0, P) when the batch carries them. The embedding
     scale applies after either, then the config's dtype. With
-    ``flags.embed_local_gather`` the tokens go through
+    ``flags.embed_local_gather``, or under a sharding context (which
+    splits the table over "vocab"), the tokens go through
     ``embed_lookup_local`` (the table whole or the rank's block)."""
     if cfg.frontend == "audio":
         h = _project(cfg, params, batch["frames"])
     else:
-        if flags.embed_local_gather:
+        if flags.embed_local_gather or current_ctx() is not None:
             h = embed_lookup_local(params["embed"], batch["tokens"],
                                    cfg.vocab_size)
         else:
@@ -219,6 +239,17 @@ def _head_params(cfg: ModelConfig, params):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
+def _logits(cfg: ModelConfig, params, h):
+    """f32 logits of the whole vocabulary: under a sharding context the
+    rank's block (``head_logits``) gathered over "vocab"."""
+    logits = head_logits(_head_params(cfg, params), h,
+                         cfg.final_logit_softcap, cfg.tie_embeddings,
+                         vocab=cfg.vocab_size)
+    axes = vocab_block(cfg.vocab_size)[2]
+    return coll.gather_dim(logits, axes, logits.dim() - 1) if axes \
+        else logits
+
+
 def abstract_params(cfg: ModelConfig, dtype: str | None = None):
     """The parameter tree's shapes and dtypes, as tensors on the ``meta``
     device (nothing allocated)."""
@@ -242,13 +273,18 @@ def build_loss_fn(cfg: ModelConfig, flags: RunFlags):
                             final_cap=cfg.final_logit_softcap,
                             tied=cfg.tie_embeddings,
                             chunk=flags.logits_chunk,
-                            remat_body=flags.xent_remat)
+                            remat_body=flags.xent_remat,
+                            vocab=cfg.vocab_size)
         return loss + aux
     return loss_fn
 
 
 def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
                       max_len: int, device) -> dict:
+    """An empty decode state for ``batch`` rows of up to ``max_len``
+    positions; under a sharding context ``batch`` is the rank's share and
+    each cache its block of the reference's state layout (KV heads over
+    "kv_heads", recurrent channels over "ffn", heads over "heads")."""
     dtype = DTYPES[cfg.dtype]
     max_order = max(cfg.engram.orders) if cfg.engram_layers() else 1
     pad = cfg.engram.pad_token if cfg.engram else 0
@@ -307,8 +343,7 @@ def build_prefill_step(cfg: ModelConfig, flags: RunFlags, max_len: int = 0):
                                  device=tokens.device)
         h_last = h.gather(1, (lengths - 1).view(B, 1, 1).expand(
             B, 1, h.shape[-1]))
-        logits = head_logits(_head_params(cfg, params), h_last[:, 0],
-                             cfg.final_logit_softcap, cfg.tie_embeddings)
+        logits = _logits(cfg, params, h_last[:, 0])
         caches = _pad_caches_to(caches, max_len or S)
         no = (max(cfg.engram.orders) if cfg.engram_layers() else 1) - 1
         # the reference's dynamic_slice: start max(l - no, 0), clamped so
@@ -340,8 +375,7 @@ def _decode_one(cfg: ModelConfig, flags: RunFlags, params, state, token,
                                {"tokens": token[:, None]}, "decode",
                                positions=positions.long(),
                                caches=state["caches"], engram_rows=rows)
-    logits = head_logits(_head_params(cfg, params), h[:, 0],
-                         cfg.final_logit_softcap, cfg.tie_embeddings)
+    logits = _logits(cfg, params, h[:, 0])
     new_state = {
         "caches": new_caches,
         "positions": positions + 1,
@@ -438,6 +472,5 @@ def build_encoder_step(cfg: ModelConfig, flags: RunFlags):
     @torch.no_grad()
     def encoder_step(params, batch):
         h, _, _ = forward(cfg, flags, params, batch, "train")
-        return head_logits(_head_params(cfg, params), h,
-                           cfg.final_logit_softcap, cfg.tie_embeddings)
+        return _logits(cfg, params, h)
     return encoder_step

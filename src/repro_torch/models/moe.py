@@ -28,7 +28,8 @@ the sequence, and the experts whole or as the rank's block of them
 (``sharding.rules.rank_block``); they return the rank's share of the batch
 (``alltoall`` reassembles its sequence blocks over the expert axis) and the
 aux loss averaged over the expert axis. Without a mesh, or with one rank on
-the expert axis, they run the ragged path, as the reference's do.
+the expert axis, they run the ragged path, as the reference's do. The
+shared experts are a ``layers.mlp``, split over "ffn" under a mesh.
 
 The grouped GEMM (``grouped_mm``; the reference's ``jax.lax.ragged_dot``)
 is ``torch._grouped_mm`` on the card, bf16 with the groups' end offsets as
@@ -331,5 +332,6 @@ def moe_ffn(cfg: ModelConfig, params, x, *, strategy: str = "gather"):
     else:
         out, aux = moe_ep_gather(cfg, params, x)
     if cfg.moe.n_shared > 0:
-        out = out + mlp(params["shared"], x, cfg.ffn_act)
+        out = out + mlp(params["shared"], x, cfg.ffn_act,
+                        cfg.moe.n_shared * cfg.moe.d_ff_expert)
     return out, aux

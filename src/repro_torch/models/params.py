@@ -35,6 +35,9 @@ class ParamDef:
     fan_in: int = 0             # 0 => shape[0]
     # logical axis names, len == ndim; None entries are unsharded
     axes: tuple = ()
+    # equal groups of features fused along the split dim (Mamba's in_proj
+    # [x | z]): a rank's block is its block of each (sharding.rules.Fused)
+    parts: int = 1
 
     def __post_init__(self):
         if self.axes == ():
@@ -44,8 +47,9 @@ class ParamDef:
 
 
 def pd(*shape, axes=(), dtype="float32", init="normal", scale=-1.0,
-       fan_in=0) -> ParamDef:
-    return ParamDef(tuple(shape), dtype, init, scale, fan_in, tuple(axes))
+       fan_in=0, parts=1) -> ParamDef:
+    return ParamDef(tuple(shape), dtype, init, scale, fan_in, tuple(axes),
+                    parts)
 
 
 def tree_map(fn, tree):
@@ -88,9 +92,19 @@ def tree_paths(tree, prefix: str = "", is_leaf=None) -> list:
     return out
 
 
+def leaf_axes(d: ParamDef) -> tuple:
+    """A def's logical axes: a ``sharding.rules.Fused`` over its split
+    dim (its first named axis) when it fuses parts."""
+    if d.parts == 1:
+        return d.axes
+    from ..sharding.rules import Fused
+    dim = next(i for i, a in enumerate(d.axes) if a is not None)
+    return Fused(d.axes, d.parts, dim)
+
+
 def tree_axes(defs):
     """The logical axes of every leaf of a def tree, in its structure."""
-    return tree_map(lambda d: d.axes, defs)
+    return tree_map(leaf_axes, defs)
 
 
 def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
@@ -166,7 +180,7 @@ def tree_init(defs, seed: int = 0, device=None, host_leaves=None,
 
     def own_block(d, axes):
         whole = leaf(d)
-        part = ctx.block(whole, tuple(axes))
+        part = ctx.block(whole, axes)
         if part.shape == whole.shape:
             return whole
         return part.clone(memory_format=torch.contiguous_format)
@@ -252,11 +266,14 @@ def tables_to_host(params):
     return params
 
 
-def from_jax(np_tree, cfg, device=None):
+def from_jax(np_tree, cfg, device=None, block=None):
     """The reference's ``init_params`` output (leaves as numpy arrays) ->
     the port's tree. The reference's scanned ``stack`` leaves, (n_periods,
     ...) per period position, are unstacked into one block per layer in
-    layer order (``prefix``, then period by period)."""
+    layer order (``prefix``, then period by period). ``block``: a
+    logical-axes tree (e.g. ``models.model.mesh_logical_axes(cfg)``);
+    only this rank's blocks are kept, each as storage of its own, under
+    the current sharding context (``sharding.rules.local_params``)."""
     from .transformer import segment_plan
     dev = resolve_device(device)
     conv = lambda a: to_torch(a, dev)                     # noqa: E731
@@ -268,5 +285,10 @@ def from_jax(np_tree, cfg, device=None):
                 blocks.append(tree_map(lambda a: conv(np.asarray(a)[r]),
                                        sp["stack"][pos]))
         segments.append(blocks)
-    return {k: segments if k == "segments" else tree_map(conv, v)
+    tree = {k: segments if k == "segments" else tree_map(conv, v)
             for k, v in np_tree.items()}
+    if block is None:
+        return tree
+    from ..sharding.rules import local_params
+    return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format),
+                    local_params(tree, block))

@@ -186,7 +186,7 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
         out2, aux = moe_ffn(cfg, params["ffn"], pre2,
                             strategy=flags.moe_strategy)
     else:
-        out2 = mlp(params["ffn"], pre2, cfg.ffn_act)
+        out2 = mlp(params["ffn"], pre2, cfg.ffn_act, cfg.d_ff)
     if cfg.post_block_norm:
         out2 = rmsnorm(params["post_ln2"], out2, cfg.norm_eps)
     return h + out2, new_cache, aux

@@ -53,7 +53,16 @@ on a real tensor.
 
 ``LiveBytes`` tracks the storages that are alive (held by any tensor,
 view or autograd graph) and their peak, from the operations' results,
-for ``launch.dryrun``'s ``peak_bytes_est``.
+for ``launch.dryrun``'s ``peak_bytes_est``. A sampled loop's storages
+that outlive it stand for the iterations not run: those held by each of
+the first k - 1 sampled iterations (the states and per-position values
+autograd keeps for the backward, one set per iteration) are counted
+(n - 2) / (k - 1) times from the loop's end until they are freed, and
+the last iteration's (its set and the carry it hands on) once, so the
+loop holds n sets and one carry, as its whole run does. A loop the
+backward recomputes (a remat period's) is counted as run: scaled at its
+end, its storages outlive the whole run's, which the backward frees
+position by position.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ import weakref
 from collections import Counter
 
 import torch
+import torch.utils.checkpoint
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -176,6 +186,8 @@ class LiveBytes:
         self.current = 0
         self.peak = 0
         self._refs = {}
+        self._bytes = {}             # key -> the bytes it is counted as
+        self._since = None           # a sampled loop's keys, by iteration
 
     def hold(self, t: torch.Tensor) -> int:
         st = t.untyped_storage()
@@ -183,15 +195,48 @@ class LiveBytes:
         if key in self._refs:
             return 0
         nb = st.nbytes()
-        self._refs[key] = weakref.ref(st, lambda _, k=key, n=nb:
-                                      self._release(k, n))
+        self._refs[key] = weakref.ref(st, lambda _, k=key:
+                                      self._release(k))
+        self._bytes[key] = nb
+        if self._since:
+            self._since[-1].append(key)
         self.current += nb
         self.peak = max(self.peak, self.current)
         return nb
 
-    def _release(self, key, nbytes: int) -> None:
+    def _release(self, key) -> None:
         if self._refs.pop(key, None) is not None:
-            self.current -= nbytes
+            self.current -= self._bytes.pop(key)
+
+    @contextlib.contextmanager
+    def scaled(self, n: int, k: int):
+        """Inside: the k sampled iterations of a loop of n after its
+        first, each begun by a call of the function it yields. At its end
+        the storages each iteration but the last held and are still alive
+        are counted (n - 2) / (k - 1) times (their bytes so far times that,
+        so nested loops multiply; with k = 1, the last iteration's are
+        counted n - 1 times)."""
+        outer, self._since = self._since, []
+        try:
+            yield lambda: self._since.append([])
+        finally:
+            segs, self._since = self._since, outer
+            if torch._C._current_graph_task_id() != -1:
+                segs = []             # a remat recompute: counted as run
+            last = set(segs[-1]) if segs else set()
+            if k > 1:
+                factor = (n - 2) / (k - 1)
+                keys = set().union(*segs[:-1]) - last
+            else:
+                factor, keys = n - 1, last
+            for key in keys:    # a freed storage's key may come back
+                if key in self._refs:
+                    extra = self._bytes[key] * (factor - 1)
+                    self._bytes[key] += extra
+                    self.current += extra
+            self.peak = max(self.peak, self.current)
+            if outer:
+                outer[-1].extend(set().union(*segs) if segs else ())
 
 
 _LOCAL = threading.local()   # the scale of a sampled loop, per thread
@@ -344,12 +389,17 @@ class LoopSampler:
 
     @contextlib.contextmanager
     def loop(self, n: int):
+        """Yields the function each iteration begins with (``LiveBytes.
+        scaled``'s, or None without a ``memory``)."""
         self.mode.sampled.append((n, self.k))
         prev = _scale()
         _LOCAL.scale = prev * (n - 1) / self.k
+        mem = self.mode.memory
+        kept = mem.scaled(n, self.k) if mem is not None \
+            else contextlib.nullcontext()
         try:
-            with _ScaleBackward(self.mode, _LOCAL.scale):
-                yield
+            with _ScaleBackward(self.mode, _LOCAL.scale), kept as begin:
+                yield begin
         finally:
             _LOCAL.scale = prev
 
@@ -361,7 +411,11 @@ def sample_loops(mode: CountingMode, k: int):
     and ``mode`` refuses operations on real tensors."""
     mode.sampling = True
     try:
-        with sampling(LoopSampler(mode, k)):
+        # a remat period's recompute runs to its end: stopped early, it
+        # would leave a sampled loop open (its scale still set) until the
+        # loop's generator is collected
+        with sampling(LoopSampler(mode, k)), \
+                torch.utils.checkpoint.set_checkpoint_early_stop(False):
             yield mode
     finally:
         mode.sampling = False

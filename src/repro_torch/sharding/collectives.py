@@ -18,6 +18,8 @@ grad run the collective alone, ``psum`` in place.
   psum         ``jax.lax.psum`` (``dist.all_reduce``, in place without
                grad; into a copy under autograd); backward: ``psum``
   pmean        ``jax.lax.pmean``: ``psum`` / n
+  pmax         ``jax.lax.pmax`` (``dist.all_reduce`` with MAX), without
+               a gradient
   psum_scatter ``jax.lax.psum_scatter(x, axes, scatter_dimension=dim,
                tiled=True)`` (``dist.reduce_scatter_single``, named
                ``reduce_scatter_tensor`` before torch 2.13); backward:
@@ -183,6 +185,15 @@ def psum(x: torch.Tensor, axes) -> torch.Tensor:
     return _Psum.apply(x, g) if _tracked(x) else _psum_(x, g)
 
 
+def pmax(x: torch.Tensor, axes) -> torch.Tensor:
+    """The elementwise max over the ranks of ``axes``, written into ``x``
+    (``jax.lax.pmax``); no gradient flows through it."""
+    if _tracked(x):
+        raise ValueError("pmax has no gradient: pass a detached tensor")
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_mesh().group(axes))
+    return x
+
+
 def pmean(x: torch.Tensor, axes) -> torch.Tensor:
     n = _mesh().group(axes).size()
     return psum(x, axes) / n
@@ -214,12 +225,18 @@ def gather_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
 
 def gather_block(x: torch.Tensor, shape, logical_axes) -> torch.Tensor:
     """The whole tensor of ``shape`` from this rank's block ``x`` of it
-    under ``logical_axes`` (``ShardCtx.block``'s inverse), gathered over
-    each split dim's axes; a whole ``x`` comes back as it is."""
+    under ``logical_axes`` (``ShardCtx.block``'s inverse, a ``Fused``
+    leaf's parts put back in order), gathered over each split dim's axes;
+    a whole ``x`` comes back as it is."""
     ctx = current_ctx()
     for dim, entry in enumerate(ctx.spec_for(tuple(shape),
                                              tuple(logical_axes))):
         if entry is not None and x.shape[dim] != shape[dim]:
-            x = gather_dim(x, (entry,) if isinstance(entry, str) else entry,
-                           dim)
+            axes = (entry,) if isinstance(entry, str) else entry
+            x = gather_dim(x, axes, dim)
+            if dim == getattr(logical_axes, "dim", -1):
+                # (rank, part, block) -> (part, rank, block)
+                x = x.unflatten(dim, (ctx.axis_prod(axes),
+                                      logical_axes.parts, -1)) \
+                    .transpose(dim, dim + 1).flatten(dim, dim + 2)
     return x

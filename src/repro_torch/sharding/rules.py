@@ -19,11 +19,28 @@ exist, this rank's coordinate on each axis and the axes' process groups
 (``launch.mesh.make_mesh`` builds one over ``torch.distributed``). A
 ``Mesh`` without ranks still resolves specs (``ShardCtx.spec_for``).
 
+The reference places every parameter with ``params_shardings``: its
+``NamedSharding`` splits each leaf along the mesh axes its logical axes
+resolve to, and GSPMD partitions the dense layers around those blocks
+(tensor parallelism over ``model``). The port holds the same blocks
+(``local_params``; ``models.model.mesh_logical_axes``) and runs the
+dense layers on them with explicit collectives: a column-parallel
+product reads the whole activation and writes the rank's block of the
+output features, a row-parallel one reads the rank's block of the input
+features and sums the partial products over the axis (``psum``).
+``ShardCtx.dim_block`` says which block of a dim a rank holds.
+
+A fused leaf (``Fused``: Mamba's ``in_proj`` [x | z], mLSTM's ``up``,
+sLSTM's ``ff_up``, two equal parts along the split dim) is split part
+by part: the rank holds its block of each part, side by side, so its
+block has the reference's shape and bytes and the rank computes on its
+own features (the reference's contiguous block would give the first
+ranks only x).
+
 The reference's ``shard`` and its ``compat_*`` shims have no counterpart.
 ``shard`` is a sharding constraint for XLA's GSPMD partitioner, which has
-no equivalent in eager PyTorch: the port shards only what a ``shard_map``
-of the reference reads block-wise, and keeps dense weights whole on every
-rank. The shims cover JAX version skew.
+no equivalent in eager PyTorch: the port's functions take their blocks
+and say where the collectives go. The shims cover JAX version skew.
 """
 from __future__ import annotations
 
@@ -55,6 +72,23 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "state":     (),
     "opt":       ("data",),          # ZeRO-1 optimizer-state extra axis
 }
+
+
+class Fused(tuple):
+    """The logical axes of a leaf that fuses ``parts`` equal groups of
+    features along dim ``dim`` (its split dim): a tuple of axis names
+    that also carries ``parts`` and ``dim``. A rank's block of such a
+    leaf is its block of each part, concatenated in part order
+    (``ShardCtx.block``); ``sharding.collectives.gather_block`` puts the
+    parts back in order."""
+
+    def __new__(cls, axes, parts: int, dim: int):
+        self = super().__new__(cls, axes)
+        self.parts, self.dim = parts, dim
+        return self
+
+    def __reduce__(self):
+        return (Fused, (tuple(self), self.parts, self.dim))
 
 
 @dataclasses.dataclass
@@ -154,18 +188,56 @@ class ShardCtx:
     def block(self, x: torch.Tensor,
               logical_axes: tuple[Optional[str], ...]) -> torch.Tensor:
         """This rank's block of the whole tensor ``x`` under its logical
-        axes: a view (``narrow`` along each sharded dim), no copy."""
+        axes: a view (``narrow`` along each sharded dim), no copy; of a
+        ``Fused`` leaf split along its fused dim, the rank's block of each
+        part, concatenated (a copy)."""
         if len(logical_axes) != x.dim():
             raise ValueError(f"logical axes {logical_axes} for a tensor of "
                              f"shape {tuple(x.shape)}")
+        parts = getattr(logical_axes, "parts", 1)
         for dim, entry in enumerate(self.spec_for(tuple(x.shape),
                                                   logical_axes)):
             if entry is None:
                 continue
             axes = (entry,) if isinstance(entry, str) else entry
-            n = x.shape[dim] // self.axis_prod(axes)
-            x = x.narrow(dim, self.mesh.index(axes) * n, n)
+            k = parts if dim == getattr(logical_axes, "dim", -1) else 1
+            n = x.shape[dim] // k // self.axis_prod(axes)
+            if n * k * self.axis_prod(axes) != x.shape[dim]:
+                raise ValueError(f"{k} parts of dim {dim} of "
+                                 f"{tuple(x.shape)} over {axes}")
+            at = self.mesh.index(axes) * n
+            if k == 1:
+                x = x.narrow(dim, at, n)
+            else:
+                x = x.unflatten(dim, (k, -1)).narrow(dim + 1, at, n) \
+                    .flatten(dim, dim + 1)
         return x
+
+    def block_shape(self, shape, logical_axes) -> tuple:
+        """The shape of this rank's block of a tensor of ``shape`` under
+        ``logical_axes`` (the reference's ``NamedSharding.shard_shape``)."""
+        out = list(shape)
+        for dim, entry in enumerate(self.spec_for(tuple(shape),
+                                                  tuple(logical_axes))):
+            if entry is not None:
+                out[dim] //= self.axis_prod(
+                    (entry,) if isinstance(entry, str) else entry)
+        return tuple(out)
+
+    def dim_block(self, shape, logical_axes, dim: int) -> tuple:
+        """(start, size, axes): this rank's block of dim ``dim`` of a
+        whole tensor of ``shape`` under ``logical_axes``, and the mesh
+        axes it is split over (``()``, start 0 and the whole extent when
+        the dim is whole: an axis the mesh lacks, or the divisibility
+        fallback)."""
+        entry = dict(enumerate(self.spec_for(tuple(shape),
+                                             tuple(logical_axes)))).get(dim)
+        whole = shape[dim]
+        if entry is None:
+            return 0, whole, ()
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n = whole // self.axis_prod(axes)
+        return self.mesh.index(axes) * n, n, axes
 
 
 def rank_block(x: torch.Tensor, dim: int, whole: int,
@@ -238,11 +310,11 @@ def mesh_axes(logical: str) -> tuple[str, ...]:
 
 def local_params(tree, axes_tree, ctx: Optional[ShardCtx] = None):
     """This rank's blocks of a whole parameter tree: each leaf narrowed by
-    its logical axes (``axes_tree``, e.g. ``models.model.params_logical_axes``,
+    its logical axes (``axes_tree``, e.g. ``models.model.mesh_logical_axes``,
     a tree of the same structure with a tuple of axis names per leaf) under
-    ``ctx`` (default: the current context). Views, no copies. The
-    counterpart of placing the tree with the reference's
-    ``params_shardings``."""
+    ``ctx`` (default: the current context). Views, no copies, but for the
+    split ``Fused`` leaves (``ShardCtx.block``). The counterpart of placing
+    the tree with the reference's ``params_shardings``."""
     ctx = ctx or current_ctx()
     if ctx is None:
         raise ValueError("local_params needs a sharding context")

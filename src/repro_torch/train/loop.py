@@ -20,12 +20,14 @@ K2 have no backward. ``train.ddp`` is the data-parallel step.
 
 Under a sharding context (a mesh of ranks, one process each) the step is
 sharded: each rank holds its blocks of ``models.model.
-train_logical_axes(cfg, flags)`` (the Engram tables, the routed experts,
-an untied embedding read block-wise) and every other leaf whole, takes
-its block of the batch (split over ``data``, repeated over ``model``),
-and runs the forward with the mesh's collectives, whose backwards are
-their transposes (``sharding.collectives``). The gradients follow one
-rule:
+train_logical_axes(cfg, flags)`` (the reference's layout: the dense
+weights split over "model", the embedding and head over "vocab", the
+tables by the retrieval strategy, the routed experts over "experts";
+``WHOLE_LEAVES`` whole), takes its block of the batch (split over
+``data``, repeated over ``model``), and runs the forward with the mesh's
+collectives, whose backwards are their transposes (``sharding.
+collectives``: ``psum``'s is ``psum``, as in a ``shard_map`` under
+``jax.grad``). The gradients follow one rule:
 
   each rank back-propagates its local loss divided by the number of
   ranks N, then sums every leaf's gradient over the mesh axes that leaf
@@ -36,18 +38,40 @@ over its block of the batch, the same on every rank of a data group, so
 F = (1/N) sum_r L_r = (1/D) sum_d L_d is the mean over the D data
 groups' blocks, the whole batch's mean loss (blocks of equal size).
 Read the ranks together as one program in which each rank's copy of a
-repeated leaf is its own variable: F's gradient with respect to a leaf
+repeated value is its own variable: F's gradient with respect to a leaf
 is the sum over its copies of F's gradient with respect to each copy,
 and each collective's transpose carries the cotangents between ranks as
-the program's chain rule does (``psum``'s transpose is ``psum``). Rank r
-back-propagating L_r / N gives its copy's share; ``sync_grads`` sums the
-copies: over every axis for a whole dense leaf, over ``data`` for a
-leaf split over ``model`` (the ``tp`` tables, the experts), over none
-for a leaf split over every axis (the ``pooled`` tables, whose
+the program's chain rule does. So a value repeated over ``model`` (the
+residual stream between two blocks) carries on each rank a share of its
+cotangent, and the shares sum to the whole one; every operation's
+backward is linear in the cotangent, so shares stay shares. A
+column-parallel product needs no collective in either direction: its
+input's cotangent on a rank is the share its block of columns gives. A
+row-parallel product ends in a ``psum``, whose backward ``psum`` gives
+every rank the summed shares, the whole cotangent of the partial
+product its block of rows made. ``sync_grads`` then sums the copies:
+over every axis for a whole leaf (the norms, the Engram ``proj`` and
+``gate``, a leaf the fallback leaves whole), over ``data`` for a leaf
+split over ``model`` (the dense blocks, the ``tp`` tables, the experts),
+over none for a leaf split over every axis (the ``pooled`` tables, whose
 cotangents arrive from every requester through the reverse all_to_all,
 duplicates summed by the fan-out's transpose). A rank's batch repeated
 over ``model`` is why the 1/N matters: without it each model rank's
-identical share would be counted once per rank.
+identical share would be counted once per rank. (Megatron's pair, an
+identity forward with a ``psum`` backward before a column-parallel
+product and a ``psum`` forward with an identity backward after a
+row-parallel one, computes the same gradients with whole cotangents on
+every rank instead of shares; it would need every other collective's
+backward, and the 1/N, changed to match.)
+
+ZeRO-1 (``build_train_step``): a leaf's moments are split over ``data``
+along the dim ``optimizer.opt_state_axes`` names (``optimizer.
+zero_dims``); its gradient's sum over ``data`` is a reduce-scatter onto
+that dim (``psum_scatter``), AdamW updates the rank's slice of the leaf,
+and the slices are all-gathered over ``data`` back into the block. The
+norm sums each leaf's squares over the axes its gradient is split over.
+The reference's ``zero1=True`` constrains its gradients to this layout,
+the same step.
 """
 from __future__ import annotations
 
@@ -71,7 +95,8 @@ from ..models.transformer import RunFlags
 from ..sharding import collectives as coll
 from ..sharding.rules import ShardCtx, current_ctx, split_axes_tree
 from .optimizer import (AdamWConfig, abstract_opt_state, adamw_update,
-                        decay_mask, init_opt_state)
+                        decay_mask, init_opt_state, opt_state_axes,
+                        with_paths, zero_dims)
 
 
 class SimulatedFailure(RuntimeError):
@@ -123,18 +148,27 @@ SYNC_BUCKET = 1 << 24
 
 
 @torch.no_grad()
-def sync_grads(grads, split: dict, ctx: ShardCtx):
+def sync_grads(grads, split: dict, ctx: ShardCtx, zero: dict | None = None):
     """Sum every leaf of ``grads`` (this rank's blocks) over the mesh axes
     of more than one rank that the leaf is repeated on (those of ``ctx``'s
     mesh not in ``split[path]``, see ``sharding.rules.split_axes_tree``),
     in place. Leaves sharing axes and dtype go out in buckets of up to
     ``SYNC_BUCKET`` elements (one all_reduce each); a larger leaf goes
-    alone. Returns ``grads``."""
+    alone. ``zero`` (``optimizer.zero_dims``): the sum of those leaves over
+    their ZeRO-1 axes is a reduce-scatter onto their dim, and the leaf
+    becomes the rank's slice. Returns ``grads``."""
     mesh = ctx.mesh
-    groups = {}
+    zero = zero or {}
+    groups, slices = {}, {}
     for path, g in tree_paths(grads):
-        axes = tuple(a for a in mesh.axis_names
-                     if a not in split[path] and mesh.shape[a] > 1)
+        rest = set()
+        if path in zero:
+            dim, z_axes = zero[path]
+            slices[path] = coll.psum_scatter(g, z_axes, dim)
+            rest = set(z_axes)
+            g = slices[path]
+        axes = tuple(a for a in mesh.axis_names if a not in split[path]
+                     and a not in rest and mesh.shape[a] > 1)
         if axes:
             groups.setdefault((axes, g.dtype), []).append(g)
     for (axes, _), leaves in groups.items():
@@ -154,11 +188,14 @@ def sync_grads(grads, split: dict, ctx: ShardCtx):
             if g is not None:
                 bucket.append(g)
                 n += g.numel()
+    if slices:
+        grads = with_paths(grads, lambda path, g: slices.get(path, g))
     return grads
 
 
 def build_grad_fn(cfg: ModelConfig, flags: RunFlags, grad_accum: int = 1,
-                  ctx: Optional[ShardCtx] = None) -> Callable:
+                  ctx: Optional[ShardCtx] = None,
+                  zero: dict | None = None) -> Callable:
     """(params, batch) -> (loss, grads): the first half of the train step.
 
     With ``grad_accum > 1`` the batch's leading dim is split into that
@@ -171,8 +208,11 @@ def build_grad_fn(cfg: ModelConfig, flags: RunFlags, grad_accum: int = 1,
     the microbatches' gradients are summed before ``sync_grads``, so each
     rank returns the global mean loss and its blocks of that loss's
     gradients. Call it under ``sharding_ctx`` of the same mesh.
-    ``grad_fn.split`` is the layout's ``split_axes_tree`` (None without a
-    mesh), what ``adamw_update`` takes."""
+    ``zero`` (``optimizer.zero_dims``): those leaves' gradients come back
+    as the rank's ZeRO-1 slices (``sync_grads``). ``grad_fn.split`` is the
+    mesh axes each returned gradient is split over (the layout's
+    ``split_axes_tree``, with the ZeRO-1 axes; None without a mesh), what
+    ``adamw_update`` takes."""
     loss_fn = build_loss_fn(cfg, flags)
     split, scale = None, 1.0
     if ctx is not None:
@@ -180,6 +220,7 @@ def build_grad_fn(cfg: ModelConfig, flags: RunFlags, grad_accum: int = 1,
             cfg, flags), ctx)
         every = ctx.mesh.axis_names
         scale = 1.0 / ctx.axis_prod(every)
+    zero = zero or {}
 
     def grad_fn(params, batch):
         if grad_accum == 1:
@@ -200,10 +241,14 @@ def build_grad_fn(cfg: ModelConfig, flags: RunFlags, grad_accum: int = 1,
             grads = with_leaves(params, (g / grad_accum for g in grads))
             loss = loss / grad_accum
         if ctx is not None:
-            grads = sync_grads(grads, split, ctx)
+            grads = sync_grads(grads, split, ctx, zero)
             loss = coll.psum(loss.clone(), every) * scale
         return loss, grads
 
+    if split is not None:
+        for path, (_, z_axes) in zero.items():
+            split[path] = tuple(a for a in ctx.mesh.axis_names
+                                if a in split[path] or a in z_axes)
     grad_fn.split = split
     return grad_fn
 
@@ -214,20 +259,44 @@ def build_train_step(cfg: ModelConfig, flags: RunFlags, oc: AdamWConfig,
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
     parameters and moments updated in place (``adamw_update``): the
     gradients of ``build_grad_fn`` (its ``grad_accum`` and ``ctx``), then
-    AdamW, under a mesh with the norm taken over the blocks. Without a
-    mesh, ``metrics["loss"]`` is the batch's mean loss; with one, the
-    global mean."""
-    grad_fn = build_grad_fn(cfg, flags, grad_accum, ctx)
+    AdamW, under a mesh with the norm taken over the blocks and ZeRO-1's
+    moments (module docstring): ``opt_state`` holds the rank's slices,
+    ``init_opt_state(params, step.zero)``. Without a mesh,
+    ``metrics["loss"]`` is the batch's mean loss; with one, the global
+    mean."""
+    zero = {} if ctx is None else zero_dims(
+        abstract_params(cfg), train_logical_axes(cfg, flags), ctx)
+    grad_fn = build_grad_fn(cfg, flags, grad_accum, ctx, zero)
     decay = decay_mask(cfg)
 
     def step(params, opt_state, batch):
         loss, grads = grad_fn(params, batch)
-        new_p, new_s, metrics = adamw_update(oc, params, grads, opt_state,
-                                             decay, grad_fn.split)
+        view = with_paths(params, lambda path, p: _zero_slice(
+            p, zero.get(path), ctx))
+        _, new_s, metrics = adamw_update(oc, view, grads, opt_state, decay,
+                                         grad_fn.split)
+        views = dict(tree_paths(view))
+        with torch.no_grad():
+            for path, p in tree_paths(params):
+                if path in zero:
+                    dim, axes = zero[path]
+                    got = coll.all_gather(views[path], axes)
+                    p.copy_(got.movedim(0, dim).flatten(dim, dim + 1))
         metrics["loss"] = loss
-        return new_p, new_s, metrics
+        return params, new_s, metrics
 
+    step.zero = zero
     return step
+
+
+def _zero_slice(p, at, ctx):
+    """The rank's ZeRO-1 slice of the block ``p`` (``at`` = (dim, axes) of
+    ``optimizer.zero_dims``, None: the whole block), a view."""
+    if at is None:
+        return p
+    dim, axes = at
+    n = p.shape[dim] // ctx.axis_prod(axes)
+    return p.narrow(dim, ctx.mesh.index(axes) * n, n)
 
 
 @dataclasses.dataclass
@@ -264,8 +333,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig,
     layout = None
     if ctx is not None:
         axes = train_logical_axes(cfg, flags)
-        layout = {"params": axes, "opt": {"m": axes, "v": axes,
-                                          "step": ()}}
+        layout = {"params": axes, "opt": opt_state_axes(axes)}
         if ckpt is not None:
             # rank 0's last write is on disk before any rank looks
             dist.barrier()
@@ -280,11 +348,13 @@ def train(cfg: ModelConfig, tc: TrainConfig, dc: DataConfig,
     else:
         params = init_params(cfg, tc.seed, dev,
                              block=layout and layout["params"])
-        opt_state = init_opt_state(params)
+        opt_state = None
     if ctx is not None and dev.type == "cuda":
         torch.cuda.empty_cache()       # the whole leaves, for the ranks
 
     step_fn = build_train_step(cfg, flags, oc, tc.grad_accum, ctx)
+    if opt_state is None:
+        opt_state = init_opt_state(params, step_fn.zero)
     save_kw = {} if ctx is None else dict(block=layout, like=like)
     pipe = TokenPipeline(dc)
     fail_at = int(os.environ.get("REPRO_FAIL_AT_STEP", "-1"))

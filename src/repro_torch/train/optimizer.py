@@ -15,9 +15,10 @@ keeps one leaf per layer, so ``decay_mask(cfg)`` reads the decision from
 the reference's layout (``segment_plan``), not from the port's shapes.
 
 ``opt_state_axes`` maps parameter logical axes to the moments' (ZeRO-1's
-"opt" axis on the first unsharded dim), the reference's layout of them.
-The port's sharded train step keeps each moment beside its parameter's
-block instead, so the update is local to the rank.
+"opt" axis on the first unsharded dim), the reference's layout of them,
+and the port's sharded train step holds the moments so: ``zero_dims``
+says along which dim of a rank's parameter block its moments are split
+over "data", and ``init_opt_state(params, zero)`` makes those slices.
 
 Under a mesh a rank holds blocks of some leaves: ``global_norm`` and
 ``adamw_update`` then take ``split`` (``sharding.rules.split_axes_tree``:
@@ -59,14 +60,61 @@ def schedule(c: AdamWConfig, step) -> torch.Tensor:
     return c.lr * warm * frac
 
 
-def init_opt_state(params) -> dict:
+def init_opt_state(params, zero: dict | None = None) -> dict:
     """Zero f32 moments beside each leaf, on its device, and step 0 (an
-    int32 scalar on the first leaf's device)."""
+    int32 scalar on the first leaf's device). ``zero`` (``zero_dims``):
+    the leaves are a rank's blocks and each moment is the rank's slice of
+    its block along the dim ZeRO-1 splits it over "data"."""
+    from ..sharding.rules import current_ctx
     dev = next(tree_leaves(params)).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+    zero = zero or {}
+
+    def zeros(path, p):
+        shape = list(p.shape)
+        if path in zero:
+            dim, axes = zero[path]
+            shape[dim] //= current_ctx().axis_prod(axes)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    def moments():
+        return with_paths(params, zeros)
+    return {"m": moments(), "v": moments(),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def with_paths(tree, fn, prefix: str = ""):
+    """``fn(path, leaf)`` over a tree, in its structure (paths as
+    ``tree_paths`` names them)."""
+    if isinstance(tree, dict):
+        return {k: with_paths(v, fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [with_paths(v, fn, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def zero_dims(like, param_axes, ctx) -> dict:
+    """path -> (dim, mesh axes): for each leaf of the whole tree ``like``
+    whose moments ``opt_state_axes`` splits further than the parameter
+    under ``ctx`` (ZeRO-1's "opt" on a dim the parameter keeps whole and
+    the axes divide, over more than one rank), that dim and the axes it
+    is split over."""
+    is_axes = lambda x: isinstance(x, tuple) and all(  # noqa: E731
+        a is None or isinstance(a, str) for a in x)
+    pa = dict(tree_paths(param_axes, is_leaf=is_axes))
+    ma = dict(tree_paths(opt_state_axes(param_axes)["m"], is_leaf=is_axes))
+    out = {}
+    for path, t in tree_paths(like):
+        shape = tuple(t.shape)
+        ps = ctx.spec_for(shape, pa[path])
+        ms = ctx.spec_for(shape, ma[path])
+        ps = ps + (None,) * (len(ms) - len(ps))
+        for dim, (a, b) in enumerate(zip(ps, ms)):
+            axes = (b,) if isinstance(b, str) else tuple(b or ())
+            if a != b and ctx.axis_prod(axes) > 1:
+                out[path] = (dim, axes)
+    return out
 
 
 def abstract_opt_state(params_abstract) -> dict:
@@ -81,8 +129,9 @@ def opt_state_axes(param_axes) -> dict:
     """Param logical axes -> moment axes with ZeRO's "opt" on the first
     unsharded dim, except where the parameter already uses the data axis
     (the pooled Engram table, sharded over every axis)."""
+    from ..sharding.rules import Fused
+
     def one(axes):
-        axes = tuple(axes)
         if "eng_vocab" in axes:
             return axes
         out, done = [], False
@@ -92,6 +141,8 @@ def opt_state_axes(param_axes) -> dict:
                 done = True
             else:
                 out.append(a)
+        if isinstance(axes, Fused):
+            return Fused(out, axes.parts, axes.dim)
         return tuple(out)
 
     def walk(tree):

@@ -10,7 +10,9 @@
   state on a (2, 4) mesh against the reference's ``NamedSharding.
   shard_shape`` for the same logical axes (on a ``jax.sharding.
   AbstractMesh``: no devices needed), for every arch x shape, full and
-  reduced; ``cell_rules`` against the reference's rule.
+  reduced; the blocks a rank holds (``local_params``, ZeRO-1's moments,
+  ``init_decode_state``) against the same, for every reduced arch;
+  ``cell_rules`` against the reference's rule.
 * One subprocess (``tests/torch_dryrun_cells.py``, a fake world of 256
   and 512 ranks): a full-width cell (gemma3-1b x decode_32k) on the meta
   device, on the CPU path, with ``unroll`` and on the multi-pod mesh,
@@ -18,8 +20,9 @@
   every record ``ok`` with the reference's keys less ``NO_COUNTERPART``;
   ``unroll`` changes no count; the collectives the counting mode records
   from c10d calls equal the reference's ``collective_stats`` of
-  tests/test_roofline.py's HLO; the report renders; ``zero1`` raises; the
-  kernels appear by name on the card's path and not on the CPU path.
+  tests/test_roofline.py's HLO; the report renders; ``zero1`` is
+  recorded and changes no count; the kernels appear by name on the
+  card's path and not on the CPU path.
 """
 import json
 import os
@@ -45,6 +48,7 @@ from repro.sharding import rules as ref_rules  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch.train import reduced_config  # noqa: E402
+from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.params import tree_paths  # noqa: E402
 from repro_torch.models.transformer import RunFlags  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
@@ -206,21 +210,90 @@ def test_rank_blocks_match_reference_shard_shapes(arch, shape, size):
     ("deepseek-7b", True), ("jamba-1.5-large-398b", True),
     ("xlstm-125m", True), ("deepseek-v3-671b", False)])
 def test_dryrun_state_is_split_on_batch_only(arch, ref_splits_more):
-    """The port's decode state on the production mesh: each rank keeps its
-    share of the batch and every other dim whole, as the dense weights
-    that write the caches are whole on every rank (the reference splits
-    KV heads and recurrent features over the model axis too; MLA's latent
-    caches have neither)."""
+    """The port's decode state on the production mesh: the blocks a rank's
+    ``init_decode_state`` makes under the mesh (its share of the batch)
+    are the reference's layout, ``specs.state_shardings`` (held equal to
+    the reference's ``shard_shape`` above): KV heads over "kv_heads",
+    recurrent channels over "ffn" and heads over "heads", where the axes
+    divide them; split further than the batch where the reference's is
+    (MLA's latent caches have neither heads nor channels)."""
     cfg = configs.get_config(arch)
     state = specs.abstract_decode_state(cfg, RunFlags(), 128, 64,
                                         device="meta")
-    ctx = rules.ShardCtx(rules.Mesh.of((16, 16), ("data", "model")),
-                         dict(rules.DEFAULT_RULES))
-    got = specs.state_shardings(state, ctx, specs.mesh_state_axes(state))
-    for (path, t), (_, shp) in zip(tree_paths(state), _paths(got)):
-        assert shp == (t.shape[0] // 16,) + tuple(t.shape[1:]), path
-    ref_like = specs.state_shardings(state, ctx)
-    assert (_paths(ref_like) != _paths(got)) == ref_splits_more
+    mesh = rules.Mesh.of((16, 16), ("data", "model"),
+                         coords={"data": 3, "model": 5})
+    with rules.sharding_ctx(mesh) as ctx:
+        blocks = port_model.init_decode_state(cfg, RunFlags(), 128 // 16,
+                                              64, "meta")
+    want = specs.state_shardings(state, ctx)
+    got = {p: tuple(t.shape) for p, t in tree_paths(blocks)}
+    assert got == dict(_paths(want))
+    batch_only = {p: (t.shape[0] // 16,) + tuple(t.shape[1:])
+                  for p, t in tree_paths(state)}
+    assert (got != batch_only) == ref_splits_more
+
+
+def _ref_moment_shapes(rcfg, ref):
+    """The reference's ZeRO-1 moment blocks (``opt_state_axes`` placed on
+    ``ref``'s mesh), in the port's layout."""
+    from repro.train import optimizer as ref_opt
+    is_axes = lambda x: isinstance(x, tuple) and all(     # noqa: E731
+        a is None or isinstance(a, str) for a in x)
+    axes = ref_opt.opt_state_axes(ref_model.params_logical_axes(rcfg))["m"]
+    shapes = jax.tree.map(
+        lambda ax, a: ref.sharding_for(a.shape, ax).shard_shape(a.shape),
+        axes, ref_model.abstract_params(rcfg), is_leaf=is_axes)
+    return _unstack_params(rcfg, shapes)
+
+
+@pytest.mark.parametrize("arch", ref_base.list_archs())
+def test_rank_layout_is_the_reference_layout(arch):
+    """Reduced ``arch`` (its vocabulary a multiple of 4, so the model axis
+    splits the embedding and the head) on each rank of a (2, 4) mesh: the
+    parameter blocks ``local_params`` takes for the forward and for
+    training (pooled tables) have the reference's ``shard_shape`` but for
+    ``whole_leaves``, which are whole; the ZeRO-1 moments
+    ``init_opt_state(blocks, zero_dims)`` makes have the reference's
+    ``opt_state_axes`` blocks; the decode state ``init_decode_state``
+    makes, the reference's ``state_shardings`` blocks."""
+    import dataclasses
+    from repro_torch.train import build_train_step, init_opt_state
+    from repro_torch.train.optimizer import AdamWConfig
+    rcfg, cfg = ref_reduced(arch), reduced_config(arch)
+    v = -(-cfg.vocab_size // 4) * 4
+    rcfg = dataclasses.replace(rcfg, vocab_size=v)
+    cfg = dataclasses.replace(cfg, vocab_size=v)
+    ref, _ = _ctxs()
+    want = dict(_paths(_unstack_params(rcfg, _shard_shapes(
+        ref_model.abstract_params(rcfg), ref_specs.param_shardings(rcfg,
+                                                                   ref)))))
+    moments = dict(_paths(_ref_moment_shapes(rcfg, ref)))
+    params = port_model.abstract_params(cfg)
+    whole = dict(tree_paths(params))
+    flags = RunFlags(engram_strategy="pooled")
+    state = specs.abstract_decode_state(cfg, flags, 4, 16, device="meta")
+    for coords in ((0, 0), (1, 2)):
+        mesh = rules.Mesh.of((2, 4), ("data", "model"), coords=dict(zip(
+            ("data", "model"), coords)))
+        with rules.sharding_ctx(mesh) as ctx:
+            held = port_model.whole_leaves(cfg, ctx)
+            assert set(held) == {p for p in whole if p.startswith("engram/")
+                                 and p.endswith("/proj")}
+            for axes in (port_model.mesh_logical_axes(cfg),
+                         port_model.train_logical_axes(cfg, flags)):
+                blocks = rules.local_params(params, axes, ctx)
+                got = {p: tuple(t.shape) for p, t in tree_paths(blocks)}
+                assert {p: s for p, s in got.items() if p not in held} == {
+                    p: s for p, s in want.items() if p not in held}
+                assert all(got[p] == tuple(whole[p].shape) for p in held)
+            step = build_train_step(cfg, flags, AdamWConfig(), ctx=ctx)
+            opt = init_opt_state(blocks, step.zero)
+            assert {p: tuple(t.shape) for p, t in tree_paths(opt["m"])
+                    if p not in held} == {p: s for p, s in moments.items()
+                                          if p not in held}
+            got = port_model.init_decode_state(cfg, flags, 2, 16, "meta")
+        assert {p: tuple(t.shape) for p, t in tree_paths(got)} == dict(
+            _paths(specs.state_shardings(state, ctx)))
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
@@ -304,7 +377,13 @@ def test_kernels_on_the_cards_path_only(cells):
                                     "repro_torch::gated_fuse": 2}
     assert cpu["kernel_calls"] == {} and cpu["device"] == "cpu"
     assert cpu["scaled"]["flops_dot"] == meta["scaled"]["flops_dot"]
-    assert meta["scaled"]["collectives"]["counts"] == {"all-to-all": 6}
+    # the pool's three all-to-alls a layer; the layout's all-reduces: a
+    # layer's q, k and v gathered whole (1024 and 256 columns over 16
+    # ranks do not fall on a 256-wide head's boundary), wo's and the MLP's
+    # partial sums, then the embedding's and the logits' gather
+    n = configs.get_config("gemma3-1b").n_layers
+    assert meta["scaled"]["collectives"]["counts"] == {
+        "all-to-all": 6, "all-reduce": 5 * n + 2}
 
 
 def test_moe_cells_trace_expert_parallelism(cells):
@@ -314,11 +393,16 @@ def test_moe_cells_trace_expert_parallelism(cells):
     assert dec["kernel_calls"] == {"repro_torch::gated_fuse": 2}
     assert train["scaled"]["collectives"]["counts"]["all-reduce"] > 0
     # moe_ep_gather: the partial outputs and the aux loss summed over the
-    # model axis, two all-reduces a MoE layer (the ragged path has none)
-    n_moe = sum(t == "moe" for t in reduced_config(
-        "deepseek-v2-236b").ffn_types)
+    # model axis, two all-reduces a MoE layer (the ragged path has none);
+    # the layout: the shared experts' and the dense layer's MLP partial
+    # sums, and in each layer's MLA q and the absorbed W_uk and W_uv
+    # gathered whole (blocks of a quarter of a head) and wo's partial sums
+    # (503 words do not split over 16: no vocabulary collective)
+    cfg = reduced_config("deepseek-v2-236b")
+    n_moe = sum(t == "moe" for t in cfg.ffn_types)
     assert n_moe > 0 and dec["scaled"]["collectives"]["counts"] == {
-        "all-reduce": 2 * n_moe}
+        "all-reduce": 2 * n_moe + n_moe + (cfg.n_layers - n_moe)
+        + 4 * cfg.n_layers}
 
 
 def test_recorded_collectives_match_reference(cells):
@@ -337,9 +421,15 @@ ENTRY %main {
 
 
 def test_report_renders_and_zero1_raises(cells):
+    """The report renders; ``zero1`` is accepted and recorded, and changes
+    no count (the port's train step always lays its gradients and moments
+    out as ZeRO-1)."""
     text = cells["report"]
     assert text.startswith("Cells: 6/6 ok (pod1 5, pod2 1, fail 0)")
     for head in ("## Dry-run", "## Roofline (single-pod, one H100 per rank)",
                  "### Levers", "| gemma3-1b | decode_32k |"):
         assert head in text
-    assert cells["zero1"].startswith("raised: zero1")
+    rec, meta = cells["zero1"], cells["records"]["meta"]
+    assert rec["ok"] and rec["zero1"] is True and meta["zero1"] is False
+    for k in ("scaled", "kernel_calls", "memory"):
+        assert rec[k] == meta[k], k

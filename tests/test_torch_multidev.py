@@ -142,6 +142,27 @@ def _ep_cfg(mod, cf: float, aux: bool = True):
         aux_loss_coef=cfg.moe.aux_loss_coef if aux else 0.0))
 
 
+LAYOUT_ARCHS = ("engram-27b", "deepseek-7b", "jamba-1.5-large-398b",
+                "xlstm-125m")
+
+
+def _layout_cfg(arch: str, port: bool = True):
+    """torch_multidev_ref.layout_cfg's config, the port's or the
+    reference's: reduced ``arch``, its vocabulary rounded up to a multiple
+    of 4, with MoE a capacity factor at which nothing drops."""
+    import dataclasses
+    if port:
+        from repro_torch.launch.train import reduced_config
+    else:
+        from repro.launch.train import reduced_config
+    cfg = reduced_config(arch)
+    cfg = dataclasses.replace(cfg, vocab_size=-(-cfg.vocab_size // 4) * 4)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
 def _inputs(d: Path):
     """The inputs: ``inputs.npz`` for the reference, ``inputs.pt`` for the
     ranks (the port's configs and tensors)."""
@@ -174,6 +195,9 @@ def _inputs(d: Path):
     cfg = _model_cfg(deepseek_v3_671b)
     npz["model_toks"] = rng.randint(1, cfg.vocab_size, (4, 8))
     npz["embed_cot"] = rng.randn(4, 8, 64).astype(np.float32)
+    for arch in LAYOUT_ARCHS:
+        npz[f"layout_toks/{arch}"] = rng.randint(
+            1, _layout_cfg(arch).vocab_size, (4, 8))
     np.savez(d / "inputs.npz", **npz)
     rparams = ref_model.init_params(_model_cfg(ref_v3), 0)
     t = lambda a: to_torch(a, "cpu")                       # noqa: E731
@@ -196,7 +220,13 @@ def _inputs(d: Path):
         ep_cfg_raised=_ep_cfg(deepseek_v2_236b, 8.0, aux=False),
         ep_params=from_jax(jax.tree.map(np.asarray, ref_model.init_params(
             _ep_cfg(ref_v2, EP_CAPACITY), 0)),
-            _ep_cfg(deepseek_v2_236b, EP_CAPACITY), "cpu"))
+            _ep_cfg(deepseek_v2_236b, EP_CAPACITY), "cpu"),
+        layout_archs=LAYOUT_ARCHS)
+    for arch in LAYOUT_ARCHS:
+        port[f"layout_cfg/{arch}"] = _layout_cfg(arch)
+        port[f"layout_params/{arch}"] = from_jax(jax.tree.map(
+            np.asarray, ref_model.init_params(_layout_cfg(arch, False), 0)),
+            _layout_cfg(arch), "cpu")
     torch.save(port, d / "inputs.pt")
 
 
@@ -227,7 +257,7 @@ def runs(tmp_path_factory):
          str(d / "inputs.npz"), str(d / f"ref_{part}.npz"), part],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, JAX_PLATFORMS="cpu"))
-        for part in ("mesh", "train")}
+        for part in ("mesh", "train", "layout")}
     try:
         _run_ranks(d, deadline)
         for ref in refs.values():
@@ -741,3 +771,121 @@ def test_cli_trains_on_a_two_rank_mesh(runs):
                 oc=AdamWConfig(lr=3e-4, warmup_steps=1, decay_steps=2),
                 log=lambda s: None, device="cpu")
     np.testing.assert_allclose(m["losses"], one.losses, rtol=1e-5)
+
+
+# ------------------------------------------- the reference's mesh layout
+
+# the layout forwards' tolerances: LOGITS_TOL, and through a recurrent
+# stack ROADMAP's recurrent rule, relative to the largest logit (1e-4 for
+# jamba, 2e-3 for xLSTM, whose gates carry states up to 2e5)
+RECURRENT_TOL = {"jamba-1.5-large-398b": 1e-4, "xlstm-125m": 2e-3}
+
+
+@pytest.mark.parametrize("arch", LAYOUT_ARCHS)
+def test_layout_forward_matches_reference_mesh(runs, arch):
+    """Reduced dense GQA (engram-27b: its KV heads whole over the model
+    axis, deepseek-7b: split), jamba and xLSTM, each rank on its blocks of
+    the reference's layout (heads, KV heads, ffn and the vocabulary split
+    over the model axis, pooled tables, alltoall MoE): prefill and greedy
+    decode against the reference's forward under the same mesh and flags,
+    logits within the files' tolerance, the same greedy tokens."""
+    ref, ranks = runs
+    got = _whole(ranks, f"layout/{arch}")
+    want = ref[f"layout/{arch}"]
+    top = float(np.abs(want).max())
+    tol = LOGITS_TOL if arch not in RECURRENT_TOL else dict(
+        rtol=RECURRENT_TOL[arch], atol=RECURRENT_TOL[arch] * max(1.0, top))
+    print(f"{arch}: {np.abs(got - want).max() / top:.2e} of the largest "
+          "logit")
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def _rank_ctx(r):
+    from repro_torch.sharding import rules
+    (shape, axes) = MESH
+    return rules.ShardCtx(rules.Mesh.of(shape, axes, coords={
+        a: int(c) for a, c in zip(axes, r["coords"])}),
+        dict(rules.DEFAULT_RULES))
+
+
+@pytest.mark.parametrize("arch", LAYOUT_ARCHS)
+def test_layout_blocks_are_the_reference_shard_shapes(runs, arch):
+    """Every rank's parameter blocks have the shapes of ``specs.
+    param_shardings`` under the reference's axes (tests/
+    test_torch_dryrun.py holds those equal to the reference's
+    ``NamedSharding.shard_shape``), but for the leaves of
+    ``whole_leaves``, which it holds whole; its decode state's blocks
+    after the prefill are ``specs.state_shardings``' of the whole state;
+    its blocks gather back into the whole leaves (``gather_block``, as a
+    checkpoint saves them: jamba's and xLSTM's fused leaves part by
+    part)."""
+    from repro_torch.launch import specs
+    from repro_torch.models.model import abstract_params, whole_leaves
+    from repro_torch.models.transformer import RunFlags
+    _, ranks = runs
+    cfg = _layout_cfg(arch)
+    whole = dict(tree_paths(abstract_params(cfg)))
+    state = specs.abstract_decode_state(cfg, RunFlags(), 4,
+                                        8 + DECODE_STEPS, device="meta")
+    for r in ranks:
+        ctx = _rank_ctx(r)
+        held = whole_leaves(cfg, ctx)
+        want = dict(tree_paths(specs.param_shardings(cfg, ctx),
+                               is_leaf=lambda x: isinstance(x, tuple)))
+        got = r[f"layout_params/{arch}"]
+        assert got.keys() == want.keys()
+        assert held and all(got[k] == tuple(whole[k].shape) for k in held)
+        assert {k: v for k, v in got.items() if k not in held} == {
+            k: v for k, v in want.items() if k not in held}
+        assert any(got[k] != tuple(t.shape) for k, t in whole.items())
+        want_state = dict(tree_paths(specs.state_shardings(state, ctx),
+                                     is_leaf=lambda x: isinstance(x, tuple)))
+        assert r[f"layout_state/{arch}"] == want_state
+        assert r[f"layout_gather/{arch}"] == []
+
+
+@pytest.mark.parametrize("against", ["mesh", "one"])
+@pytest.mark.parametrize("strategy", ["pooled", "tp"])
+def test_train_step_moments_match_reference(runs, strategy, against):
+    """ZeRO-1's moments after one AdamW step, each rank's slices gathered
+    whole: the first moment within the gradients' rule (max(1e-4, the
+    reference's largest one-ulp witness) of a leaf's largest), the second
+    (the gradient squared) within twice it, against the reference's mesh
+    and one-device moments."""
+    ref, ranks = runs
+    name = f"tr/{strategy if against == 'mesh' else 'one'}"
+    limit = max(GRAD_FLOOR, float(ref[f"{name}/wit_g"].max()))
+    for mom, lim in (("m", limit), ("v", 2 * limit)):
+        got = _replicas_equal(ranks, f"tr/{strategy}/{mom}")
+        share = _grad_share(got, _ref_tree(ref, name, _tr_pair(), leaf=mom))
+        print(f"{strategy} {mom} against {against}: {share:.2e} "
+              f"(limit {lim:.2e})")
+        assert share <= lim
+
+
+@pytest.mark.parametrize("strategy", ["pooled", "tp"])
+def test_train_step_moment_blocks_are_zero1(runs, strategy):
+    """Each rank holds its ZeRO-1 slice of every moment: the shape of the
+    reference's ``opt_state_axes`` layout (the "opt" axis over "data" on
+    the first dim the parameter keeps whole), split further than the
+    parameter's block for some leaves."""
+    from repro_torch.models.model import (abstract_params,
+                                          train_logical_axes)
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.train import opt_state_axes
+    _, ranks = runs
+    cfg = _tr_cfg(ModelConfig, EngramConfig)
+    axes = train_logical_axes(cfg, RunFlags(engram_strategy=strategy))
+    is_axes = lambda x: isinstance(x, tuple)                  # noqa: E731
+    mom = dict(tree_paths(opt_state_axes(axes)["m"], is_leaf=is_axes))
+    par = dict(tree_paths(axes, is_leaf=is_axes))
+    whole = dict(tree_paths(abstract_params(cfg)))
+    for r in ranks:
+        ctx = _rank_ctx(r)
+        want = {k: ctx.block_shape(tuple(t.shape), mom[k])
+                for k, t in whole.items()}
+        for m in ("m", "v"):
+            assert r[f"tr/{strategy}/{m}_shapes"] == want
+        assert any(want[k] != ctx.block_shape(tuple(t.shape), par[k])
+                   for k, t in whole.items())

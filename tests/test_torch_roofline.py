@@ -21,7 +21,11 @@
   counts: exactly in a forward pass, and the FLOPs exactly and the bytes
   within ``SAMPLED_BYTES_TOL`` in a train step of reduced jamba and xLSTM
   (the sums of a gradient across positions run in the context of the
-  position that arrives second, so one position's worth goes unscaled).
+  position that arrives second, so one position's worth goes unscaled);
+  at S = 256 and 1024 (one scan layer) the bytes and the transient
+  memory within ``SAMPLED_BYTES_TOL`` too (the storages a sampled scan
+  leaves alive counted for the positions not run); a train step's bytes
+  at S = 1024 within 4.5x of S = 256's (the scans' backward linear).
   Over real tensors a sampler changes nothing: every iteration runs and
   the answer is bit-equal; a mode that samples refuses a real operand.
 * On one device the port's ``flops_dot`` against the reference's
@@ -41,7 +45,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
-from torch.utils._pytree import tree_map  # noqa: E402
+from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro.configs import base as ref_base  # noqa: E402
 from repro.launch.train import reduced_config as ref_reduced  # noqa: E402
@@ -340,6 +344,71 @@ def test_sampled_scan_counts_a_train_step(arch):
     print(f"{arch}: sampled train step bytes {share:.4f} from the whole "
           f"scan's, FLOPs {samp['flops_dot'] / full['flops_dot'] - 1:.2e}")
     assert share < SAMPLED_BYTES_TOL
+
+
+def _train_trace(cfg, S, sample=None, remat=False):
+    """``cfg``'s train step (bf16, B = 2) on the meta device at sequence
+    length ``S``: the counting mode's stats with ``transient``, the
+    ``LiveBytes`` peak less the arguments."""
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    tok = torch.randint(1, cfg.vocab_size, (2, S))
+    loss_fn = port_model.build_loss_fn(cfg, RunFlags(remat=remat))
+    params, batch = tree_map(lambda t: t.to("meta"), (
+        port_model.init_params(cfg, 0, "cpu"), {"tokens": tok, "labels": tok}))
+    mem = counting.LiveBytes()
+    for t in tree_leaves((params, batch)):
+        mem.hold(t)
+    args = mem.current
+    mode = counting.CountingMode(memory=mem)
+    with mode, (counting.sample_loops(mode, sample) if sample
+                else contextlib.nullcontext()):
+        value_and_grad(loss_fn, params, batch)
+    return dict(mode.stats(), transient=mem.peak - args)
+
+
+def _one_mixer(arch):
+    """Reduced ``arch`` cut to one layer of its scan's mixer (Mamba; mLSTM),
+    without Engram: a whole trace at S = 1024 in seconds."""
+    cfg = reduced_config(arch)
+    i = cfg.layer_types.index("mamba" if arch.startswith("jamba")
+                              else "mlstm")
+    return dataclasses.replace(
+        cfg, n_layers=1, layer_types=cfg.layer_types[i:i + 1],
+        ffn_types=cfg.ffn_types[i:i + 1], attn_kinds=cfg.attn_kinds[i:i + 1],
+        engram=None)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+@pytest.mark.parametrize("S", [256, 1024])
+def test_sampled_scan_counts_a_long_train_step(arch, S):
+    """At S = 256 and 1024 a train step's sampled trace counts the whole
+    trace's bytes, and its transient memory (peak less arguments), within
+    ``SAMPLED_BYTES_TOL``: the storages a sampled scan leaves alive (the
+    states autograd keeps, one set per position) are counted for the
+    positions not run. (A remat period's recompute in the backward is
+    counted as run: ``launch.dryrun`` says so in the record.)"""
+    cfg = _one_mixer(arch)
+    full = _train_trace(cfg, S)
+    samp = _train_trace(cfg, S, sample=4)
+    assert samp["sampled_loops"] > 0 and full["sampled_loops"] == 0
+    for key in ("bytes_accessed", "transient"):
+        share = abs(samp[key] / full[key] - 1)
+        print(f"{arch} S={S}: sampled {key} {share:.2e} from the whole's")
+        assert share < SAMPLED_BYTES_TOL, key
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_scan_backward_bytes_grow_linearly(arch):
+    """Reduced ``arch``'s train step (remat) counts within 4.5x the bytes at
+    S = 1024 that it counts at S = 256: the scans' backward is linear in
+    the sequence length (each input is unbound into its positions once, so
+    one backward stacks their gradients)."""
+    cfg = reduced_config(arch)
+    ratio = _train_trace(cfg, 1024, sample=4, remat=True)[
+        "bytes_accessed"] / _train_trace(cfg, 256, sample=4, remat=True)[
+            "bytes_accessed"]
+    print(f"{arch}: bytes at S=1024 over S=256: {ratio:.3f}")
+    assert ratio < 4.5
 
 
 @pytest.fixture(scope="module")

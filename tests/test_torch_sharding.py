@@ -116,20 +116,25 @@ def test_params_logical_axes_match_reference(arch, size):
 
 
 def test_mesh_logical_axes_keep_only_blockwise_leaves():
-    """The tables, the routed experts and the untied embedding keep their
-    axes; every other leaf is whole (all None)."""
+    """The port's mesh layout is the reference's ``params_logical_axes``
+    but for the leaves of ``WHOLE_LEAVES`` (each Engram layer's ``proj``,
+    which K2 reads whole): the dense weights, the head, the embedding, the
+    tables and the routed experts keep their axes."""
     cfg = deepseek_v3_671b.reduced()
     full = port_model.params_logical_axes(cfg)
     kept = port_model.mesh_logical_axes(cfg)
     assert kept["embed"] == full["embed"]
-    assert kept["head"] == {"w": (None, None)}
+    assert kept["head"] == full["head"] == {"w": (None, "vocab")}
     for got, want in zip(kept["engram"]["layers"], full["engram"]["layers"]):
         assert got["tables"] == want["tables"] == (None, "eng_vocab", None)
-        assert got["proj"] == (None, None)
+        assert got["proj"] == (None, None) and want["proj"] == (
+            "eng_emb", None)
+        got["proj"] = want["proj"]
+    assert kept == full
     ffn = kept["segments"][1][0]["ffn"]
     assert ffn["w_gu"] == ffn["w_down"] == ("experts", None, None)
-    assert ffn["shared"]["gate"] == (None, None)
-    assert kept["segments"][0][0]["mixer"]["wuq"] == (None, None)
+    assert ffn["shared"]["gate"] == (None, "ffn")
+    assert kept["segments"][0][0]["mixer"]["wuq"] == (None, "heads")
 
 
 @pytest.mark.parametrize("mesh", [((2, 4), ("data", "model")),
@@ -198,3 +203,60 @@ def test_make_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="process group"):
         port_mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m"])
+def test_fused_leaves_take_each_parts_block(arch, tmp_path):
+    """A fused leaf (Mamba's ``in_proj`` [x | z], mLSTM's ``up``, sLSTM's
+    ``ff_up``) is split part by part: on each rank of a (2, 4) mesh its
+    block is the rank's block of each part side by side, of the
+    reference's block shape; ``from_jax(block=)``, ``init_params(block=)``
+    and ``Checkpointer.restore(block=)`` give the rank the same blocks as
+    ``local_params`` of the whole tree."""
+    import numpy as np
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.params import from_jax, tree_paths
+    cfg = reduced_config(arch)
+    rcfg = ref_reduced(arch)
+    np_tree = jax.tree.map(np.asarray, ref_model.init_params(rcfg, 0))
+    whole = from_jax(np_tree, cfg, "cpu")
+    drawn = port_model.init_params(cfg, 0, "cpu")
+    axes = port_model.mesh_logical_axes(cfg)
+    flat_axes = dict(tree_paths(axes, is_leaf=lambda x: isinstance(
+        x, tuple)))
+    fused = {p: a for p, a in flat_axes.items()
+             if isinstance(a, rules.Fused)}
+    assert fused and all(a.parts == 2 for a in fused.values())
+    ckpt = Checkpointer(tmp_path, async_write=False)
+    ckpt.save(1, whole)
+    for coords in itertools.product(range(2), range(4)):
+        mesh = rules.Mesh.of((2, 4), ("data", "model"),
+                             coords=dict(zip(("data", "model"), coords)))
+        with rules.sharding_ctx(mesh) as ctx:
+            mine = dict(tree_paths(rules.local_params(whole, axes, ctx)))
+            bridged = dict(tree_paths(from_jax(np_tree, cfg, "cpu",
+                                               block=axes)))
+            blocks = dict(tree_paths(port_model.init_params(
+                cfg, 0, "cpu", block=axes)))
+            ref_drawn = dict(tree_paths(rules.local_params(drawn, axes,
+                                                           ctx)))
+            restored = dict(tree_paths(ckpt.restore(1, whole, "cpu",
+                                                    block=axes)))
+        full = dict(tree_paths(whole))
+        split = 0
+        for p, a in fused.items():
+            t, n = full[p], 4
+            if not ctx.spec_for(tuple(t.shape), a):   # 2f = 170 over 4
+                assert torch.equal(mine[p], t), p
+                continue
+            split += 1
+            parts = [q.chunk(n, a.dim)[coords[1]]
+                     for q in t.chunk(a.parts, a.dim)]
+            assert torch.equal(mine[p], torch.cat(parts, a.dim)), p
+            assert tuple(mine[p].shape) == ctx.block_shape(tuple(t.shape),
+                                                           a)
+        assert split > 0
+        for p in mine:
+            assert torch.equal(bridged[p], mine[p]), p
+            assert torch.equal(restored[p], mine[p]), p
+            assert torch.equal(blocks[p], ref_drawn[p]), p

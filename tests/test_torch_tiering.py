@@ -291,7 +291,7 @@ def test_crc32_keys_pinned_and_equal_to_zlib():
         [1, 3, 0, 2, 3, 1, 2, 0, 0, 2, 1, 3, 2, 0, 3, 1]
 
 
-@settings(max_examples=25)
+@settings(max_examples=25, deadline=None)
 @given(st.lists(st.integers(min_value=-(2**62), max_value=2**62),
                 min_size=1, max_size=64),
        st.integers(min_value=1, max_value=7))

@@ -4,10 +4,11 @@ a (2, 4) ("data", "model") mesh over gloo, on the CPU.
     start_processes(rank_main, args=(world, init, inputs, out_dir), ...)
 
 Each rank loads the inputs (``torch.save``d whole tensors), takes its
-blocks (``sharding.rules``), runs every mesh path of the port under the
-mesh, the compressed data-parallel train step on an (8,) mesh and the
-elastic checkpoint (saved from an (8,) mesh, restored onto a (2, 4) one),
-the sharded train steps (gradients gathered whole), each differentiable
+blocks (``sharding.rules``: the reference's layout), runs every mesh path
+of the port under the mesh, the layout models' forwards, the compressed
+data-parallel train step on an (8,) mesh and the elastic checkpoint
+(saved from an (8,) mesh, restored onto a (2, 4) one), the sharded train
+steps (gradients gathered whole), each differentiable
 collective's gradient, the embedding's, and the mesh trainer (a crash
 and restart; its checkpoint restored onto an (8,) mesh), and saves what
 it holds to ``out_dir/rank<r>.pt``. Then ranks 0 and 1 run the training
@@ -88,6 +89,51 @@ def _model(ctx, inp, out, strategy: str):
         logits, state = decode(params, state, logits.argmax(-1))
         all_logits.append(logits)
     out[f"model/{strategy}"] = torch.stack(all_logits, dim=1)
+
+
+LAYOUT_FLAGS = dict(engram_strategy="pooled", moe_strategy="alltoall")
+
+
+def _layout(ctx, inp, out):
+    """Each layout model's prefill and greedy decode on the rank's blocks
+    of ``mesh_logical_axes`` (the reference's layout), with the shapes of
+    its parameter blocks and of its decode state's blocks after the
+    prefill, and the leaves its blocks do not gather back into."""
+    from repro_torch.models.model import (build_decode_step,
+                                          build_prefill_step,
+                                          mesh_logical_axes)
+    from repro_torch.models.params import tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.rules import local_params
+    for arch in inp["layout_archs"]:
+        cfg = inp[f"layout_cfg/{arch}"]
+        params = local_params(inp[f"layout_params/{arch}"],
+                              mesh_logical_axes(cfg), ctx)
+        flags = RunFlags(**LAYOUT_FLAGS)
+        toks = ctx.block(inp[f"layout_toks/{arch}"], ("batch", None))
+        steps = inp["decode_steps"]
+        logits, state = build_prefill_step(cfg, flags, toks.shape[1] + steps)(
+            params, {"tokens": toks})
+        out[f"layout_state/{arch}"] = {k: tuple(t.shape)
+                                       for k, t in tree_paths(state)}
+        out[f"layout_params/{arch}"] = {k: tuple(t.shape)
+                                        for k, t in tree_paths(params)}
+        # the blocks gathered whole (a checkpoint's save), fused parts
+        # put back in order
+        whole = dict(tree_paths(inp[f"layout_params/{arch}"]))
+        axes = dict(tree_paths(mesh_logical_axes(cfg),
+                               is_leaf=lambda x: isinstance(x, tuple)))
+        out[f"layout_gather/{arch}"] = [
+            k for k, t in tree_paths(params) if not torch.equal(
+                coll.gather_block(t, tuple(whole[k].shape), axes[k]),
+                whole[k])]
+        decode = build_decode_step(cfg, flags)
+        all_logits = [logits]
+        for _ in range(steps):
+            logits, state = decode(params, state, logits.argmax(-1))
+            all_logits.append(logits)
+        out[f"layout/{arch}"] = torch.stack(all_logits, dim=1)
 
 
 DDP_STEPS = 8
@@ -238,9 +284,11 @@ def _train_step(ctx, inp, out, strategy: str):
     and every gradient (``build_grad_fn``), then one ``build_train_step``
     step at lr ``TRAIN_LR``: its loss, grad_norm and parameters."""
     from repro_torch.models.model import abstract_params
+    from repro_torch.models.params import tree_paths
     from repro_torch.models.transformer import RunFlags
     from repro_torch.train import (AdamWConfig, build_grad_fn,
-                                   build_train_step, init_opt_state)
+                                   build_train_step, init_opt_state,
+                                   opt_state_axes)
     cfg = inp["tr_cfg"]
     flags = RunFlags(engram_strategy=strategy)
     axes, params = _train_blocks(ctx, cfg, inp["tr_params"], flags)
@@ -250,10 +298,16 @@ def _train_step(ctx, inp, out, strategy: str):
     out[f"tr/{strategy}/grads"] = _gathered(grads, axes, like)
     step = build_train_step(cfg, flags, AdamWConfig(lr=TRAIN_LR,
                                                     warmup_steps=1), ctx=ctx)
-    p, _, m = step(params, init_opt_state(params), batch)
+    p, opt, m = step(params, init_opt_state(params, step.zero), batch)
     out[f"tr/{strategy}/step_loss"] = m["loss"]
     out[f"tr/{strategy}/gnorm"] = m["grad_norm"]
     out[f"tr/{strategy}/params"] = _gathered(p, axes, like)
+    mom_axes = opt_state_axes(axes)
+    for mom in ("m", "v"):
+        out[f"tr/{strategy}/{mom}"] = _gathered(opt[mom], mom_axes[mom],
+                                                like)
+        out[f"tr/{strategy}/{mom}_shapes"] = {
+            k: tuple(t.shape) for k, t in tree_paths(opt[mom])}
 
 
 def _ep_step(ctx, inp, out):
@@ -348,8 +402,8 @@ def _trainer(ctx, inp, out, out_dir):
     from repro_torch.models.transformer import RunFlags
     from repro_torch.sharding.rules import sharding_ctx
     from repro_torch.train import (AdamWConfig, TrainConfig,
-                                   abstract_opt_state, train,
-                                   train_with_restarts)
+                                   abstract_opt_state, opt_state_axes,
+                                   train, train_with_restarts)
     cfg = inp["tr_cfg"]
     tc = TrainConfig(steps=4, ckpt_every=2, log_every=100)
     dc = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=16, seed=0)
@@ -369,8 +423,7 @@ def _trainer(ctx, inp, out, out_dir):
     with sharding_ctx(mesh8):
         got = Checkpointer(os.path.join(out_dir, "crash")).restore(
             4, {"params": ab, "opt": abstract_opt_state(ab)}, "cpu",
-            block={"params": axes, "opt": {"m": axes, "v": axes,
-                                           "step": ()}})
+            block={"params": axes, "opt": opt_state_axes(axes)})
     out["trainer/restored8"] = got["params"]
     out["trainer/index8"] = mesh8.index(("data",))
 
@@ -404,6 +457,7 @@ def rank_main(rank: int, world: int, init: str, inputs: str, out_dir: str):
             for part in (_engram, _moe, _embed):
                 part(ctx, inp, out)
             _model(ctx, inp, out, "pooled")
+            _layout(ctx, inp, out)
             _collective_grads(ctx, out)
             _embed_grad(ctx, inp, out)
             for strategy in ("pooled", "tp"):

@@ -110,11 +110,14 @@ def train_case(out, name, cfg, flags, params, batch, mesh, step: bool):
     for i, leaf in enumerate(jax.tree.leaves(grads)):
         out[f"{name}/g{i}"] = np.asarray(leaf)
     if step:
-        p, _, m = adam(params, grads)
+        p, st, m = adam(params, grads)
         gn = float(m["grad_norm"])
         out[f"{name}/gnorm"] = np.asarray(gn)
         for i, leaf in enumerate(jax.tree.leaves(p)):
             out[f"{name}/p{i}"] = np.asarray(leaf)
+        for mom in ("m", "v"):
+            for i, leaf in enumerate(jax.tree.leaves(st[mom])):
+                out[f"{name}/{mom}{i}"] = np.asarray(leaf)
         for pw, gw in zip(moved, moved_g):
             p_w, _, m_w = adam(pw, gw)
             wit["g"].append(_share(gw, grads))
@@ -167,13 +170,48 @@ def model_cfg():
         cfg.moe, capacity_factor=8.0))
 
 
+# the reduced configs of the mesh-layout forwards: dense GQA with its KV
+# heads whole on the model axis (engram-27b) and split (deepseek-7b),
+# jamba and xLSTM, each vocabulary rounded up to a multiple of 4 so that
+# the model axis splits the embedding and the head
+LAYOUT_ARCHS = ("engram-27b", "deepseek-7b", "jamba-1.5-large-398b",
+                "xlstm-125m")
+LAYOUT_FLAGS = dict(engram_strategy="pooled", moe_strategy="alltoall")
+
+
+def layout_cfg(arch: str):
+    """Reduced ``arch`` with its vocabulary rounded up to a multiple of 4
+    and, with MoE, a capacity factor at which nothing drops."""
+    from repro.launch.train import reduced_config
+    cfg = reduced_config(arch)
+    cfg = dataclasses.replace(cfg, vocab_size=-(-cfg.vocab_size // 4) * 4)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
+def layout_forwards(out, inp, mesh):
+    """Each ``LAYOUT_ARCHS`` model's prefill and greedy decode under the
+    mesh (``LAYOUT_FLAGS``)."""
+    with sharding_ctx(mesh), mesh:
+        for arch in LAYOUT_ARCHS:
+            out[f"layout/{arch}"] = greedy(RunFlags(**LAYOUT_FLAGS),
+                                           inp[f"layout_toks/{arch}"],
+                                           layout_cfg(arch))
+
+
 def main(inputs: str, out_path: str, part: str = "mesh") -> None:
-    """``part`` "mesh": every output but the train steps; "train": the
-    train steps alone (the test runs both at once)."""
+    """``part`` "mesh": every output but the train steps and the layout
+    forwards; "train": the train steps alone; "layout": the layout
+    forwards alone (the test runs the three at once)."""
     mesh = make_mesh((2, 4), ("data", "model"))
-    if part == "train":
+    if part in ("train", "layout"):
         out = {}
-        train_steps(out, mesh)
+        if part == "train":
+            train_steps(out, mesh)
+        else:
+            layout_forwards(out, dict(np.load(inputs)), mesh)
         np.savez(out_path, **out)
         return
     inp = dict(np.load(inputs))
@@ -234,10 +272,10 @@ def main(inputs: str, out_path: str, part: str = "mesh") -> None:
     np.savez(out_path, **out)
 
 
-def greedy(flags, toks):
-    """Reduced deepseek-v3's prefill logits, then DECODE_STEPS greedy
-    decode steps' (B, 1 + DECODE_STEPS, V)."""
-    cfg = model_cfg()
+def greedy(flags, toks, cfg=None):
+    """Reduced deepseek-v3's (or ``cfg``'s) prefill logits, then
+    DECODE_STEPS greedy decode steps' (B, 1 + DECODE_STEPS, V)."""
+    cfg = cfg or model_cfg()
     params = ref_model.init_params(cfg, 0)
     toks = jnp.asarray(toks)
     logits, state = jax.jit(ref_model.build_prefill_step(
