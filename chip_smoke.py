@@ -335,7 +335,14 @@ result lines are printed):
               equal to the reference's ``shard_shape`` bytes with
               ``whole_leaves`` whole, the ranks' peaks summed under 80
               GB; (c) a decode step's host-clock time on rank 0 and its
-              share in the gloo collectives, printed.
+              share in the gloo collectives, printed; (d) the ranks
+              again on the same weights under ``kv_seq`` over "model"
+              (the reference's flash-decode split of the KV sequence:
+              KV blocks of 12 of the 48 positions of all 8 KV heads,
+              (8, 12, 8, 128), the partial softmaxes combined over the
+              ranks): the logits by (a)'s rule, K1 and K2 on every
+              rank, the gap to (a), a step's time, collective share and
+              peaks printed.
 
 Phase 6 also runs reduced internvl2-1b like the other reduced configs,
 reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
@@ -5292,7 +5299,8 @@ class CollectiveClock:
     on: each call's host time from a synchronised device to its return
     (gloo stages CUDA tensors through the host, so the call returns with
     the data moved)."""
-    NAMES = ("_all_to_all", "_psum_", "_psum_scatter", "_gather_along")
+    NAMES = ("_all_to_all", "_psum_", "_pmax_", "_psum_scatter",
+             "_gather_along")
 
     def __init__(self, dev):
         from repro_torch.sharding import collectives as coll
@@ -5509,6 +5517,7 @@ MESH27 = ((1, 4), ("data", "model"))
 MESH27_STEPS = 8
 BF16_WITNESS_EPS = 2.0 ** -8     # one bf16 ulp, relative
 WITNESS_FLOOR27 = 1e-3
+MAX_LEN27 = 32 + MESH27_STEPS + 8   # the decode state's positions
 
 
 def prompt_batch(cfg):
@@ -5529,7 +5538,7 @@ def forced_run(cfg, params, toks, lens, stream, flags) -> list:
     import torch
     from repro_torch.models.model import build_decode_step, build_prefill_step
     dev = toks.device
-    logits, state = build_prefill_step(cfg, flags, 32 + MESH27_STEPS + 8)(
+    logits, state = build_prefill_step(cfg, flags, MAX_LEN27)(
         params, {"tokens": toks, "lengths": lens})
     out = [logits]
     decode = build_decode_step(cfg, flags)
@@ -5556,14 +5565,56 @@ def perturb_(params, seed: int, eps: float) -> None:
             part.copy_((part.float() * noise.mul_(eps).add_(1.0)).to(t.dtype))
 
 
+def rank_forced(cfg, params, job: dict, dev, flags) -> dict:
+    """One rank's teacher-forced run of phase 27 under the current mesh
+    context (``forced_run`` on ``job``'s prompts and stream), then three
+    decode steps timed on the host clock and one more with its
+    collectives timed (``CollectiveClock``): the logits, the kernels'
+    launches in the forced run, the shapes of the KV leaves it left, the
+    median step, the clocked step and its collectives, the peak."""
+    import torch
+    from repro_torch.models.model import build_decode_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, lens = job["toks"].to(dev), job["lens"].to(dev)
+    logits, state = forced_run(cfg, params, toks, lens, job["stream"],
+                               flags)
+    launches = read_launches()
+    kv = sorted({tuple(c[n].shape) for seg in state["caches"] for c in seg
+                 for n in ("k", "v")})
+    decode = build_decode_step(cfg, flags)
+    tok = logits[-1].argmax(-1)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = decode(params, state, tok)[0].argmax(-1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    with CollectiveClock(dev) as clock:
+        t1 = time.perf_counter()
+        decode(params, state, tok)[0].argmax(-1).cpu()
+        clock_s = time.perf_counter() - t1
+    return {"logits": torch.stack(logits, 1).cpu(), "launches": launches,
+            "kv_shapes": kv,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_s": sorted(times)[1], "clock_s": clock_s,
+            "coll_s": clock.s, "coll_n": clock.n}
+
+
+# phase 27(d): the reference's flash-decode rule, forced (engram-27b's 8
+# KV heads fill the model axis, so cell_rules would not set it)
+KV_SEQ27 = {"kv_seq": ("model",)}
+
+
 def mesh27_rank(rank: int, world: int, init: str, job: dict,
                 out_dir: str) -> None:
     """One rank of phase 27: the (1, 4) mesh over gloo; the rank's blocks
     of the seed-0 unit-gain draw (``unit_gain_params(block=
     mesh_logical_axes)``, the ranks drawing one after the other: each
     draws every whole leaf, an 11.6 GB table set among them); the
-    teacher-forced run; one more decode step with its collectives timed;
-    its bytes and peak."""
+    teacher-forced run and its timed steps (``rank_forced``), then (d)
+    the same under ``KV_SEQ27``; its bytes and peaks."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5590,35 +5641,14 @@ def mesh27_rank(rank: int, world: int, init: str, job: dict,
                     torch.cuda.empty_cache()
                 dist.barrier()
             draw_s = time.perf_counter() - t0
-            torch.cuda.reset_peak_memory_stats()
             flags = RunFlags()
-            reset_launches()
-            toks, lens = job["toks"].to(dev), job["lens"].to(dev)
-            logits, state = forced_run(cfg, params, toks, lens,
-                                       job["stream"], flags)
-            launches = read_launches()
-            from repro_torch.models.model import build_decode_step
-            decode = build_decode_step(cfg, flags)
-            tok = logits[-1].argmax(-1)
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                tok = decode(params, state, tok)[0].argmax(-1)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t1)
-            with CollectiveClock(dev) as clock:
-                t1 = time.perf_counter()
-                decode(params, state, tok)[0].argmax(-1).cpu()
-                clock_s = time.perf_counter() - t1
-            out = {"logits": torch.stack(logits, 1).cpu(),
-                   "launches": launches, "draw_s": draw_s,
-                   "param_bytes": sum(t.numel() * t.element_size()
-                                      for t in tree_leaves(params)),
-                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                   "step_s": sorted(times)[1], "clock_s": clock_s,
-                   "coll_s": clock.s, "coll_n": clock.n,
-                   "whole": ctx.mesh.coords}
+            out = rank_forced(cfg, params, job, dev, flags)
+            out.update(draw_s=draw_s, whole=ctx.mesh.coords,
+                       param_bytes=sum(t.numel() * t.element_size()
+                                       for t in tree_leaves(params)))
+        gc.collect()
+        with sharding_ctx(mesh, KV_SEQ27):
+            out["kv_seq"] = rank_forced(cfg, params, job, dev, flags)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         job.clear()
@@ -5650,7 +5680,16 @@ def mesh_layout_27b(dev, smi: str) -> dict:
     parameter bytes equal, to the byte, the reference's ``shard_shape``
     bytes with ``whole_leaves`` whole; the ranks' peaks summed under 80
     GB. (c) A decode step's host-clock time on rank 0 and its share in
-    the collectives (``CollectiveClock``), printed."""
+    the collectives (``CollectiveClock``), printed. (d) The ranks run
+    again on the same weights under ``KV_SEQ27``, the reference's
+    flash-decode split of the KV sequence over the model axis (each rank
+    12 of the 48 positions of all 8 KV heads: KV blocks (8, 12, 8, 128);
+    the last rank's block holds no valid key in the first steps; every
+    query head on every rank, the partial softmaxes combined by a pmax
+    and two psums a layer): the logits held to one process's by (a)'s
+    rule, greedy tokens equal past the margin, K1 and K2 launched on
+    every rank; the gap to (a)'s logits, a decode step's time and
+    collective share and each rank's peak printed."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
@@ -5718,6 +5757,42 @@ def mesh_layout_27b(dev, smi: str) -> dict:
     flips = (got.argmax(-1) != one.argmax(-1)) & sure
     check(not flips.any(), f"{label}: {int(flips.sum())} greedy tokens "
           f"differ where one process's top-2 margin exceeds {limit * top}")
+    # (d) kv_seq over the model axis, on the same weights
+    kvs = [r["kv_seq"] for r in ranks]
+    for r, kv in zip(ranks, kvs):
+        check(torch.equal(kv["logits"], kvs[0]["logits"]),
+              f"{label} (d): the ranks' logits differ")
+        check(kv["launches"]["engram_gather"] > 0 and
+              kv["launches"]["gated_fuse"] > 0,
+              f"{label} (d): rank {r['whole']} launched {kv['launches']}")
+        check(kv["kv_shapes"] == [(len(toks), MAX_LEN27 // world,
+                                   cfg.n_kv_heads, cfg.head_dim)],
+              f"{label} (d): rank {r['whole']} KV blocks {kv['kv_shapes']}")
+    got_kv = kvs[0]["logits"]
+    share_kv = (got_kv - one).abs().max().item() / top
+    gap_kv = (got_kv - got).abs().max().item() / top
+    check(share_kv <= limit, f"{label} (d): teacher-forced logits "
+          f"{share_kv:.3e} of the largest from one process's (limit "
+          f"{limit:.3e})")
+    flips_kv = (got_kv.argmax(-1) != one.argmax(-1)) & sure
+    check(not flips_kv.any(), f"{label} (d): {int(flips_kv.sum())} greedy "
+          f"tokens differ where one process's top-2 margin exceeds "
+          f"{limit * top}")
+    kv0 = kvs[0]
+    kv_coll_share = kv0["coll_s"] / kv0["clock_s"]
+    kv_peaks = [kv["peak_gb"] for kv in kvs]
+    print(f"{label} (d) kv_seq over model [{smi}]: KV blocks "
+          f"{kv0['kv_shapes'][0]} a rank (12 of 48 positions); K1 / K2 "
+          f"launches a rank {kv0['launches']['engram_gather']} / "
+          f"{kv0['launches']['gated_fuse']}; teacher-forced logits "
+          f"{share_kv:.3e} of the largest from one process's (limit "
+          f"{limit:.3e}), {gap_kv:.3e} from (a)'s; {int(sure.sum())} greedy "
+          f"tokens past the margin, all equal; a decode step (B = 8) "
+          f"{kv0['step_s'] * 1e3:.1f} ms host clock on rank 0 [{smi}], "
+          f"{100 * kv_coll_share:.1f} % of a step timed with its "
+          f"collectives ({kv0['clock_s'] * 1e3:.1f} ms) in {kv0['coll_n']} "
+          f"gloo collectives [{smi}]; peaks "
+          + " / ".join(f"{p:.2f}" for p in kv_peaks) + f" GB [{smi}]")
     # (b) bytes against the reference's layout
     ab = dict(tree_paths(abstract_params(cfg)))
     axes = dict(tree_paths(params_logical_axes(cfg),
@@ -5757,9 +5832,15 @@ def mesh_layout_27b(dev, smi: str) -> dict:
           f"{100 * coll_share:.1f} % of a step timed with its collectives "
           f"({r0['clock_s'] * 1e3:.1f} ms) in {r0['coll_n']} gloo "
           "collectives")
-    return dict(launches={k: sum(r["launches"][k] for r in ranks)
+    return dict(launches={k: sum(r["launches"][k] + r["kv_seq"][
+                    "launches"][k] for r in ranks)
                           for k in ranks[0]["launches"]},
                 share=share, limit=limit, witnesses=wit,
+                kv_seq=dict(share=share_kv, gap_to_a=gap_kv,
+                            kv_block=kv0["kv_shapes"][0],
+                            step_ms=kv0["step_s"] * 1e3,
+                            collective_share=kv_coll_share,
+                            peak_gb=kv_peaks),
                 param_bytes=want, ref_shard_bytes=ref_bytes,
                 whole_leaves=held, peak_gb=peaks,
                 step_ms=r0["step_s"] * 1e3, collective_share=coll_share,

@@ -54,8 +54,14 @@ as run, so that cell's ``peak_bytes_est`` is an estimate whose backward
 part may be low.
 
 ``cell_rules``' ``kv_seq`` (the reference's flash-decode layout, a GSPMD
-sharding of the KV cache's sequence) is not mirrored: it is listed under
-``unmirrored`` and not applied. ``zero1=True`` (the reference's ZeRO-1
+sharding of the KV cache's sequence) is applied: the decode state's KV
+leaves hold the rank's block of the sequence and decode combines the
+ranks' partial softmaxes (``models.attention.split_softmax``: a ``pmax``
+and two ``psum`` a layer over the rule's axes). The steps run under
+``effective_rules``: ``kv_seq`` cut to the axes the cell's KV leaves
+resolve it to after the batch, as the reference's ``spec_for`` does (a
+rank's step sees its share of the batch, not the whole). ``unmirrored``
+stays in the record, empty. ``zero1=True`` (the reference's ZeRO-1
 gradient constraint) is recorded: the port's train step always lays its
 gradients and moments out so. ``unroll`` is recorded, and changes
 nothing (the port runs layer by layer either way). The recurrent
@@ -82,7 +88,7 @@ from ..models.params import tree_leaves
 from ..models.transformer import RunFlags
 from ..roofline.analysis import model_flops
 from ..roofline.counting import CountingMode, LiveBytes, sample_loops
-from ..sharding.rules import sharding_ctx
+from ..sharding.rules import DEFAULT_RULES, ShardCtx, sharding_ctx
 from ..train.loop import build_train_step
 from ..train.optimizer import AdamWConfig, init_opt_state
 from .mesh import make_production_mesh
@@ -94,8 +100,8 @@ RECORD_VERSION = 2
 # the reference's keys that have no counterpart here (module docstring)
 NO_COUNTERPART = ("compile_s", "hlo_chars", "cost.transcendentals",
                   "memory.alias_bytes")
-# cell rules the port does not mirror: recorded, not applied
-UNMIRRORED = ("kv_seq",)
+# cell rules the port does not mirror: recorded, not applied (none)
+UNMIRRORED = ()
 # iterations of a sampled loop the trace runs after the first, scaled to
 # the rest (``roofline.counting.sample_loops``)
 LOOP_SAMPLE = 4
@@ -121,6 +127,27 @@ def cell_rules(cfg, shape, mesh, optimized: bool = False) -> dict:
         if not kv_heads_fill and "kv_seq" not in rules:
             rules["kv_seq"] = ("model",)
     return rules
+
+
+def effective_rules(rules: dict, mesh, shape) -> dict:
+    """``rules`` as a cell's state resolves them: ``kv_seq`` cut to the
+    mesh axes the KV leaves' sequence takes after their batch dim (the
+    reference resolves a leaf's dims in order and drops an axis an
+    earlier dim took or the length does not divide, so the rule can do
+    nothing), and off outside decode (the reference's prefill returns
+    its caches without it)."""
+    if not rules.get("kv_seq"):
+        return dict(rules)
+    out = dict(rules)
+    out["kv_seq"] = ()
+    if shape.kind == "decode":
+        ctx = ShardCtx(mesh, {**DEFAULT_RULES, **rules})
+        spec = ctx.spec_for((shape.global_batch, shape.seq_len),
+                            ("batch", "kv_seq"))
+        if len(spec) > 1:
+            out["kv_seq"] = (spec[1],) if isinstance(spec[1], str) \
+                else tuple(spec[1])
+    return out
 
 
 def build_step(cfg, shape, flags, zero1: bool = False, ctx=None):
@@ -188,7 +215,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec["optimized"] = optimized
     rec["rules"] = {k: list(v) for k, v in rules.items()}
     rec["unmirrored"] = [k for k in rules if k in UNMIRRORED]
-    applied = {k: v for k, v in rules.items() if k not in UNMIRRORED}
+    applied = effective_rules({k: v for k, v in rules.items()
+                               if k not in UNMIRRORED}, mesh, shape)
     t0 = time.time()
     try:
         with sharding_ctx(mesh, applied) as ctx:
@@ -273,8 +301,7 @@ def main(argv=None) -> int:
                     choices=[None, "local", "tp", "pooled"], nargs="?")
     ap.add_argument("--optimized", action="store_true",
                     help="the reference's production flags (bf16 scores, "
-                         "xent remat, kv_seq predicate: recorded, not "
-                         "mirrored)")
+                         "xent remat, the kv_seq predicate)")
     ap.add_argument("--device", default="cuda",
                     choices=["cuda", "meta", "cpu"],
                     help="fake tensors on the card's path (cuda, meta) or "

@@ -34,16 +34,34 @@ whole). A projection whose block does not fall on a head's boundary (the
 divisibility fallback splits the reference's ``hq * hd`` columns, not its
 heads) is gathered whole first (``layers.tp_cols``); query heads that do
 not start a KV group attend their KV heads expanded one per query head.
+
+``kv_seq`` (the reference's flash-decode layout, a rule that maps the
+logical axis to mesh axes) splits a KV leaf's sequence: a rank's cache
+block holds ``max_len / n`` positions (``kv_split``, ``kv_seq_block``),
+its KV heads resolved after the sequence as the reference's ``spec_for``
+resolves a leaf's axes (whole when ``kv_seq`` takes their axis). Decode
+then attends the rank's positions and combines the partial softmaxes in
+GSPMD's two-pass order (``split_softmax``: the max, then the sums, then
+the weighted values, each summed over the sequence's axes). Where the
+sequence shares an axis with the query heads ("model"), every rank
+computes every head (``HeadPlan`` over all heads, the projections
+gathered whole) and keeps its rows of ``wo``. The reference resolves the
+batch before ``kv_seq``, so the rule takes an axis only where the whole
+batch does not fill it (``launch.dryrun.cell_rules`` sets it over "data"
+just then); a rank's step sees its share of the batch, not the whole, so
+the port takes ``kv_seq``'s axes as they resolve and leaves the batch
+whole on them (``launch.dryrun.effective_rules`` cuts a rule to what a
+cell's state resolves first).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from ..configs.base import ModelConfig
-import dataclasses
-
+from ..sharding import collectives as coll
 from ..sharding.rules import current_ctx
 from .layers import (apply_rope, mesh_blocks, rmsnorm, row_psum, softcap,
                      tp_cols)
@@ -106,23 +124,56 @@ def head_range(rows: tuple, width: int, total: int) -> tuple:
     return start // width, -(-(start + size) // width)
 
 
-def cache_heads(n_kv: int) -> tuple:
-    """[c0, c1): the KV heads of a rank's cache block, the reference's
-    state layout (split over "kv_heads" where it divides them)."""
+# a KV leaf's logical axes (``launch.specs``' state layout for k and v)
+KV_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+def kv_split(n_kv: int = 1) -> tuple:
+    """(seq, c0, c1): the mesh axes a rank's cache block splits the
+    sequence over (``kv_seq``'s; ``()`` without the rule or a context)
+    and the KV heads [c0, c1) of its block, resolved after the sequence
+    as ``spec_for`` resolves ``KV_AXES`` (split over "kv_heads" where the
+    axis divides them and ``kv_seq`` did not take it). The batch takes
+    none of ``kv_seq``'s axes (module docstring)."""
     ctx = current_ctx()
     if ctx is None:
-        return 0, n_kv
-    start, size, _ = ctx.dim_block((n_kv,), ("kv_heads",), 0)
-    return start, start + size
+        return (), 0, n_kv
+    shape = (1, ctx.axis_prod(ctx.resolve("kv_seq")), n_kv, 1)
+    seq = ctx.dim_block(shape, KV_AXES, 1)[2]
+    start, size, _ = ctx.dim_block(shape, KV_AXES, 2)
+    return seq, start, start + size
 
 
-def _head_plan(cfg: ModelConfig, split) -> HeadPlan:
+def kv_seq_block(max_len: int, seq: tuple) -> tuple:
+    """(start, size): the positions of ``max_len`` a rank's cache block
+    holds when the sequence is split over ``seq`` (``kv_split``)."""
+    if not seq:
+        return 0, max_len
+    ctx = current_ctx()
+    n = ctx.axis_prod(seq)
+    if max_len % n:
+        raise ValueError(f"kv_seq over {seq} ({n} ranks) does not divide "
+                         f"max_len {max_len} (the reference drops the "
+                         f"axis: take the rule off)")
+    return seq_start(max_len // n, seq), max_len // n
+
+
+def seq_start(size: int, seq: tuple) -> int:
+    """The first position of a rank's ``kv_seq`` block of ``size``
+    positions (0 when the sequence is whole)."""
+    return current_ctx().mesh.index(seq) * size if seq else 0
+
+
+def _head_plan(cfg: ModelConfig, split, seq: tuple = ()) -> HeadPlan:
+    """The rank's ``HeadPlan``; every query head where the KV sequence is
+    split over an axis the heads are split over (``seq``)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = hq // hkv
     rows = split("wo", 0)
-    h0, h1 = head_range(rows, hd, hq)
+    h0, h1 = (0, hq) if set(rows[2]) & set(seq) else \
+        head_range(rows, hd, hq)
     k0, k1 = h0 // g, -(-h1 // g)
-    c0, c1 = cache_heads(hkv)
+    _, c0, c1 = kv_split(hkv)
     if not (c0 <= k0 and k1 <= c1):
         raise ValueError(f"query heads [{h0}, {h1}) read KV heads [{k0}, "
                          f"{k1}) outside the cache block [{c0}, {c1})")
@@ -177,10 +228,39 @@ def f32_bmm(a, b):
     return torch.bmm(a, b, out_dtype=torch.float32)
 
 
-def _sdpa(cfg: ModelConfig, q, k, v, mask, bf16_scores: bool = False):
+def split_softmax(scores, valid, seq: tuple, value):
+    """The reference's softmax over keys split over the ranks of ``seq``
+    (GSPMD's order, not the online softmax's rescaling): the rank's f32
+    ``scores`` (..., K) masked by ``valid`` with ``NEG_INF``, the max
+    over every rank's keys (``pmax``), ``p = exp(s - M)``, the sum over
+    every rank's (``psum``), then ``value(p / L)`` (the rank's partial
+    product with its values, summed in f32) summed over the ranks. A rank
+    with no valid key weighs exp(NEG_INF - M) = 0 and adds nothing."""
+    s = torch.where(valid, scores, NEG_INF)
+    m = coll.pmax(s.amax(dim=-1, keepdim=True), seq)
+    p = torch.exp(s - m)
+    denom = coll.psum(p.sum(dim=-1, keepdim=True), seq)
+    return coll.psum(value(p / denom), seq)
+
+
+def _pv(p, v):
+    """p (B,Hkv,g,Q,K) @ v (B,K,Hkv,D) -> (B,Q,Hkv,g,D), summed in f32."""
+    if v.dtype == torch.float32:
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    B, hkv, g, Q, K = p.shape
+    out = f32_bmm(p.reshape(B * hkv, g * Q, K),
+                  v.permute(0, 2, 1, 3).reshape(B * hkv, K, v.shape[-1]))
+    return out.view(B, hkv, g, Q, -1).permute(0, 3, 1, 2, 4)
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask, bf16_scores: bool = False,
+          seq: tuple = ()):
     """Dense grouped attention. q: (B,Q,Hq,D) k/v: (B,K,Hkv,D), mask
     broadcastable to (B,Q,K). ``bf16_scores``: the score product from q
-    and k in their own dtype, summed in f32 (``f32_bmm``)."""
+    and k in their own dtype, summed in f32 (``f32_bmm``). ``seq``: the
+    keys are the rank's block of a sequence split over those mesh axes
+    (``split_softmax``; the weights cast to the values' dtype where the
+    reference casts them, the combined output too)."""
     B, Q, hq, hd = q.shape
     K, hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
@@ -197,6 +277,10 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask, bf16_scores: bool = False):
     scores = softcap(scores, cfg.attn_logit_softcap)
     while mask.ndim < scores.ndim:
         mask = mask[:, None]
+    if seq:
+        out = split_softmax(scores, mask, seq,
+                            lambda p: _pv(p.to(v.dtype), v)).to(v.dtype)
+        return out.reshape(B, Q, hq, hd_v)
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
@@ -217,6 +301,10 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
     padded key positions are 2**30: the causal mask excludes them, and
     without it a validity mask over the real keys does. (The reference's
     non-causal path lets them into the softmax, ROADMAP F12.)
+
+    q, k and v are split into their blocks once (``torch.split``), so a
+    backward assembles each one's gradient once, not a whole-size zero
+    gradient per block pair.
     """
     B, S, hq, hd = q.shape
     hkv, hd_v = k.shape[2], v.shape[-1]
@@ -233,10 +321,13 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
         kpos = torch.cat([kpos, kpos.new_full((pad_k,), 2 ** 30)])
     scale = 1.0 / math.sqrt(hd)
+    q_blocks = torch.split(q, q_chunk, dim=1)
+    k_blocks = torch.split(k, kv_chunk, dim=1)
+    v_blocks = torch.split(v, kv_chunk, dim=1)
     outs = []
     for i in range(nq):
         qs = slice(i * q_chunk, (i + 1) * q_chunk)
-        qi = q[:, qs].reshape(B, q_chunk, hkv, g, hd).float()
+        qi = q_blocks[i].reshape(B, q_chunk, hkv, g, hd).float()
         # the causal KV frontier of this q chunk, and the window's
         hi = min(nk, -(-((i + 1) * q_chunk) // kv_chunk)) if causal else nk
         lo = max(0, (i * q_chunk - window) // kv_chunk) if window > 0 else 0
@@ -247,7 +338,7 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
         for j in trips(lo, hi, q):
             ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
-                             k[:, ks].float()) * scale
+                             k_blocks[j].float()) * scale
             s = softcap(s, cfg.attn_logit_softcap)
             valid = _mask(qpos[qs], kpos[ks], causal=causal, window=window)
             if not causal:
@@ -258,7 +349,7 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
             p = torch.exp(s - m_new[..., None])
             l_run = l_run * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, v[:, ks].float())
+                "bhgqk,bkhd->bhgqd", p, v_blocks[j].float())
             m_run = m_new
         out_i = acc / l_run[..., None].clamp(min=1e-20)
         outs.append(out_i.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, hq,
@@ -269,13 +360,14 @@ def _chunk_attn(cfg: ModelConfig, q, k, v, qpos, kpos, *,
 _chunk_attn.window_skipped = 0
 
 
-def mesh_layer(cfg: ModelConfig, params):
+def mesh_layer(cfg: ModelConfig, params, seq: tuple = ()):
     """(params, plan): under a sharding context the rank's blocks of the
-    layer's weights and its ``HeadPlan``; without one (params, None)."""
+    layer's weights and its ``HeadPlan`` (``seq``: the axes decode's KV
+    sequence is split over); without one (params, None)."""
     if current_ctx() is None:
         return params, None
     params, split = mesh_blocks(params, attn_defs(cfg, "float32"))
-    return params, _head_plan(cfg, split)
+    return params, _head_plan(cfg, split, seq)
 
 
 def kv_for_queries(plan, g: int, k, v):
@@ -334,56 +426,79 @@ def attention(cfg: ModelConfig, params, h, positions, kind: str = "global",
     return _out(plan, params["wo"], out, cfg.head_dim), {"k": k, "v": v}
 
 
+def write_rows(cache, new, positions, seq: tuple = ()):
+    """Write ``new`` (B, ...) into ``cache`` (B, S, ...) in place, row b at
+    position ``positions[b]``, clamped to the last position (the
+    reference's dynamic_update_slice clamps). With ``seq`` the cache is
+    the rank's ``kv_seq`` block of n * S positions: only the block that
+    holds the clamped position takes the row, the others write back what
+    they hold. Device indices, no sync."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    new = new.to(cache.dtype)
+    if not seq:
+        cache[rows, positions.clamp(0, S - 1)] = new
+        return
+    at = positions.clamp(0, current_ctx().axis_prod(seq) * S - 1) - \
+        seq_start(S, seq)
+    own = ((at >= 0) & (at < S)).view((B,) + (1,) * (new.dim() - 1))
+    at = at.clamp(0, S - 1)
+    cache[rows, at] = torch.where(own, new, cache[rows, at])
+
+
 def decode_attention(cfg: ModelConfig, params, h, cache, positions,
                      kind: str = "global", *, bf16_scores: bool = False,
                      window_slice: bool = False):
     """Single-token decode. h (B,1,d); cache {k,v}: (B,Smax,Hkv,D), under
-    a sharding context the rank's block of the KV heads; positions (B,)
+    a sharding context the rank's block (its KV heads, and under
+    ``kv_seq`` its positions: the module docstring); positions (B,)
     current index per sequence. Returns (out, cache).
 
     The new k/v rows are written INTO ``cache`` at each row's position
-    (clamped to the last row, as the reference's dynamic_update_slice
-    clamps): an in-place scatter instead of the reference's functional copy
-    of the whole cache per layer per step.
+    (``write_rows``): an in-place scatter instead of the reference's
+    functional copy of the whole cache per layer per step.
 
     ``window_slice``: a ``local`` layer attends a gathered window-sized
     slice of the cache (rows ``start .. start + w - 1``, ``start`` clamped
     into the cache) instead of masking the whole context; the gather's
-    indices stay on the device. ``bf16_scores``: see ``_sdpa``."""
+    indices stay on the device. Under ``kv_seq`` it takes the masked
+    route over the rank's block (the same keys valid, the masked ones
+    weighing 0). ``bf16_scores``: see ``_sdpa``."""
     B = h.shape[0]
-    params, plan = mesh_layer(cfg, params)
+    seq = kv_split()[0]
+    params, plan = mesh_layer(cfg, params, seq)
     q, k, v = _qkv(cfg, params, h, positions[:, None], kind, plan)
 
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[1]
-    rows = torch.arange(B, device=h.device)
-    at = positions.clamp(0, S - 1)
-    kc[rows, at] = k[:, 0].to(kc.dtype)
-    vc[rows, at] = v[:, 0].to(vc.dtype)
+    write_rows(kc, k[:, 0], positions, seq)
+    write_rows(vc, v[:, 0], positions, seq)
 
     window = _window(cfg, kind)
-    if window_slice and 0 < window < S:
+    if window_slice and 0 < window < S and not seq:
+        rows = torch.arange(B, device=h.device)
         start = (positions - (window - 1)).clamp(0, S - window)
         kpos = start[:, None] + torch.arange(window, device=h.device)
         k_att, v_att = kc[rows[:, None], kpos], vc[rows[:, None], kpos]
         valid = kpos <= positions[:, None]         # window via the slice
     else:
         k_att, v_att = kc, vc
-        kpos = torch.arange(S, device=h.device)[None]       # (1, S)
+        kpos = seq_start(S, seq) + torch.arange(S, device=h.device)[None]
         valid = kpos <= positions[:, None]
         if window > 0:
             valid &= kpos > positions[:, None] - window
     k_att, v_att = kv_for_queries(plan, cfg.n_heads // cfg.n_kv_heads,
                                   k_att, v_att)
-    out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :], bf16_scores)
+    out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :], bf16_scores, seq)
     return _out(plan, params["wo"], out, cfg.head_dim), cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device) -> dict:
     """Zero k/v caches (batch, max_len, Hkv, D): under a sharding context
-    the rank's block of the KV heads (``cache_heads``)."""
-    c0, c1 = cache_heads(cfg.n_kv_heads)
-    shape = (batch, max_len, c1 - c0, cfg.head_dim)
+    the rank's block (``kv_split``: its KV heads, and under ``kv_seq`` its
+    ``max_len / n`` positions)."""
+    seq, c0, c1 = kv_split(cfg.n_kv_heads)
+    shape = (batch, kv_seq_block(max_len, seq)[1], c1 - c0, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -17,8 +17,12 @@ latent output, where the f32 path reads an f32 copy of it.
 Under a sharding context the layer runs on the rank's heads, as GQA's
 does (``attention.out_proj``, ``layers.tp_cols``): ``wuq``, ``wuk`` and
 ``wuv`` are column-parallel over "heads" and ``wo`` row-parallel with a
-``psum``; the latents (``wdq``, ``wdkv`` and their norms) and the latent
-caches have no heads axis and are whole on every rank.
+``psum``; the latents (``wdq``, ``wdkv`` and their norms) have no heads
+axis and are whole on every rank, and so are the latent caches but for
+``kv_seq``: the reference's flash-decode rule splits their sequence
+(``attention.kv_split``), and decode attends the rank's positions,
+combined by ``attention.split_softmax``, every head on every rank where
+the sequence takes the heads' axis.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..sharding.rules import current_ctx
 from .attention import (NEG_INF, _chunk_attn, _mask, _sdpa, f32_bmm,
-                        head_range, out_proj)
+                        head_range, kv_seq_block, kv_split, out_proj,
+                        seq_start, split_softmax, write_rows)
 from .layers import apply_rope, mesh_blocks, rmsnorm, tp_cols
 from .params import pd
 
@@ -58,19 +63,21 @@ def mla_defs(cfg: ModelConfig, dtype: str, fan_in: int = 0):
     }
 
 
-def _mesh_layer(cfg: ModelConfig, params):
+def _mesh_layer(cfg: ModelConfig, params, seq: tuple = ()):
     """(params, heads, out): under a sharding context the rank's blocks, a
     function giving a head-split leaf's columns of the query heads the
-    rank's block of ``wo``'s rows reads, and the output projection over
-    those heads (``attention.out_proj``, row-parallel); without one the
-    leaves as they are and the plain projection."""
+    rank's block of ``wo``'s rows reads (every head where decode's latent
+    sequence is split over the heads' axis, ``seq``), and the output
+    projection over those heads (``attention.out_proj``, row-parallel);
+    without one the leaves as they are and the plain projection."""
     m = cfg.mla
     if current_ctx() is None:
         return (params, lambda t, name, width: t,
                 lambda wo, out: out_proj(wo, out, m.v_head_dim))
     params, split = mesh_blocks(params, mla_defs(cfg, "float32"))
     rows = split("wo", 0)
-    h0, h1 = head_range(rows, m.v_head_dim, cfg.n_heads)
+    h0, h1 = (0, cfg.n_heads) if set(rows[2]) & set(seq) else \
+        head_range(rows, m.v_head_dim, cfg.n_heads)
 
     def heads(t, name, width):
         return tp_cols(t, split(name, 1), h0 * width, h1 * width)
@@ -131,14 +138,14 @@ def mla_attention(cfg: ModelConfig, params, h, positions,
 def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
                bf16_scores: bool = False):
     """Absorbed single-token decode. h (B,1,d); cache c_kv (B,Smax,kv_lora)
-    and k_rope (B,Smax,rope); positions (B,). The new latent rows are
-    written INTO the cache at each row's position, clamped to the last row
-    (the reference's dynamic_update_slice clamps), with device indices.
-    Returns (out, cache)."""
+    and k_rope (B,Smax,rope), under ``kv_seq`` the rank's block of the
+    positions; positions (B,). The new latent rows are written INTO the
+    cache at each row's position (``attention.write_rows``). Returns
+    (out, cache)."""
     m = cfg.mla
-    B = h.shape[0]
     nope, rope, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
-    params, heads, project = _mesh_layer(cfg, params)
+    seq = kv_split()[0]
+    params, heads, project = _mesh_layer(cfg, params, seq)
     q_nope, q_rope, c_new, kr_new = _latents(cfg, params, h,
                                              positions[:, None], heads)
     H = q_nope.shape[2]
@@ -148,10 +155,8 @@ def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
 
     ckv, krp = cache["c_kv"], cache["k_rope"]
     S = ckv.shape[1]
-    rows = torch.arange(B, device=h.device)
-    at = positions.clamp(0, S - 1)
-    ckv[rows, at] = c_new[:, 0].to(ckv.dtype)
-    krp[rows, at] = kr_new[:, 0, 0].to(krp.dtype)
+    write_rows(ckv, c_new[:, 0], positions, seq)
+    write_rows(krp, kr_new[:, 0, 0], positions, seq)
 
     if bf16_scores:
         # batch B: (H, R) @ (R, S) over the cache's own strides
@@ -162,13 +167,18 @@ def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
         s_lat = torch.einsum("bshl,bSl->bhsS", q_lat.float(), ckv32)
         s_rope = torch.einsum("bshr,bSr->bhsS", q_rope.float(), krp.float())
     scores = (s_lat + s_rope) * (1.0 / math.sqrt(nope + rope))
-    valid = torch.arange(S, device=h.device)[None] <= positions[:, None]
-    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    if bf16_scores:
-        out_lat = f32_bmm(p[:, :, 0].to(ckv.dtype), ckv)[:, None]
+    kpos = seq_start(S, seq) + torch.arange(S, device=h.device)
+    valid = (kpos[None] <= positions[:, None])[:, None, None, :]
+
+    def value(p):
+        if bf16_scores:
+            return f32_bmm(p[:, :, 0].to(ckv.dtype), ckv)[:, None]
+        return torch.einsum("bhsS,bSl->bshl", p, ckv32)
+    if seq:
+        out_lat = split_softmax(scores, valid, seq, value)
     else:
-        out_lat = torch.einsum("bhsS,bSl->bshl", p, ckv32)
+        out_lat = value(torch.softmax(torch.where(valid, scores, NEG_INF),
+                                      dim=-1))
     wuv = heads(params["wuv"], "wuv", m.v_head_dim).reshape(
         R, H, m.v_head_dim)
     out = torch.einsum("bshl,lhv->bshv", out_lat.to(h.dtype), wuv)
@@ -177,8 +187,11 @@ def mla_decode(cfg: ModelConfig, params, h, cache, positions, *,
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> dict:
+    """Zero latent caches (batch, max_len, ...): under ``kv_seq`` the
+    rank's block of the positions (``attention.kv_split``)."""
     m = cfg.mla
-    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+    S = kv_seq_block(max_len, kv_split()[0])[1]
+    return {"c_kv": torch.zeros((batch, S, m.kv_lora_rank),
                                 dtype=dtype, device=device),
-            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+            "k_rope": torch.zeros((batch, S, m.qk_rope_head_dim),
                                   dtype=dtype, device=device)}

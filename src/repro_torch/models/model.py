@@ -53,6 +53,7 @@ from ..core.hashing import (decode_engram_indices, engram_indices,
                             update_last_tokens)
 from ..sharding import collectives as coll
 from ..sharding.rules import current_ctx
+from .attention import kv_seq_block, kv_split
 from .layers import (chunked_xent, embed_defs, embed_lookup,
                      embed_lookup_local, head_defs, head_logits, rmsnorm,
                      rmsnorm_defs, scale_embeddings, vocab_block)
@@ -284,7 +285,8 @@ def init_decode_state(cfg: ModelConfig, flags: RunFlags, batch: int,
     """An empty decode state for ``batch`` rows of up to ``max_len``
     positions; under a sharding context ``batch`` is the rank's share and
     each cache its block of the reference's state layout (KV heads over
-    "kv_heads", recurrent channels over "ffn", heads over "heads")."""
+    "kv_heads", under ``kv_seq`` the KV sequence over its axes, recurrent
+    channels over "ffn", heads over "heads")."""
     dtype = DTYPES[cfg.dtype]
     max_order = max(cfg.engram.orders) if cfg.engram_layers() else 1
     pad = cfg.engram.pad_token if cfg.engram else 0
@@ -312,10 +314,28 @@ def pad_kv(t: torch.Tensor, max_len: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, n))
 
 
+def kv_block(t: torch.Tensor, max_len: int, seq: tuple = ()) -> torch.Tensor:
+    """``pad_kv(t, max_len)``, or under ``kv_seq`` (``seq``, the axes of
+    ``attention.kv_split``) the rank's block of it: its ``max_len / n``
+    positions, the prompt's where they reach them and zeros past it, in
+    a storage of its own."""
+    if not seq:
+        return pad_kv(t, max_len)
+    start, n = kv_seq_block(max_len, seq)
+    out = t.new_zeros((t.shape[0], n) + tuple(t.shape[2:]))
+    take = max(0, min(t.shape[1] - start, n))
+    if take:
+        out.narrow(1, 0, take).copy_(t.narrow(1, start, take))
+    return out
+
+
 def _pad_caches_to(caches, max_len: int):
-    """Pad the prefill caches' KV leaves out to decode capacity; recurrent
-    leaves (``conv`` (B, K-1, di) among them) stay as they are."""
-    return [[{n: pad_kv(t, max_len) if n in KV_KEYS else t
+    """Pad the prefill caches' KV leaves out to decode capacity (under
+    ``kv_seq`` the rank's block of the padded sequence, ``kv_block``);
+    recurrent leaves (``conv`` (B, K-1, di) among them) stay as they
+    are."""
+    seq = kv_split()[0]
+    return [[{n: kv_block(t, max_len, seq) if n in KV_KEYS else t
               for n, t in c.items()} for c in seg] for seg in caches]
 
 

@@ -6,7 +6,9 @@ the counting mode's stats under ``scaled``, so there is no HLO to
 re-derive them from. Emits:
 
   * the dry-run table — trace ok and time, per-rank argument and peak
-    bytes, collective mix, for every (arch x shape x mesh) cell;
+    bytes, collective mix, and the mesh axes of the KV sequence
+    (``kv_seq``, the flash-decode split, where the cell's rules set it),
+    for every (arch x shape x mesh) cell;
   * the roofline table — the three terms (compute, memory, collective
     seconds) on one H100 (``analysis.HW``), the dominant one, the ratio of
     model FLOPs per rank to the FLOPs counted, and the useful fraction,
@@ -58,15 +60,15 @@ def lever(rec: dict, r: Roofline) -> str:
         if kind == "decode":
             return ("KV-cache and weight traffic dominates — keep reads in "
                     "bf16 (no f32 cache copies), window-limit local layers, "
-                    "shard KV and the dense weights over more ranks")
+                    "split the KV sequence (kv_seq) where the KV heads "
+                    "cannot fill the model axis")
         if kind == "train":
             return ("activation/optimizer traffic dominates — fuse the "
                     "elementwise passes and AdamW, stronger remat, ZeRO the "
                     "moments over data")
         return "stream weights once per step; fuse elementwise chains"
-    return ("compute-bound — split the dense matmuls over the model axis "
-            "(the port keeps dense weights whole on every rank), fewer "
-            "remat recomputes, bf16 in place of the f32 head")
+    return ("compute-bound — fewer remat recomputes, bf16 in place of the "
+            "f32 head, heads gathered whole less often")
 
 
 def fmt_bytes(b: float) -> str:
@@ -83,14 +85,14 @@ def fmt_time(s: float) -> str:
 
 def dryrun_table(cells: list[dict]) -> str:
     out = ["| mesh | arch | shape | ok | trace_s | args/rank | peak-est/rank "
-           "| collective mix (wire/rank) |",
-           "|---|---|---|---|---|---|---|---|"]
+           "| collective mix (wire/rank) | kv_seq |",
+           "|---|---|---|---|---|---|---|---|---|"]
     for rec in cells:
         tag = "2x16x16" if "pod2" in rec["_file"] else "16x16"
         if not rec.get("ok"):
             out.append(f"| {tag} | {rec['arch']} | {rec['shape']} | FAIL | "
                        f"{rec.get('total_s', 0):.0f} | - | - | "
-                       f"{rec.get('error', '')[:60]} |")
+                       f"{rec.get('error', '')[:60]} | - |")
             continue
         mem = rec.get("memory", {})
         mix = rec["scaled"]["collectives"]["wire_bytes_per_device"]
@@ -101,7 +103,8 @@ def dryrun_table(cells: list[dict]) -> str:
             f"| {tag} | {rec['arch']} | {rec['shape']} | ok | "
             f"{rec.get('trace_s', 0):.0f} | "
             f"{fmt_bytes(mem.get('argument_bytes', 0))} | "
-            f"{fmt_bytes(mem.get('peak_bytes_est', 0))} | {mix_s} |")
+            f"{fmt_bytes(mem.get('peak_bytes_est', 0))} | {mix_s} | "
+            f"{','.join(rec.get('rules', {}).get('kv_seq', [])) or '-'} |")
     return "\n".join(out)
 
 

@@ -85,6 +85,11 @@ def _psum_(x, g):
     return x
 
 
+def _pmax_(x, g):
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+    return x
+
+
 def _psum_scatter(x, g, dim):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // g.size(),) + tuple(xt.shape[1:]))
@@ -190,8 +195,7 @@ def pmax(x: torch.Tensor, axes) -> torch.Tensor:
     (``jax.lax.pmax``); no gradient flows through it."""
     if _tracked(x):
         raise ValueError("pmax has no gradient: pass a detached tensor")
-    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_mesh().group(axes))
-    return x
+    return _pmax_(x, _mesh().group(axes))
 
 
 def pmean(x: torch.Tensor, axes) -> torch.Tensor:

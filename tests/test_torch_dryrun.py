@@ -10,7 +10,10 @@
   state on a (2, 4) mesh against the reference's ``NamedSharding.
   shard_shape`` for the same logical axes (on a ``jax.sharding.
   AbstractMesh``: no devices needed), for every arch x shape, full and
-  reduced; the blocks a rank holds (``local_params``, ZeRO-1's moments,
+  reduced, the decode state also under ``cell_rules``' ``kv_seq`` (over
+  "data" for long_500k, over "model" with ``--optimized``), where a rank's
+  ``init_decode_state`` under ``effective_rules`` makes the same blocks;
+  the blocks a rank holds (``local_params``, ZeRO-1's moments,
   ``init_decode_state``) against the same, for every reduced arch;
   ``cell_rules`` against the reference's rule.
 * One subprocess (``tests/torch_dryrun_cells.py``, a fake world of 256
@@ -22,8 +25,13 @@
   from c10d calls equal the reference's ``collective_stats`` of
   tests/test_roofline.py's HLO; the report renders; ``zero1`` is
   recorded and changes no count; the kernels appear by name on the
-  card's path and not on the CPU path.
+  card's path and not on the CPU path; ``unmirrored`` is empty in every
+  record; reduced jamba's long_500k cell through the hillclimb driver
+  with and without ``kv_seq`` (KV blocks 1/16 of the sequence, the
+  combine's collectives).
+* The hillclimb twin's ``parse_flags`` against the reference's.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -193,17 +201,39 @@ def test_rank_blocks_match_reference_shard_shapes(arch, shape, size):
     assert got == want
     if sh.kind != "decode":
         return
-    # the decode state, at a length the test keeps small
+    # the decode state, at a length the test keeps small, under the
+    # default rules and under cell_rules' (kv_seq over "data" for a batch
+    # that cannot fill it, over "model" with --optimized where the KV
+    # heads cannot fill it); the blocks a rank's init_decode_state makes
+    # under the rules the dry run applies (effective_rules) are the same
     B, S = sh.global_batch, 64
     rstate = ref_specs.abstract_decode_state(rcfg, RefFlags(), B, S)
-    want = _unstack_state(rcfg, jax.tree.map(
-        lambda a, s: jax.ShapeDtypeStruct(s.shard_shape(a.shape), a.dtype),
-        rstate, ref_specs.state_shardings(rstate, ref)))
     state = specs.abstract_decode_state(cfg, RunFlags(), B, S,
                                         device="meta")
-    got = specs.state_shardings(state, port)
-    assert [(p, s) for p, s in _paths(got)] == [
-        (p, s) for p, s, _ in _ref_leaves(want)]
+    mesh = rules.Mesh.of((2, 4), ("data", "model"),
+                         coords={"data": 1, "model": 3})
+    seen = []
+    for optimized in (False, True):
+        extra = dryrun.cell_rules(cfg, sh, mesh, optimized)
+        ref, port = _ctxs(extra)
+        want = _unstack_state(rcfg, jax.tree.map(
+            lambda a, s: jax.ShapeDtypeStruct(s.shard_shape(a.shape),
+                                              a.dtype),
+            rstate, ref_specs.state_shardings(rstate, ref)))
+        got = specs.state_shardings(state, port)
+        assert [(p, s) for p, s in _paths(got)] == [
+            (p, s) for p, s, _ in _ref_leaves(want)]
+        applied = dryrun.effective_rules(
+            extra, mesh, dataclasses.replace(sh, seq_len=S))
+        with rules.sharding_ctx(mesh, applied) as ctx:
+            share = ctx.block_shape((B,), ("batch",))[0]
+            blocks = port_model.init_decode_state(cfg, RunFlags(), share,
+                                                  S, "meta")
+        assert {p: tuple(t.shape) for p, t in tree_paths(blocks)} == dict(
+            _paths(got))
+        seen.append(extra.get("kv_seq"))
+    if shape == "long_500k":
+        assert seen == [("data",), ("data",)]
 
 
 @pytest.mark.parametrize("arch,ref_splits_more", [
@@ -344,6 +374,7 @@ def test_records_are_ok_with_the_reference_keys(cells):
         assert rec["ok"], (name, rec.get("traceback"))
         assert want <= _keys(rec), (name, want - _keys(rec))
         assert not _keys(rec) & set(dryrun.NO_COUNTERPART), name
+        assert rec["unmirrored"] == [], name
         assert rec["scaled"]["flops_dot"] > 0
         mem = rec["memory"]
         assert mem["peak_bytes_est"] >= mem["argument_bytes"] > 0
@@ -433,3 +464,57 @@ def test_report_renders_and_zero1_raises(cells):
     assert rec["ok"] and rec["zero1"] is True and meta["zero1"] is False
     for k in ("scaled", "kernel_calls", "memory"):
         assert rec[k] == meta[k], k
+
+
+def test_long_500k_cell_splits_the_kv_sequence(cells):
+    """Reduced jamba x long_500k through the hillclimb driver: with the
+    cell's rules (``kv_seq`` over "data": batch 1 cannot fill 16 data
+    ranks) rank 0's KV blocks hold 1/16 of the sequence, so its arguments
+    fall by 15/16 of the KV bytes exactly (every other leaf unchanged),
+    and decode combines the ranks' partial softmaxes: a ``pmax`` and two
+    ``psum`` over "data" per attention layer; with ``rule:kv_seq=`` the
+    sequence is whole. Both records written, ``unmirrored`` empty."""
+    kv = cells["kv_seq"]
+    split, whole = kv["kv_seq"], kv["whole"]
+    assert kv["kv_seq_written"] and kv["whole_written"]
+    assert split["ok"] and whole["ok"], (split.get("error"),
+                                         whole.get("error"))
+    assert split["rules"] == {"kv_seq": ["data"]}
+    assert whole["rules"] == {"kv_seq": []}
+    assert split["unmirrored"] == whole["unmirrored"] == []
+    cfg = reduced_config("jamba-1.5-large-398b")
+    n_attn = cfg.layer_types.count("attn")
+    S = configs.SHAPES["long_500k"].seq_len
+    kv_bytes = n_attn * 2 * S * cfg.n_kv_heads * cfg.head_dim * 2   # bf16
+    assert whole["memory"]["argument_bytes"] - \
+        split["memory"]["argument_bytes"] == kv_bytes * 15 // 16
+    assert split["memory"]["peak_bytes_est"] < \
+        whole["memory"]["peak_bytes_est"]
+    assert split["scaled"]["bytes_accessed"] < \
+        whole["scaled"]["bytes_accessed"]
+    counts = (split["collectives"]["counts"], whole["collectives"]["counts"])
+    assert counts[0]["all-reduce"] - counts[1]["all-reduce"] == 3 * n_attn
+
+
+def test_hillclimb_parse_flags_is_the_reference(tmp_path):
+    """The hillclimb twin's ``parse_flags`` against the reference's
+    (experiments/hillclimb.py, imported in a subprocess: its import pins
+    512 host devices) on the same argument lists."""
+    from repro_torch.experiments.hillclimb import RESERVED, parse_flags
+    cases = [[], ["attn_bf16_scores=true", "remat=False", "q_chunk=512"],
+             ["moe=alltoall", "engram=pooled", "rule:kv_seq=model",
+              "rule:heads=", "rule:batch=pod,data", "x=1.5"],
+             ["device=meta", "zero1=true", "unroll=false"]]
+    code = ("import json, sys; sys.path.insert(0, 'experiments'); "
+            "from hillclimb import parse_flags; "
+            f"print(json.dumps([parse_flags(a) for a in {cases!r}]))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu",
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr[-4000:]
+    want = json.loads(res.stdout.strip().splitlines()[-1])
+    got = [parse_flags(a) for a in cases]
+    assert [[f, {k: list(v) for k, v in r.items()}] for f, r in got] == want
+    assert set(RESERVED) == {"moe", "engram", "remat", "unroll", "zero1",
+                             "device"}

@@ -312,7 +312,8 @@ def test_port_imports_nothing_of_jax():
         "'examples.train_engram_lm', 'core.engram', 'models.model', "
         "'models.layers', 'models.moe', 'models.params', "
         "'roofline.analysis', 'roofline.counting', 'roofline.report', "
-        "'launch.specs', 'launch.dryrun', 'examples.multipod_dryrun'):\n"
+        "'launch.specs', 'launch.dryrun', 'examples.multipod_dryrun', "
+        "'experiments.hillclimb'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -25,7 +25,9 @@
   at S = 256 and 1024 (one scan layer) the bytes and the transient
   memory within ``SAMPLED_BYTES_TOL`` too (the storages a sampled scan
   leaves alive counted for the positions not run); a train step's bytes
-  at S = 1024 within 4.5x of S = 256's (the scans' backward linear).
+  at S = 1024 within 4.5x of S = 256's (the scans' backward linear), and
+  so the bytes that assemble chunked attention's q, k and v gradients
+  (each split into its blocks once, F16).
   Over real tensors a sampler changes nothing: every iteration runs and
   the answer is bit-equal; a mode that samples refuses a real operand.
 * On one device the port's ``flops_dot`` against the reference's
@@ -409,6 +411,76 @@ def test_scan_backward_bytes_grow_linearly(arch):
             "bytes_accessed"]
     print(f"{arch}: bytes at S=1024 over S=256: {ratio:.3f}")
     assert ratio < 4.5
+
+
+class _QKVGradBytes(counting.CountingMode):
+    """A ``CountingMode`` that also sums the bytes of the ops that write a
+    tensor of q, k or v's whole (B, S, H, D) shape by cat or by a slice's
+    backward (what assembles their gradients from per-block pieces), and
+    keeps the shapes every ``slice_backward`` wrote."""
+
+    def __init__(self, whole):
+        super().__init__()
+        self.whole, self.assembly, self.slice_shapes = whole, 0.0, []
+
+    def _account(self, func, args, kwargs, out):
+        before = self.bytes
+        super()._account(func, args, kwargs, out)
+        name = func._schema.name
+        if name == "aten::slice_backward":
+            self.slice_shapes.append(tuple(out.shape))
+        if name in ("aten::slice_backward", "aten::cat") and \
+                tuple(out.shape[:2]) == self.whole and out.dim() == 4:
+            self.assembly += self.bytes - before
+
+
+def _chunked_train_trace(S):
+    """Reduced deepseek-7b without Engram, bf16, B = 2, remat, 64-position
+    attention blocks (``chunk_threshold=64``): its train step on the meta
+    device, loops sampled as the dry run samples them."""
+    cfg = dataclasses.replace(reduced_config("deepseek-7b"), engram=None,
+                              dtype="bfloat16")
+    flags = RunFlags(remat=True, chunk_threshold=64, q_chunk=64,
+                     kv_chunk=64)
+    tok = torch.randint(1, cfg.vocab_size, (2, S))
+    params, batch = tree_map(lambda t: t.to("meta"), (
+        port_model.init_params(cfg, 0, "cpu"), {"tokens": tok, "labels": tok}))
+    mode = _QKVGradBytes((2, S))
+    with mode, counting.sample_loops(mode, 4):
+        value_and_grad(port_model.build_loss_fn(cfg, flags), params, batch)
+    return mode
+
+
+def test_chunk_attention_backward_bytes_grow_linearly():
+    """F16: chunked attention splits q, k and v into their blocks once, so
+    no ``slice_backward`` writes a whole-size (B, S, H, D) zero gradient
+    per block pair, and the bytes of the ops that assemble q, k and v's
+    gradients grow at most 4.5x from S = 256 to S = 1024 (38.3x when each
+    block pair sliced them); the split's backward gives the dense path's
+    gradients."""
+    import math
+    from repro_torch.models.attention import _chunk_attn, _mask, _sdpa
+    modes = {S: _chunked_train_trace(S) for S in (256, 1024)}
+    for S, mode in modes.items():
+        assert mode.assembly > 0
+        assert not [s for s in mode.slice_shapes if s[:2] == (2, S)], S
+    ratio = modes[1024].assembly / modes[256].assembly
+    print(f"q/k/v gradient assembly bytes at S=1024 over S=256: {ratio:.3f}")
+    assert ratio <= 4.5
+    cfg = reduced_config("deepseek-7b")
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 40, h, 16, generator=g, requires_grad=True)
+               for h in (4, 2, 2))
+    pos = torch.arange(40)
+    w = torch.randn(2, 40, 4, 16, generator=g)
+    grads = []
+    for chunked in (True, False):
+        out = _chunk_attn(cfg, q, k, v, pos, pos, q_chunk=16, kv_chunk=8) \
+            if chunked else _sdpa(cfg, q, k, v,
+                                  _mask(pos, pos, causal=True)[None])
+        grads.append(torch.autograd.grad((out * w).sum(), (q, k, v)))
+    for a, b in zip(*grads):
+        assert math.isclose(float((a - b).abs().max()), 0.0, abs_tol=1e-5)
 
 
 @pytest.fixture(scope="module")

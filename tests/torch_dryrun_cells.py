@@ -12,7 +12,11 @@ axis: MoE under expert parallelism, ``torch._grouped_mm`` on the meta
 device, whose shape function takes bf16 only, as the card's kernel
 does), the collectives recorded by ``roofline.counting.CountingMode``
 from c10d calls on a (2, 8, 16) mesh of the fake world, the report
-rendered over the records, and the meta cell again with ``zero1``.
+rendered over the records, and the meta cell again with ``zero1``; and,
+through the hillclimb driver (``repro_torch.experiments.hillclimb``),
+reduced jamba's long_500k cell in bf16 with ``cell_rules``' ``kv_seq``
+over "data" and with ``rule:kv_seq=`` (the sequence whole), each record
+and whether its file was written.
 """
 import dataclasses
 import json
@@ -63,6 +67,7 @@ def main(out: str) -> None:
         recs[f"moe_{shape}"] = lower_cell("deepseek-v2-236b", shape,
                                           device="meta", cfg=v2)
     zero1 = lower_cell("gemma3-1b", "decode_32k", device="meta", zero1=True)
+    kv_seq = hillclimb_cells()
     with tempfile.TemporaryDirectory() as d:
         for name, rec in recs.items():
             tag = "pod2" if name == "pod2" else "pod1"
@@ -71,7 +76,27 @@ def main(out: str) -> None:
         rendered = report.render(report.load_cells(Path(d)))
     Path(out).write_text(json.dumps({
         "records": recs, "collectives": collective_calls(),
-        "report": rendered, "zero1": zero1}))
+        "report": rendered, "zero1": zero1, "kv_seq": kv_seq}))
+
+
+def hillclimb_cells() -> dict:
+    """Reduced jamba x long_500k (batch 1 under 16 data ranks) through the
+    hillclimb driver: tag "kv_seq" with the cell's rules, tag "whole"
+    with ``rule:kv_seq=``; each record, and whether its file was
+    written."""
+    from repro_torch.experiments import hillclimb
+    from repro_torch.launch.train import reduced_config
+    cfg = dataclasses.replace(reduced_config("jamba-1.5-large-398b"),
+                              dtype="bfloat16")
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for tag, args in (("kv_seq", ["device=meta"]),
+                          ("whole", ["device=meta", "rule:kv_seq="])):
+            out[tag] = hillclimb.run("jamba-1.5-large-398b", "long_500k", tag,
+                                     args, cfg=cfg, out_dir=Path(d))
+            out[f"{tag}_written"] = Path(
+                d, f"jamba-1.5-large-398b__long_500k__{tag}.json").exists()
+    return out
 
 
 if __name__ == "__main__":

@@ -12,7 +12,9 @@ steps (gradients gathered whole), each differentiable
 collective's gradient, the embedding's, and the mesh trainer (a crash
 and restart; its checkpoint restored onto an (8,) mesh), and saves what
 it holds to ``out_dir/rank<r>.pt``. Then ranks 0 and 1 run the training
-CLI on a (1, 2) mesh of their own. It imports nothing of JAX."""
+CLI on a (1, 2) mesh of their own. ``kv_seq_main`` is
+tests/test_torch_kv_seq.py's rank (reduced models under a ``kv_seq``
+rule). It imports nothing of JAX."""
 import dataclasses
 import datetime
 import os
@@ -134,6 +136,114 @@ def _layout(ctx, inp, out):
             logits, state = decode(params, state, logits.argmax(-1))
             all_logits.append(logits)
         out[f"layout/{arch}"] = torch.stack(all_logits, dim=1)
+
+
+# tests/test_torch_kv_seq.py's cases: name -> (arch, batch, prompt
+# length, kv_seq's mesh axes, decode_window_slice); each decodes
+# KV_SEQ_STEPS greedy steps past its prompt into a cache of prompt +
+# KV_SEQ_STEPS positions, a multiple of the axes' ranks
+KV_SEQ_CASES = {
+    "deepseek-7b": ("deepseek-7b", 2, 8, ("model",), False),
+    "gemma3-1b": ("gemma3-1b", 2, 20, ("model",), False),
+    "gemma3-1b-slice": ("gemma3-1b", 2, 20, ("model",), True),
+    "deepseek-v2-236b": ("deepseek-v2-236b", 2, 8, ("model",), False),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", 1, 8, ("data",),
+                             False),
+}
+KV_SEQ_STEPS = 4
+
+
+def _kv_seq(mesh, inp, out):
+    """Each ``KV_SEQ_CASES`` model's prefill and greedy decode on the
+    rank's blocks under its ``kv_seq`` rule, with its decode state's block
+    shapes after the prefill and after the last step."""
+    from repro_torch.models.model import (build_decode_step,
+                                          build_prefill_step,
+                                          mesh_logical_axes)
+    from repro_torch.models.params import tree_paths
+    from repro_torch.models.transformer import RunFlags
+    from repro_torch.sharding.rules import local_params, sharding_ctx
+    for name, (arch, _, _, axes, window_slice) in KV_SEQ_CASES.items():
+        cfg = inp[f"kv_seq_cfg/{name}"]
+        flags = RunFlags(decode_window_slice=window_slice, **LAYOUT_FLAGS)
+        with sharding_ctx(mesh, {"kv_seq": axes}) as ctx:
+            params = local_params(inp[f"kv_seq_params/{arch}"],
+                                  mesh_logical_axes(cfg), ctx)
+            toks = ctx.block(inp[f"kv_seq_toks/{name}"], ("batch", None))
+            logits, state = build_prefill_step(
+                cfg, flags, toks.shape[1] + KV_SEQ_STEPS)(
+                    params, {"tokens": toks})
+            out[f"kv_seq_state/{name}/prefill"] = {
+                k: tuple(t.shape) for k, t in tree_paths(state)}
+            decode = build_decode_step(cfg, flags)
+            all_logits = [logits]
+            for _ in range(KV_SEQ_STEPS):
+                logits, state = decode(params, state, logits.argmax(-1))
+                all_logits.append(logits)
+            out[f"kv_seq_state/{name}/decode"] = {
+                k: tuple(t.shape) for k, t in tree_paths(state)}
+            out[f"kv_seq/{name}"] = torch.stack(all_logits, dim=1)
+            if name == KV_SEQ_CHUNKED:
+                out[f"kv_seq_chunked/{name}"] = _kv_seq_chunked(
+                    dataclasses.replace(cfg, engram=None), flags,
+                    {k: v for k, v in params.items() if k != "engram"},
+                    toks)
+
+
+# the case whose prompt is also admitted by chunked prefill from an empty
+# state, then decoded by one multi-token verify step, without its Engram
+# layer (pooled's owners drop requests past their capacity, so a prompt's
+# rows depend on how its requests are grouped: ROADMAP F13)
+KV_SEQ_CHUNKED = "deepseek-7b"
+
+
+def _kv_seq_chunked(cfg, flags, params, toks):
+    """Under the current ``kv_seq`` rule: the monolithic prefill and
+    KV_SEQ_STEPS greedy steps (B, 1 + KV_SEQ_STEPS, V), and ``toks``
+    admitted in chunks of 4 (``build_chunk_prefill``) into
+    ``init_decode_state``'s blocks, then the greedy stream's tokens fed
+    as one block (``build_multitoken_decode``): the chunked prefill's
+    logits and the block's, stacked the same way."""
+    from repro_torch.models.model import (build_chunk_prefill,
+                                          build_decode_step,
+                                          build_multitoken_decode,
+                                          build_prefill_step,
+                                          init_decode_state)
+    B, S = toks.shape
+    logits, state = build_prefill_step(cfg, flags, S + KV_SEQ_STEPS)(
+        params, {"tokens": toks})
+    decode = build_decode_step(cfg, flags)
+    steps = [logits]
+    for _ in range(KV_SEQ_STEPS):
+        logits, state = decode(params, state, logits.argmax(-1))
+        steps.append(logits)
+    state = init_decode_state(cfg, flags, B, S + KV_SEQ_STEPS, "cpu")
+    chunk = build_chunk_prefill(cfg, flags)
+    for c in range(0, S, 4):
+        logits, state = chunk(params, state, toks[:, c:c + 4],
+                              torch.full((B,), min(4, S - c)))
+    block = torch.stack([t.argmax(-1) for t in steps[:-1]], dim=1)
+    verify, _, _ = build_multitoken_decode(cfg, flags)(params, state, block)
+    return {"monolithic": torch.stack(steps, dim=1),
+            "chunked": torch.cat([logits[:, None], verify], dim=1)}
+
+
+def kv_seq_main(rank: int, world: int, init: str, inputs: str,
+                out_dir: str):
+    """tests/test_torch_kv_seq.py's rank: ``_kv_seq`` on the (2, 4) mesh,
+    saved to ``out_dir/rank<r>.pt``."""
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(*MESH, device="cpu")
+        out = {"coords": torch.tensor([mesh.coords[a] for a in MESH[1]])}
+        _kv_seq(mesh, torch.load(inputs, weights_only=False), out)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 DDP_STEPS = 8

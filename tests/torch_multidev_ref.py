@@ -15,7 +15,9 @@ pooled retrieval: loss, gradients, one AdamW step; reduced
 deepseek-v2-236b's expert-parallel steps at capacity factor 1.25 under the
 mesh, and with the capacity raised and the load-balance loss off on one
 device: loss and gradients), the former with their one-ulp witnesses, on
-the inputs the test wrote, and saves the outputs."""
+the inputs the test wrote, and saves the outputs; or, as its part
+"kv_seq", reduced models' prefill and greedy decode under a ``kv_seq``
+rule (tests/test_torch_kv_seq.py)."""
 import dataclasses
 import os
 import sys
@@ -201,17 +203,57 @@ def layout_forwards(out, inp, mesh):
                                            layout_cfg(arch))
 
 
+# archs whose kv_seq logits are held with one-ulp witnesses (a recurrent
+# stack: tests/test_torch_kv_seq.py)
+KV_SEQ_WITNESSED = ("jamba-1.5-large-398b",)
+
+
+def kv_seq_forwards(out, inp, mesh, names=None):
+    """Each ``KV_SEQ_CASES`` model's prefill and greedy decode under the
+    mesh with its ``kv_seq`` rule (the flash-decode split of the KV
+    sequence; ``LAYOUT_FLAGS``, with ``decode_window_slice`` where the
+    case sets it); for ``KV_SEQ_WITNESSED`` also the witnesses: the
+    largest share of the largest logit by which the logits move, fed the
+    same tokens, when every weight moves by about one ulp (three draws,
+    ``WITNESS_SEEDS[:3]``). ``names``: those cases alone."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_multidev_ranks import KV_SEQ_CASES
+    for name, (arch, _, _, axes, window_slice) in KV_SEQ_CASES.items():
+        if names is not None and name not in names:
+            continue
+        flags = RunFlags(decode_window_slice=window_slice, **LAYOUT_FLAGS)
+        cfg = layout_cfg(arch)
+        toks = inp[f"kv_seq_toks/{name}"]
+        with sharding_ctx(mesh, {"kv_seq": axes}), mesh:
+            steps = _steps(cfg, flags, toks.shape[1] + DECODE_STEPS)
+            base = greedy(flags, toks, cfg, steps=steps)
+            out[f"kv_seq/{name}"] = base
+            if arch in KV_SEQ_WITNESSED:
+                params = ref_model.init_params(cfg, 0)
+                out[f"kv_seq_wit/{name}"] = np.asarray([
+                    np.abs(greedy(flags, toks, cfg, _moved(params, s), base,
+                                  steps) - base).max() / np.abs(base).max()
+                    for s in WITNESS_SEEDS[:3]])
+
+
 def main(inputs: str, out_path: str, part: str = "mesh") -> None:
-    """``part`` "mesh": every output but the train steps and the layout
-    forwards; "train": the train steps alone; "layout": the layout
-    forwards alone (the test runs the three at once)."""
+    """``part`` "mesh": every output but the train steps, the layout
+    forwards and the ``kv_seq`` forwards; "train": the train steps alone;
+    "layout": the layout forwards alone (tests/test_torch_multidev.py runs
+    the three at once); "kv_seq" or "kv_seq:<case>,<case>...": the
+    ``kv_seq`` forwards alone, of every case or of those named
+    (tests/test_torch_kv_seq.py runs a few such parts at once)."""
     mesh = make_mesh((2, 4), ("data", "model"))
-    if part in ("train", "layout"):
+    if part in ("train", "layout") or part.startswith("kv_seq"):
         out = {}
         if part == "train":
             train_steps(out, mesh)
-        else:
+        elif part == "layout":
             layout_forwards(out, dict(np.load(inputs)), mesh)
+        else:
+            names = part.partition(":")[2]
+            kv_seq_forwards(out, dict(np.load(inputs)), mesh,
+                            names.split(",") if names else None)
         np.savez(out_path, **out)
         return
     inp = dict(np.load(inputs))
@@ -272,20 +314,31 @@ def main(inputs: str, out_path: str, part: str = "mesh") -> None:
     np.savez(out_path, **out)
 
 
-def greedy(flags, toks, cfg=None):
+def _steps(cfg, flags, max_len: int):
+    """The jitted prefill and decode steps (traced under the sharding
+    context of their first call)."""
+    return (jax.jit(ref_model.build_prefill_step(cfg, flags,
+                                                 max_len=max_len)),
+            jax.jit(ref_model.build_decode_step(cfg, flags)))
+
+
+def greedy(flags, toks, cfg=None, params=None, feed=None, steps=None):
     """Reduced deepseek-v3's (or ``cfg``'s) prefill logits, then
-    DECODE_STEPS greedy decode steps' (B, 1 + DECODE_STEPS, V)."""
+    DECODE_STEPS greedy decode steps' (B, 1 + DECODE_STEPS, V); with
+    ``feed`` (B, 1 + DECODE_STEPS, V) logits, the steps take their
+    argmax tokens (teacher-forced) instead of their own; ``steps``: the
+    jitted steps of an earlier call under the same context (``_steps``)."""
     cfg = cfg or model_cfg()
-    params = ref_model.init_params(cfg, 0)
+    params = ref_model.init_params(cfg, 0) if params is None else params
     toks = jnp.asarray(toks)
-    logits, state = jax.jit(ref_model.build_prefill_step(
-        cfg, flags, max_len=toks.shape[1] + DECODE_STEPS))(
-            params, {"tokens": toks})
-    decode = jax.jit(ref_model.build_decode_step(cfg, flags))
+    prefill, decode = steps or _steps(cfg, flags,
+                                      toks.shape[1] + DECODE_STEPS)
+    logits, state = prefill(params, {"tokens": toks})
     all_logits = [np.asarray(logits)]
-    for _ in range(DECODE_STEPS):
+    for i in range(DECODE_STEPS):
+        src = logits if feed is None else jnp.asarray(feed[:, i])
         logits, state = decode(params, state,
-                               jnp.argmax(logits, -1).astype(jnp.int32))
+                               jnp.argmax(src, -1).astype(jnp.int32))
         all_logits.append(np.asarray(logits))
     return np.stack(all_logits, axis=1)
 
