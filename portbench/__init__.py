@@ -1,0 +1,4 @@
+"""The benchmark of the PyTorch and CUDA port (``src/repro_torch``).
+
+``run.py`` runs one cell of ``BENCHMARK.json``; see ``README.md``.
+"""

@@ -1,0 +1,3 @@
+"""The benchmark's harness: cell lookup, inputs drawn from the seed, the
+closed-loop clients, the measured window, the trace, the outputs check
+and the result line."""
