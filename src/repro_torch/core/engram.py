@@ -44,6 +44,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..configs.base import EngramConfig, ModelConfig
 from ..kernels.engram_gather import engram_gather, gather_rows
 from ..kernels.gated_fuse import engram_gated_fuse
@@ -267,9 +268,10 @@ def retrieve(ecfg: EngramConfig, tables, idx, strategy: str = None,
     """Rows by ``strategy`` (default the config's); ``use_kernel=False``
     makes ``pooled``'s owners read without K1 (training)."""
     name = strategy or ecfg.strategy
-    if name == "pooled":
-        return retrieve_pooled(ecfg, tables, idx, use_kernel=use_kernel)
-    return STRATEGIES[name].fn(ecfg, tables, idx)
+    with trace.span("engram.retrieve", rows=idx.numel()):
+        if name == "pooled":
+            return retrieve_pooled(ecfg, tables, idx, use_kernel=use_kernel)
+        return STRATEGIES[name].fn(ecfg, tables, idx)
 
 
 def strategy_store(ecfg: EngramConfig, strategy: str = None):
@@ -285,13 +287,14 @@ def engram_fuse(cfg: ModelConfig, fuse_params, h, rows,
     f32. The other form is the reference model's: it casts the sigmoid gate
     to ``h.dtype`` before the multiply, so in bf16 the two round
     differently (at f32 they differ only in summation order)."""
-    rows = rmsnorm(fuse_params["norm"], rows, cfg.norm_eps)
-    if use_kernel:
-        return engram_gated_fuse(h, rows, fuse_params["gate"],
-                                 fuse_params["proj"])
-    update = rows @ fuse_params["proj"]
-    gate = torch.sigmoid((h @ fuse_params["gate"]).float())
-    return h + gate.to(h.dtype) * update
+    with trace.span("engram.fuse", T=h.numel() // h.shape[-1]):
+        rows = rmsnorm(fuse_params["norm"], rows, cfg.norm_eps)
+        if use_kernel:
+            return engram_gated_fuse(h, rows, fuse_params["gate"],
+                                     fuse_params["proj"])
+        update = rows @ fuse_params["proj"]
+        gate = torch.sigmoid((h @ fuse_params["gate"]).float())
+        return h + gate.to(h.dtype) * update
 
 
 def engram_lookup(cfg: ModelConfig, eng_params, tokens, layer_slot: int = 0,

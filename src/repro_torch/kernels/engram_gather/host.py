@@ -27,6 +27,7 @@ import mmap
 
 import torch
 
+from ... import trace
 from ..build import load
 
 _MAPPED: dict[int, tuple[int, int]] = {}   # host base -> (bytes, device base)
@@ -64,12 +65,14 @@ def host_empty(shape, dtype: torch.dtype) -> torch.Tensor:
     nbytes = numel * torch.empty((), dtype=dtype).element_size()
     if nbytes == 0:
         raise ValueError(f"host_empty: empty shape {tuple(shape)}")
-    mm = _Mapping(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
-                  | getattr(mmap, "MAP_POPULATE", 0))
-    t = torch.frombuffer(mm, dtype=dtype, count=numel).view(*shape)
-    base = t.data_ptr()
-    dev = ctypes.c_void_p()
-    rc = _fn("engram_host_register")(base, nbytes, ctypes.byref(dev))
+    register = _fn("engram_host_register")   # loads (or builds) K1 first
+    with trace.span("tables.host_map", bytes=nbytes):
+        mm = _Mapping(-1, nbytes, flags=mmap.MAP_PRIVATE
+                      | mmap.MAP_ANONYMOUS | getattr(mmap, "MAP_POPULATE", 0))
+        t = torch.frombuffer(mm, dtype=dtype, count=numel).view(*shape)
+        base = t.data_ptr()
+        dev = ctypes.c_void_p()
+        rc = register(base, nbytes, ctypes.byref(dev))
     if rc != 0:
         raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: "
                            f"cudaError {rc}")

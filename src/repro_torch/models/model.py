@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..core.engram import engram_defs, engram_fuse, retrieve
 from ..core.hashing import (decode_engram_indices, engram_indices,
@@ -243,12 +244,13 @@ def _head_params(cfg: ModelConfig, params):
 def _logits(cfg: ModelConfig, params, h):
     """f32 logits of the whole vocabulary: under a sharding context the
     rank's block (``head_logits``) gathered over "vocab"."""
-    logits = head_logits(_head_params(cfg, params), h,
-                         cfg.final_logit_softcap, cfg.tie_embeddings,
-                         vocab=cfg.vocab_size)
-    axes = vocab_block(cfg.vocab_size)[2]
-    return coll.gather_dim(logits, axes, logits.dim() - 1) if axes \
-        else logits
+    with trace.span("model.head", T=h.numel() // h.shape[-1]):
+        logits = head_logits(_head_params(cfg, params), h,
+                             cfg.final_logit_softcap, cfg.tie_embeddings,
+                             vocab=cfg.vocab_size)
+        axes = vocab_block(cfg.vocab_size)[2]
+        return coll.gather_dim(logits, axes, logits.dim() - 1) if axes \
+            else logits
 
 
 def abstract_params(cfg: ModelConfig, dtype: str | None = None):

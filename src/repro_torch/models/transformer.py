@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 import torch.utils.checkpoint
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..sharding.rules import current_ctx, use_ctx
 from .attention import attention, attn_defs, decode_attention, init_kv_cache
@@ -157,39 +158,42 @@ def apply_block(cfg: ModelConfig, flags: RunFlags, i: int, params, h,
     state (``cache`` None), its decode from ``cache``; each is one call
     over the token axis."""
     t, kind, ffn = _sig(cfg, i)
-    pre = rmsnorm(params["ln1"], h, cfg.norm_eps)
     mla = cfg.attn_impl == "mla"
-    if t != "attn":
-        out, new_cache = _RECURRENT[t](cfg, params["mixer"], pre, cache)
-    elif mode == "decode" and mla:
-        out, new_cache = mla_decode(cfg, params["mixer"], pre, cache,
-                                    positions,
-                                    bf16_scores=flags.attn_bf16_scores)
-    elif mode == "decode":
-        out, new_cache = decode_attention(
-            cfg, params["mixer"], pre, cache, positions, kind,
-            bf16_scores=flags.attn_bf16_scores,
-            window_slice=flags.decode_window_slice)
-    else:
-        out, new_cache = (mla_attention if mla else attention)(
-            cfg, params["mixer"], pre, positions, kind, q_chunk=flags.q_chunk,
-            kv_chunk=flags.kv_chunk, chunk_threshold=flags.chunk_threshold,
-            bf16_scores=flags.attn_bf16_scores)
-    if cfg.post_block_norm:
-        out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
-    h = h + out
+    with trace.span("block.attn", layer=i):
+        pre = rmsnorm(params["ln1"], h, cfg.norm_eps)
+        if t != "attn":
+            out, new_cache = _RECURRENT[t](cfg, params["mixer"], pre, cache)
+        elif mode == "decode" and mla:
+            out, new_cache = mla_decode(cfg, params["mixer"], pre, cache,
+                                        positions,
+                                        bf16_scores=flags.attn_bf16_scores)
+        elif mode == "decode":
+            out, new_cache = decode_attention(
+                cfg, params["mixer"], pre, cache, positions, kind,
+                bf16_scores=flags.attn_bf16_scores,
+                window_slice=flags.decode_window_slice)
+        else:
+            out, new_cache = (mla_attention if mla else attention)(
+                cfg, params["mixer"], pre, positions, kind,
+                q_chunk=flags.q_chunk, kv_chunk=flags.kv_chunk,
+                chunk_threshold=flags.chunk_threshold,
+                bf16_scores=flags.attn_bf16_scores)
+        if cfg.post_block_norm:
+            out = rmsnorm(params["post_ln1"], out, cfg.norm_eps)
+        h = h + out
     if ffn == "none":
         return h, new_cache, None
-    pre2 = rmsnorm(params["ln2"], h, cfg.norm_eps)
-    aux = None
-    if ffn == "moe":
-        out2, aux = moe_ffn(cfg, params["ffn"], pre2,
-                            strategy=flags.moe_strategy)
-    else:
-        out2 = mlp(params["ffn"], pre2, cfg.ffn_act, cfg.d_ff)
-    if cfg.post_block_norm:
-        out2 = rmsnorm(params["post_ln2"], out2, cfg.norm_eps)
-    return h + out2, new_cache, aux
+    with trace.span("block.ffn", layer=i):
+        pre2 = rmsnorm(params["ln2"], h, cfg.norm_eps)
+        aux = None
+        if ffn == "moe":
+            out2, aux = moe_ffn(cfg, params["ffn"], pre2,
+                                strategy=flags.moe_strategy)
+        else:
+            out2 = mlp(params["ffn"], pre2, cfg.ffn_act, cfg.d_ff)
+        if cfg.post_block_norm:
+            out2 = rmsnorm(params["post_ln2"], out2, cfg.norm_eps)
+        return h + out2, new_cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, i: int, batch: int, max_len: int,

@@ -94,6 +94,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..configs.base import ModelConfig, SpecConfig
 from ..core.engram import retrieve
 from ..core.hashing import (block_engram_indices, block_engram_keys,
@@ -676,10 +677,12 @@ class Engine:
         through ``device.sync_allowed`` beside it), so ``d2h_pulls`` counts
         them."""
         self.stats.d2h_pulls += 1
-        if t.device.type != "cuda":
-            return t.numpy().copy()
-        with sync_allowed(self.device):
-            return t.cpu().numpy()
+        with trace.span("engine.host_read",
+                        bytes=t.numel() * t.element_size()):
+            if t.device.type != "cuda":
+                return t.numpy().copy()
+            with sync_allowed(self.device):
+                return t.cpu().numpy()
 
     # ---------------------------------------------------------- prefill path
 
@@ -719,6 +722,11 @@ class Engine:
         count: that bounds JAX recompiles and costs compute here."""
         if self.prefill_chunk is not None:
             return self._admit_chunked()
+        with trace.span("engine.admit"):
+            return self._admit_monolithic()
+
+    def _admit_monolithic(self) -> list:
+        """``_admit`` without ``prefill_chunk``."""
         events = []
         fills = []
         if self.slo_policy is not None:
@@ -759,50 +767,54 @@ class Engine:
         charge = [[] for _ in range(self._n_eng)] if self._pool_mode else None
         for S, group in sorted(groups.items()):
             n = len(group)
-            self.cursor.next_wave()
-            t_g = time.perf_counter()
-            buf = self._prompt_view(n, S)
-            lens = np.ones((n,), np.int64)
-            for r, (_, req) in enumerate(group):
-                buf[r, :len(req.prompt)] = req.prompt
-                lens[r] = len(req.prompt)
-            useful = int(lens.sum())
-            self.stats.prefill_waves += 1
-            self.stats.prefill_tokens += useful
-            self.stats.prefill_pad_tokens += n * S - useful
-            emu_s = None
-            if self.emulate_step_s is not None:
-                emu_s = self._prefill_step_s(n * S)
-                self.stats.emu_time_s += emu_s
-            batch = {"tokens": upload(buf, self.device),
-                     "lengths": upload(lens, self.device)}
-            self.state, self.tokens, packed = self._admit_wave_fn(
-                self.params, self.state, self.tokens, batch,
-                [s for s, _ in group])
-            packed = self._host(packed)          # ONE read per group
-            toks = packed[:n]
-            if self._pool_mode:
-                pk = packed[n:].reshape(n, S, self._n_eng, -1)
+            with trace.span("engine.prefill_group", n=n, S=S,
+                            rids=[req.rid for _, req in group]) as attrs:
+                self.cursor.next_wave()
+                t_g = time.perf_counter()
+                buf = self._prompt_view(n, S)
+                lens = np.ones((n,), np.int64)
                 for r, (_, req) in enumerate(group):
-                    live = pk[r, :lens[r]]       # drop right-pad positions
-                    for j in range(self._n_eng):
-                        charge[j].append(live[:, j, :].reshape(-1))
-            t_now = time.perf_counter()
-            self.cursor.advance(emu_s if emu_s is not None else t_now - t_g)
-            for r, (slot, req) in enumerate(group):
-                tok = int(toks[r])
-                req.out.append(tok)
-                req.first_token_s = t_now
-                req.status = "running"
-                self.slots[slot] = req
-                self._tokens_host[slot] = tok
-                self.stats.prefills += 1
-                self.stats.generated_tokens += 1
-                self.stats.ttft_s_sum += t_now - req.submitted_s
-                if self.proposer is not None:
-                    self.proposer.begin(slot, req.prompt + req.out)
-                events.append((req, [tok], self._finish_if_done(slot),
-                               len(req.out) - 1))
+                    buf[r, :len(req.prompt)] = req.prompt
+                    lens[r] = len(req.prompt)
+                useful = int(lens.sum())
+                attrs["tokens"], attrs["pad"] = useful, n * S - useful
+                self.stats.prefill_waves += 1
+                self.stats.prefill_tokens += useful
+                self.stats.prefill_pad_tokens += n * S - useful
+                emu_s = None
+                if self.emulate_step_s is not None:
+                    emu_s = self._prefill_step_s(n * S)
+                    self.stats.emu_time_s += emu_s
+                batch = {"tokens": upload(buf, self.device),
+                         "lengths": upload(lens, self.device)}
+                self.state, self.tokens, packed = self._admit_wave_fn(
+                    self.params, self.state, self.tokens, batch,
+                    [s for s, _ in group])
+                packed = self._host(packed)          # ONE read per group
+                toks = packed[:n]
+                if self._pool_mode:
+                    pk = packed[n:].reshape(n, S, self._n_eng, -1)
+                    for r, (_, req) in enumerate(group):
+                        live = pk[r, :lens[r]]   # drop right-pad positions
+                        for j in range(self._n_eng):
+                            charge[j].append(live[:, j, :].reshape(-1))
+                t_now = time.perf_counter()
+                self.cursor.advance(emu_s if emu_s is not None
+                                    else t_now - t_g)
+                for r, (slot, req) in enumerate(group):
+                    tok = int(toks[r])
+                    req.out.append(tok)
+                    req.first_token_s = t_now
+                    req.status = "running"
+                    self.slots[slot] = req
+                    self._tokens_host[slot] = tok
+                    self.stats.prefills += 1
+                    self.stats.generated_tokens += 1
+                    self.stats.ttft_s_sum += t_now - req.submitted_s
+                    if self.proposer is not None:
+                        self.proposer.begin(slot, req.prompt + req.out)
+                    events.append((req, [tok], self._finish_if_done(slot),
+                                   len(req.out) - 1))
         if self._pool_mode:
             # one fused charge: the admission wave's prompt-key stream
             self._charge_wave([np.concatenate(c) for c in charge])
@@ -1048,6 +1060,11 @@ class Engine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return []
+        with trace.span("engine.decode_wave", live=len(active)):
+            return self._decode_live(active)
+
+    def _decode_live(self, active: list) -> list:
+        """``_decode_wave`` over the ``active`` slots."""
         t0 = time.perf_counter()
         self.cursor.next_wave()
         B = self.max_batch

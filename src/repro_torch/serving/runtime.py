@@ -29,6 +29,7 @@ import time
 from collections import deque
 from typing import Iterator, Optional
 
+from .. import trace
 from .engine import Engine, EngineStats, Request
 
 
@@ -175,38 +176,41 @@ class EngramRuntime:
         Returns every token emitted this step as per-request events, in
         emission order, each stamped with the virtual time of the wave
         that emitted it."""
-        eng = self.engine
-        t0 = time.perf_counter()
-        waves = []
-        raw = eng._admit()
-        if raw:
-            waves.append((raw, eng.cursor.now_s))
-        if eng.prefill_chunk is not None:
-            raw = eng._chunk_wave()
+        with trace.span("engine.step") as attrs:
+            eng = self.engine
+            t0 = time.perf_counter()
+            waves = []
+            raw = eng._admit()
             if raw:
                 waves.append((raw, eng.cursor.now_s))
-        raw = eng._spec_wave() if eng.spec is not None \
-            else eng._decode_wave()
-        if raw:
-            waves.append((raw, eng.cursor.now_s))
-        eng.stats.wall_s += time.perf_counter() - t0
-        eng.stats.v_time_s = eng.cursor.now_s
-        events = []
-        for raw, t_v in waves:
-            for req, emitted, finished, base in raw:
-                h = self.handles.get(req.rid)
-                for i, tok in enumerate(emitted):
-                    last = i == len(emitted) - 1
-                    ev = TokenEvent(rid=req.rid, token=tok, index=base + i,
-                                    finished=finished and last, t_s=t_v)
-                    events.append(ev)
-                    req.stamps.append(t_v)
-                    if h is not None:
-                        h._push(ev)
-                if finished:
-                    # terminal: drop the registry entry so a long-lived
-                    # runtime stays bounded
-                    self.handles.pop(req.rid, None)
+            if eng.prefill_chunk is not None:
+                raw = eng._chunk_wave()
+                if raw:
+                    waves.append((raw, eng.cursor.now_s))
+            raw = eng._spec_wave() if eng.spec is not None \
+                else eng._decode_wave()
+            if raw:
+                waves.append((raw, eng.cursor.now_s))
+            eng.stats.wall_s += time.perf_counter() - t0
+            eng.stats.v_time_s = eng.cursor.now_s
+            events = []
+            for raw, t_v in waves:
+                for req, emitted, finished, base in raw:
+                    h = self.handles.get(req.rid)
+                    for i, tok in enumerate(emitted):
+                        last = i == len(emitted) - 1
+                        ev = TokenEvent(rid=req.rid, token=tok,
+                                        index=base + i,
+                                        finished=finished and last, t_s=t_v)
+                        events.append(ev)
+                        req.stamps.append(t_v)
+                        if h is not None:
+                            h._push(ev)
+                    if finished:
+                        # terminal: drop the registry entry so a long-lived
+                        # runtime stays bounded
+                        self.handles.pop(req.rid, None)
+            attrs["events"] = len(events)
         return events
 
     def cancel(self, handle) -> bool:
