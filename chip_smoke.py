@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits nonzero before the
 result lines are printed):
 
   1. device   the card's name and power limit (nvidia-smi); TF32 off.
-  2. build    both CUDA kernels from ``src/repro_torch/csrc`` into
+  2. build    the three CUDA kernels from ``src/repro_torch/csrc`` into
               ``build/kernels/`` (one nvcc per source, in parallel).
   3. K1       engram_gather against its plain version, bit-equal, at the
               engram-27b table shape (16 x 2,265,088 x 160 bf16): one
@@ -21,6 +21,13 @@ result lines are printed):
               2100-token prompt; every timed call with its own
               cold weights; the split plan printed) and on small ragged
               shapes in bf16 and float32; timed.
+  4b. K3     decode_attn against its plain version on the card (head
+              dims 8, 16, 64, 128, 256; g 1, 5, 8; bf16 and float32; a
+              window and a softcap; positions 0, S - 1, past S and -1),
+              caches equal; timed at engram27b-pool.chat's decode shape
+              (32 rows, mean live 1227 of 4608) and engram27b-hbm.docqa's
+              (8 rows, 4222 of 6272) beside its byte bound, the plain
+              route and scaled_dot_product_attention.
   5. agree    the reduced engram-27b config served on the card (kernels)
               and on the CPU (plain versions) in float32: identical token
               streams and matching prefill logits.
@@ -302,8 +309,9 @@ result lines are printed):
               ``engram_strategy="local_kernel"``): (a) counted by
               ``roofline.counting.CountingMode`` on the card and traced
               on fake CUDA tensors and on the meta device: equal FLOPs,
-              bytes and K1 / K2 calls; the real step launches each
-              kernel twice, the traces never; (b) its device time
+              bytes and K1 / K2 / K3 calls; the real step launches K1
+              and K2 twice and K3 once a layer (36), the traces never;
+              (b) its device time
               (CUPTI) against the H100 roofline of its counts, the share
               at most ``ROOFLINE_SHARE_MAX``; (c) the fake trace's peak
               within ``PEAK_EST_TOL`` of ``max_memory_allocated`` and
@@ -349,9 +357,11 @@ reduced hubert-xlarge's encoder (dense and chunked) and internvl2-1b's
 prefill with patch tokens card = CPU, and the overload and tier runs on
 reduced jamba-1.5-large-398b and xlstm-125m.
 
-The line before the last is a JSON object listing both kernels (launches
-summed over phases 7 to 18, 20 to 23 and 27; training launches neither,
-and phase 26's counted step is reported on its own); the last is
+The line before the last is a JSON object listing the three kernels
+(launches summed over phases 7 to 18, 20 to 23 and 27; training launches
+none, and phase 26's counted step is reported on its own; K3 at
+engram27b-pool.chat's decode shape, its docqa shape among the measured
+rows); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -486,8 +496,18 @@ def device_ms(fn, args_list, warmup: int = 3,
     fill the profiler records over ``args_list`` (``device_ops``),
     summed, over the call count. Raises if it records no device time, or,
     with ``ops_per_call``, any other number of device operations than that
-    many per call (a lost record would read as a faster call)."""
-    ops = device_ops(fn, args_list, warmup)
+    many per call (a lost record would read as a faster call) in each of
+    ``CUPTI_ATTEMPTS`` sessions: a session that lost records after its
+    marker is measured again, as one that lost the marker is."""
+    import torch
+    for attempt in range(CUPTI_ATTEMPTS):
+        ops = device_ops(fn, args_list, warmup)
+        if ops_per_call is None or \
+                len(ops) == ops_per_call * len(args_list):
+            break
+        print(f"profiler: {len(ops)} device operations recorded for "
+              f"{len(args_list)} calls of {ops_per_call}; measuring again")
+        torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")  # evict L2
     us = sum(e.time_range.elapsed_us() for e in ops)
     check(us > 0, "the profiler recorded no device time")
     if ops_per_call is not None:
@@ -705,6 +725,139 @@ def check_k2(cfg, dev) -> dict:
           "cp.async, f32 37x98x30 scalar loads, f32 40x128x64 vector "
           "loads): within tolerance")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: K3
+# ---------------------------------------------------------------------------
+
+def k3_operands(gen, dev, B, S, Hkv, g, D, dtype, pos):
+    """q (B, g Hkv, D), the new rows (B, Hkv, D), caches (B, S, Hkv, D)
+    of unit normals in ``dtype``, and the positions ``pos`` (int32)."""
+    import torch
+    mk = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                device=dev).to(dtype)
+    return (mk(B, g * Hkv, D), mk(B, Hkv, D), mk(B, Hkv, D), mk(B, S, Hkv, D),
+            mk(B, S, Hkv, D), torch.tensor(pos, dtype=torch.int32,
+                                           device=dev))
+
+
+def k3_plain(g, window, softcap):
+    """The plain route of a decode step's attention (``attention.
+    plain_decode``: ``write_rows``, the mask, ``_sdpa`` with f32 scores) on
+    K3's operands."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.attention import plain_decode
+    cfg = SimpleNamespace(n_heads=g, n_kv_heads=1, attn_logit_softcap=softcap)
+    return lambda q, kn, vn, kc, vc, pos: plain_decode(
+        cfg, q[:, None], kn[:, None], vn[:, None], kc, vc, pos, window)[:, 0]
+
+
+def k3_library(q, kn, vn, kc, vc, pos):
+    """``scaled_dot_product_attention`` over the same keys (the new rows
+    written first by index): the yardstick, never the port's route."""
+    import torch
+    import torch.nn.functional as F
+    B, S = kc.shape[:2]
+    rows = torch.arange(B, device=kc.device)
+    at = pos.long().clamp(0, S - 1)
+    kc[rows, at] = kn
+    vc[rows, at] = vn
+    mask = torch.arange(S, device=kc.device) <= pos[:, None]
+    return F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=mask[:, None, None], enable_gqa=True)[:, :, 0]
+
+
+def time_k3(gen, dev, smi: str, label: str, B: int, S: int, Hkv: int,
+            g: int, D: int, mean_live: int) -> dict:
+    """K3 at a cell's decode shape, bf16: positions evenly spread about a
+    mean of ``mean_live`` live keys a row, against its plain version
+    (within one bf16 ulp) and timed (CUPTI) beside its byte bound (the
+    attended K and V, the new rows, q and the output over 3.35 TB/s), the
+    plain route and ``scaled_dot_product_attention``."""
+    import torch
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_ref)
+    from repro_torch.kernels.decode_attn.ops import cost, plan_chunk
+    half = min(mean_live - 1, S - mean_live)
+    pos = [mean_live - 1 + round(half * (2 * i / max(B - 1, 1) - 1))
+           for i in range(B)]
+    ops = k3_operands(gen, dev, B, S, Hkv, g, D, torch.bfloat16, pos)
+    q, kn, vn, kc, vc, p = ops
+    kc2, vc2 = kc.clone(), vc.clone()
+    out = decode_attention(q, kn, vn, kc, vc, p, group=g)
+    ref = decode_attention_ref(q, kn, vn, kc2, vc2, p, group=g)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    check(torch.equal(kc, kc2) and torch.equal(vc, vc2),
+          f"K3 {label}: the caches differ from the plain version's")
+    check(torch.equal(out, decode_attention(q, kn, vn, kc, vc, p, group=g)),
+          f"K3 {label}: not bit-identical across two calls")
+    err = (out.float() - ref.float()).abs().max().item()
+    del kc2, vc2, ref
+    keys = sum(x + 1 for x in pos)
+    flops, nbytes = cost(g * Hkv, Hkv, Hkv, D, 2, B, keys)
+    b_ms, b_by = bound(nbytes, flops)
+    k3 = lambda *a: decode_attention(*a, group=g)  # noqa: E731
+    ms = device_ms(k3, [ops] * 20, ops_per_call=1)
+    plain = device_ms(k3_plain(g, 0, 0.0), [ops] * 5)
+    lib = device_ms(k3_library, [ops] * 5)
+    check(ms >= b_ms, f"K3 {label}: {ms:.5f} ms is below its bound "
+          f"{b_ms:.6f} ms: the timing is at fault")
+    print(f"K3 decode_attn {label} [{smi}]: B={B} S={S} Hkv={Hkv} g={g} "
+          f"D={D} bf16, live keys {min(pos) + 1} to {max(pos) + 1} (mean "
+          f"{keys / B:.1f}), split {plan_chunk(B * Hkv, S)} positions; "
+          f"max|err| {err:.3e} within rtol=2^-7 atol=1e-3 of the plain "
+          f"version, caches equal, bit-identical across calls; device ms: "
+          f"kernel {ms:.5f}, plain route {plain:.5f}, "
+          f"scaled_dot_product_attention {lib:.5f}, bound {b_ms:.6f} "
+          f"({b_by}: {nbytes / 1e6:.1f} MB, {100 * b_ms / ms:.1f} % of "
+          f"bound); per call with launch: kernel "
+          f"{call_ms(k3, [ops] * 20):.5f}")
+    del ops, q, kn, vn, kc, vc, out
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, mean_live=keys / B)
+
+
+def check_k3(dev, smi: str) -> dict:
+    """K3 against its plain version on the card over head dims, group
+    sizes, both dtypes, a window and a softcap, ragged positions (0, S - 1,
+    past S, negative: the clamp and a row with no valid key); then timed
+    at engram27b-pool.chat's decode shape (32 rows, mean live 1227 of
+    4608) and engram27b-hbm.docqa's (8 rows, 4222 of 6272)."""
+    import torch
+    from repro_torch.kernels.decode_attn import (decode_attention,
+                                                 decode_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n = 0
+    for D in (8, 16, 64, 128, 256):
+        for g in (1, 5, 8):
+            for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                               (torch.float32, F32_TOL)):
+                for window, cap in ((0, 0.0), (37, 50.0)):
+                    S = 300
+                    pos = [0, S - 1, S + 5, -1, 17, 150, 299 + 40, 63]
+                    q, kn, vn, kc, vc, p = k3_operands(gen, dev, 8, S, 2, g,
+                                                       D, dtype, pos)
+                    kc2, vc2 = kc.clone(), vc.clone()
+                    kw = dict(window=window, softcap=cap, group=g)
+                    out = decode_attention(q, kn, vn, kc, vc, p, **kw)
+                    ref = decode_attention_ref(q, kn, vn, kc2, vc2, p, **kw)
+                    torch.testing.assert_close(out.float(), ref.float(),
+                                               **tol)
+                    check(torch.equal(kc, kc2) and torch.equal(vc, vc2),
+                          f"K3 D={D} g={g} {dtype}: caches differ")
+                    n += 1
+    torch.cuda.synchronize()
+    print(f"K3 decode_attn: {n} cases (D 8/16/64/128/256 x g 1/5/8 x bf16/"
+          f"f32 x global/window 37 + softcap 50; positions 0, S-1, past S, "
+          f"-1) within tolerance of the plain version, caches equal")
+    return {"pool_chat": time_k3(gen, dev, smi, "pool.chat", 32, 4608, 8, 5,
+                                 128, 1227),
+            "docqa": time_k3(gen, dev, smi, "docqa", 8, 6272, 8, 5, 128,
+                             4222)}
 
 
 # ---------------------------------------------------------------------------
@@ -1287,18 +1440,36 @@ def draw_params(cfg, dev):
     return params
 
 
+# the kernels' launch counters, K1, K2 and K3, as ``read_launches`` names
+LAUNCH_KEYS = ("engram_gather", "gated_fuse", "decode_attention")
+
+
+def no_launches() -> dict:
+    return dict.fromkeys(LAUNCH_KEYS, 0)
+
+
 def reset_launches() -> None:
+    from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.engram_gather import gather_rows
     from repro_torch.kernels.gated_fuse import engram_gated_fuse
     gather_rows.launches = 0
     engram_gated_fuse.launches = 0
+    decode_attention.launches = 0
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.engram_gather import gather_rows
     from repro_torch.kernels.gated_fuse import engram_gated_fuse
     return {"engram_gather": gather_rows.launches,
-            "gated_fuse": engram_gated_fuse.launches}
+            "gated_fuse": engram_gated_fuse.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def n_gqa_layers(cfg) -> int:
+    """Layers whose decode launches K3: GQA attention layers."""
+    return 0 if cfg.attn_impl == "mla" else sum(
+        t == "attn" for t in cfg.layer_types)
 
 
 def drive(eng, rt, on_step=None) -> tuple[list, float]:
@@ -1383,6 +1554,9 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> tuple:
     check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
           f"K2 launches {launches['gated_fuse']} != 2 x "
           f"({st.prefill_waves} prefill groups + {st.decode_steps} waves)")
+    check(launches["decode_attention"] == n_gqa_layers(cfg) * st.decode_steps,
+          f"K3 launches {launches['decode_attention']} != one per attention "
+          f"layer of {st.decode_steps} waves")
     check(len(pulls) == st.decode_steps and all(p == 1 for p in pulls[1:]),
           f"device->host reads per step {pulls}: want 1 per steady wave")
     logits, _ = eng._prefill_fn(eng.params, {
@@ -1397,8 +1571,9 @@ def serve_once(cfg, eng, rt, prompts, dev, smi: str, rep: int) -> tuple:
     print(f"serve run {rep + 1}: {len(prompts)} requests x 16 tokens, "
           f"{st.prefill_waves} prefill group(s), {st.decode_steps} decode "
           f"waves; K1 launches {launches['engram_gather']}, K2 launches "
-          f"{launches['gated_fuse']}; device->host reads per step {pulls}; "
-          f"no other sync")
+          f"{launches['gated_fuse']}, K3 launches "
+          f"{launches['decode_attention']}; device->host reads per step "
+          f"{pulls}; no other sync")
     print(f"serve run {rep + 1} [{smi}]: decode "
           f"{decode_tokens / decode_s:.2f} tok/s ({decode_tokens} tokens in "
           f"{decode_s * 1e3:.1f} ms of decode waves), mean TTFT "
@@ -1506,6 +1681,10 @@ def serve_long_prompt(cfg, params, dev, smi: str, flags=None,
     check(launches["gated_fuse"] == 2 * (st.prefill_waves + st.decode_steps),
           f"{label}: K2 launches {launches['gated_fuse']} != 2 x "
           f"({st.prefill_waves} prefill groups + {st.decode_steps} waves)")
+    check(launches["decode_attention"] == n_gqa_layers(cfg)
+          * st.decode_steps, f"{label}: K3 launches "
+          f"{launches['decode_attention']} != one per attention layer of "
+          f"{st.decode_steps} waves")
     check(pulls == [3] + [1] * (st.decode_steps - 1),
           f"{label}: device->host reads per step {pulls}")
     kv = sum(t.numel() * t.element_size()
@@ -1515,7 +1694,9 @@ def serve_long_prompt(cfg, params, dev, smi: str, flags=None,
           f"monolithic admission after a {len(warm)}-token warm-up, "
           f"chunked attention in every attention layer; K1 "
           f"launches {launches['engram_gather']}, K2 launches "
-          f"{launches['gated_fuse']}; reads per step {pulls}; no other sync")
+          f"{launches['gated_fuse']}, K3 launches "
+          f"{launches['decode_attention']}; reads per step {pulls}; no "
+          f"other sync")
     print(f"{label} [{smi}]: TTFT {st.mean_ttft_s * 1e3:.2f} ms, run "
           f"{run_s:.3f} s, peak memory {peak / 1e9:.2f} GB, decode state "
           f"{kv / 1e9:.2f} GB (max_batch 8 x max_len 4096)")
@@ -1562,7 +1743,7 @@ def serve_chunked(cfg, params, dev, smi: str, C: int = 16) -> dict:
 
     eng._chunk_wave = timed("chunk", eng._chunk_wave)
     eng._decode_wave = timed("decode", eng._decode_wave)
-    total = {"engram_gather": 0, "gated_fuse": 0}
+    total = no_launches()
     for run in (1, 2):
         eng.reset_stats()
         eng.store.reset_stats()
@@ -1660,7 +1841,7 @@ def serve_spec(cfg, params, dev, smi: str, prompts, streams) -> dict:
             ("b", SpecConfig(max_draft=3), None, 8),
             ("c", SpecConfig(max_draft=3, proposer="draft", draft_layers=1),
              None, 8))
-    total = {"engram_gather": 0, "gated_fuse": 0}
+    total = no_launches()
     for name, sp, proposer, max_new in runs:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1845,7 +2026,9 @@ def serve_overload(cfg, params, dev, smi: str, prompts, streams,
     new tokens) preempt 2 of them. (b) Idle spill, no policy: 12 requests
     of 16 new tokens (the 8 prompts, then prompts 0 to 3) into 8 slots.
     Every stream must be phase 7's (its first 8 tokens for an interactive
-    request); (a) must preempt and resume twice, spill and restore the
+    request), the last 4 of (b) those of the same 12 requests served
+    without parking (admitted, as in (b), in a group of 4 rows); (a) must
+    preempt and resume twice, spill and restore the
     same bytes, launch K1 once per decode wave, read once per preemption
     on top of the reference's budget and sync nowhere else. Returns the
     kernels' launches summed over both runs."""
@@ -1858,8 +2041,25 @@ def serve_overload(cfg, params, dev, smi: str, prompts, streams,
     ccfg = dataclasses.replace(cfg, engram=dataclasses.replace(
         cfg.engram, store=StoreConfig(cache_rows=1 << 20,
                                       admission="tinylfu")))
-    total = {"engram_gather": 0, "gated_fuse": 0}
+    total = no_launches()
     cxl_Bps = TIERS["CXL"].bandwidth_Bps
+    # (b) admits prompts 0 to 3 again as one group of 4 rows once 4 slots
+    # park, and in bf16 a prefill row depends on its group's row count
+    # (K2's split plan and the GEMMs' tiles follow T): its streams are held
+    # to the same 12 requests served without parking, where the last 4
+    # wait for the first 8 to finish and are admitted as one group of 4;
+    # the first 8 of those are phase 7's
+    ref = Engine(ccfg, params=params, pool="CXL", max_batch=8, max_len=512,
+                 prompt_bucket=32, device=dev, emulate_step_s=emulate_step_s)
+    ref.warmup(prompts)
+    rt = ref.runtime()
+    hs = [rt.submit(p, max_new=16) for p in prompts + prompts[:4]]
+    drive(ref, rt)
+    unparked = [h.tokens for h in hs]
+    check(unparked[:len(prompts)] == streams[:len(prompts)],
+          "overload: the unparked run's streams of phase 7's group differ "
+          "from phase 7's")
+    del ref, rt, hs
     for run in ("a", "b"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -1897,14 +2097,12 @@ def serve_overload(cfg, params, dev, smi: str, prompts, streams,
         st = eng.stats
         on_step()
         spills, restores = timer.close()
-        want = [streams[i] for i in range(len(prompts))]
-        if run == "a":
-            want += [s[:8] for s in streams[:2]]
-        else:
-            want += streams[:4]
+        want = [s[:8] for s in streams[:2]] if run == "a" else \
+            unparked[len(prompts):]
+        want = [streams[i] for i in range(len(prompts))] + want
         got = [h.tokens for h in handles]
         check(got == want, f"overload run {run}: streams {got} differ from "
-              f"phase 7's {want}")
+              f"the unparked ones {want}")
         check(launches["engram_gather"] == st.decode_steps,
               f"overload run {run}: K1 launches {launches['engram_gather']} "
               f"!= one per {st.decode_steps} decode waves")
@@ -1950,14 +2148,16 @@ def serve_overload(cfg, params, dev, smi: str, prompts, streams,
                 if run == "a" else
                 f"idle_spill_tokens=4, {len(handles)} requests into 8 slots:"
                 f" {st.idle_spills} idle spills")
+        same = "phase 7's" if run == "a" else \
+            "phase 7's and the unparked run's"
         print(f"overload run {run}: {what}, "
               f"{st.resumes} resumes, {st.kv_spill_bytes} B spilled and "
               f"restored in {st.kv_spill_pages} pages, {st.decode_steps} "
               f"decode waves; K1 {launches['engram_gather']}, K2 "
               f"{launches['gated_fuse']} launches; reads per step {pulls}; "
               f"hot-row cache evictions {cache.evictions}, hit rate "
-              f"{eng.store.stats().hit_rate:.4f}; streams equal to phase "
-              f"7's; no other sync")
+              f"{eng.store.stats().hit_rate:.4f}; streams equal to {same}; "
+              f"no other sync")
         for i, (ms, n) in enumerate(spills):
             print(f"overload run {run} [{smi}]: spill {i + 1}: {n} B "
                   f"device->host in {ms:.3f} ms ({n / ms / 1e6:.3f} GB/s); "
@@ -1990,7 +2190,7 @@ def serve_tiers(cfg, params, dev, smi: str, prompts, streams,
     from repro_torch.configs import StoreConfig
     from repro_torch.serving import Engine
 
-    total = {"engram_gather": 0, "gated_fuse": 0}
+    total = no_launches()
     for run in ("a", "b"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -2290,7 +2490,7 @@ def serve_fleet(cfg, params, dev, smi: str, prompts, streams,
     w32 = fleet_params["head"]["w32"]
     kw = dict(params=fleet_params, device=dev, max_batch=8, max_len=512,
               prompt_bucket=32)
-    total = {"engram_gather": 0, "gated_fuse": 0}
+    total = no_launches()
 
     def add(launches):
         for k in total:
@@ -4748,7 +4948,7 @@ def train_agree(dev, smi: str) -> dict:
                 loss[k] = float(m["loss"])
             rel.append(abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]))
             check(rel[-1] <= 1e-4, f"{cfg.name}: step {s + 1} loss {loss}")
-        check(read_launches() == {"engram_gather": 0, "gated_fuse": 0},
+        check(read_launches() == no_launches(),
               f"{cfg.name}: training launched {read_launches()}")
         r_card = param_ratio(runs["card"], cpu)
         r_wit = [param_ratio(runs[w], cpu) for w in wit]
@@ -4918,7 +5118,7 @@ def train_gemma3(dev, smi: str) -> dict:
     check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
     check(last < first, f"{label}: the loss did not fall: {losses}")
-    check(read_launches() == {"engram_gather": 0, "gated_fuse": 0},
+    check(read_launches() == no_launches(),
           f"{label}: training launched {read_launches()}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80, f"{label}: peak device memory {peak:.2f} GB")
@@ -5231,7 +5431,7 @@ def train_mesh_agree(dev, smi: str) -> dict:
                 continue
             key = f"{arch}/{strat}"
             for r in ranks:
-                check(r["launches"] == {"engram_gather": 0, "gated_fuse": 0},
+                check(r["launches"] == no_launches(),
                       f"mesh train: rank {r['coords']} launched "
                       f"{r['launches']}")
             got = ranks[0]
@@ -5456,7 +5656,7 @@ def train_mesh_gemma3(dev, smi: str, B: int = 2, S: int = 1024) -> dict:
     torch.cuda.empty_cache()
     out = {"spawn_s": run_s, "one_process_loss": one}
     for r in ranks:
-        check(r["launches"] == {"engram_gather": 0, "gated_fuse": 0},
+        check(r["launches"] == no_launches(),
               f"gemma3 mesh: rank {r['coords']} launched {r['launches']}")
     for strat in GEMMA3_STRATEGIES:
         rs = [r[strat] for r in ranks]
@@ -5676,7 +5876,7 @@ def mesh_layout_27b(dev, smi: str) -> dict:
     stream: their logits within max(``WITNESS_FLOOR27``, 2 x the median
     witness) of the largest logit (phase 24's rule), their argmax equal
     to the stream wherever one process's top-2 margin exceeds that bound
-    in logits; K1 and K2 launched on every rank. (b) Each rank's
+    in logits; K1, K2 and K3 launched on every rank. (b) Each rank's
     parameter bytes equal, to the byte, the reference's ``shard_shape``
     bytes with ``whole_leaves`` whole; the ranks' peaks summed under 80
     GB. (c) A decode step's host-clock time on rank 0 and its share in
@@ -5688,7 +5888,8 @@ def mesh_layout_27b(dev, smi: str) -> dict:
     query head on every rank, the partial softmaxes combined by a pmax
     and two psums a layer): the logits held to one process's by (a)'s
     rule, greedy tokens equal past the margin, K1 and K2 launched on
-    every rank; the gap to (a)'s logits, a decode step's time and
+    every rank and K3 on none (decode under ``kv_seq`` keeps the plain
+    route); the gap to (a)'s logits, a decode step's time and
     collective share and each rank's peak printed."""
     import tempfile
     import torch
@@ -5744,7 +5945,8 @@ def mesh_layout_27b(dev, smi: str) -> dict:
         check(torch.equal(r["logits"], ranks[0]["logits"]),
               f"{label}: the ranks' logits differ")
         check(r["launches"]["engram_gather"] > 0 and
-              r["launches"]["gated_fuse"] > 0,
+              r["launches"]["gated_fuse"] > 0 and
+              r["launches"]["decode_attention"] > 0,
               f"{label}: rank {r['whole']} launched {r['launches']}")
     got = ranks[0]["logits"]
     share = (got - one).abs().max().item() / top
@@ -5762,8 +5964,11 @@ def mesh_layout_27b(dev, smi: str) -> dict:
     for r, kv in zip(ranks, kvs):
         check(torch.equal(kv["logits"], kvs[0]["logits"]),
               f"{label} (d): the ranks' logits differ")
+        # under kv_seq decode combines the ranks' partial softmaxes in the
+        # plain route: K3 launches nowhere
         check(kv["launches"]["engram_gather"] > 0 and
-              kv["launches"]["gated_fuse"] > 0,
+              kv["launches"]["gated_fuse"] > 0 and
+              kv["launches"]["decode_attention"] == 0,
               f"{label} (d): rank {r['whole']} launched {kv['launches']}")
         check(kv["kv_shapes"] == [(len(toks), MAX_LEN27 // world,
                                    cfg.n_kv_heads, cfg.head_dim)],
@@ -6048,7 +6253,7 @@ def counted_decode(cfg, params, dev, smi: str, B: int = 8,
     from repro_torch.models.model import build_decode_step, init_decode_state
     from repro_torch.models.transformer import RunFlags
     from repro_torch.roofline.analysis import roofline
-    from repro_torch.roofline.counting import K1, K2, CountingMode
+    from repro_torch.roofline.counting import K1, K2, K3, CountingMode
     flags = RunFlags(engram_strategy="local_kernel")
     step = build_decode_step(cfg, flags)
     tree = with_f32_head(params)
@@ -6097,17 +6302,20 @@ def counted_decode(cfg, params, dev, smi: str, B: int = 8,
         for k in ("flops_dot", "bytes_accessed", "kernel_calls"):
             check(st[k] == rs[k], f"dryrun step: fake {name} {k} {st[k]} "
                   f"!= the real step's {rs[k]}")
-        check(t["launches"] == {"engram_gather": 0, "gated_fuse": 0},
+        check(t["launches"] == no_launches(),
               f"dryrun step: the fake {name} trace launched {t['launches']}")
     print(f"dryrun step [{smi}]: real on {dev}: flops_dot "
           f"{rs['flops_dot']:.6e}, bytes {rs['bytes_accessed']:.6e}, "
           f"{rs['n_ops']:.0f} operations, kernels {rs['kernel_calls']}, "
           f"launches {real_launch}: equal to both fake traces")
     if dev.type == "cuda":
-        check(rs["kernel_calls"] == {K1: 2, K2: 2},
+        n_attn = n_gqa_layers(cfg)
+        check(rs["kernel_calls"] == {K1: 2, K2: 2, K3: n_attn},
               f"dryrun step: kernel calls {rs['kernel_calls']}, want K1 and "
-              "K2 twice (one per Engram layer)")
-        check(real_launch == {"engram_gather": 2, "gated_fuse": 2},
+              f"K2 twice (one per Engram layer), K3 {n_attn} times (one "
+              "per attention layer)")
+        check(real_launch == {"engram_gather": 2, "gated_fuse": 2,
+                              "decode_attention": n_attn},
               f"dryrun step: the real step launched {real_launch}")
 
     # (b) the step's device time against the roofline of its counts
@@ -6197,7 +6405,7 @@ def main() -> int:
           f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    logs = build(["engram_gather", "gated_fuse"])
+    logs = build(["engram_gather", "gated_fuse", "decode_attn"])
     print(f"build: {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
@@ -6208,6 +6416,7 @@ def main() -> int:
     cfg = get_config("engram-27b")
     k1 = check_k1(cfg, dev)
     k2 = check_k2(cfg, dev)
+    k3 = check_k3(dev, smi)
     check_agreement(dev)
     check_agreement_chunked(dev)
     check_agreement_spec(dev)
@@ -6396,10 +6605,16 @@ def main() -> int:
              source="src/repro_torch/csrc/gated_fuse.cu",
              replaces="src/repro/kernels/gated_fuse/gated_fuse.py:36",
              launches=launches["gated_fuse"], **k2[8]),
+        dict(name="decode_attn", route="cuda",
+             source="src/repro_torch/csrc/decode_attn.cu", replaces=None,
+             launches=launches["decode_attention"], **k3["pool_chat"]),
     ]
     print("shapes: engram_gather at 2 tables x 128 rows (one decode wave, "
           "one launch; library_ms is two index_selects), gated_fuse at T=8 "
-          "(decode, and each unrolled verify step); launches summed over "
+          "(decode, and each unrolled verify step), decode_attn at "
+          "engram27b-pool.chat's decode layer (32 rows x 4608 positions, "
+          "mean live 1227; library_ms is scaled_dot_product_attention; "
+          "docqa's shape is decode_attn_docqa below); launches summed over "
           "the serve, long-prompt, chunked, spec, overload, tiers, fleet, "
           "host-table (engram-27b, deepseek-coder-33b, gemma2-27b, "
           "engram-40b), deepseek-v2-236b (9 layers), jamba-1.5-large-398b "
@@ -6492,6 +6707,7 @@ def main() -> int:
                         "gated_fuse_T128": k2[128],
                         "gated_fuse_T256": k2[256],
                         "gated_fuse_T2112": k2[2112],
+                        "decode_attn_docqa": k3["docqa"],
                         "train_agree_reduced_f32": tr_agree,
                         "train_gemma3_1b_B4_S1024": tr,
                         "train_mesh": tr_mesh,

@@ -5,9 +5,16 @@ Each source under ``repro_torch/csrc/`` is compiled on first use into
 of the source and the compiler flags, so an edited source rebuilds and an
 unchanged one is loaded as built. The sources expose a plain C interface
 (pointers, sizes and the stream as ``void*``/``int64``) and include no
-PyTorch header, which keeps a build to seconds. Every C entry returns
+PyTorch header, which keeps a build to seconds; ``--split-compile=0``
+optimises a source's kernel instances on every core (decode_attn's 31 in
+18 s, not 39, on the card's machine). Every C entry returns
 ``cudaGetLastError()`` after its launch; the Python wrappers raise on a
 nonzero code.
+
+The first ``load`` that finds its library missing builds every source
+whose library is missing, one nvcc process each, all at once: a process
+that serves the port needs them all, and in parallel they build in the
+time of the slowest.
 
 There is deliberately no fallback: without ``nvcc`` a CUDA tensor cannot
 be served, and ``load`` raises.
@@ -25,7 +32,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -43,6 +51,11 @@ def nvcc() -> str:
 
 def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
+
+
+def kernel_names() -> list[str]:
+    """Every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def lib_path(name: str) -> Path:
@@ -82,12 +95,13 @@ def build(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library for ``name``, built on first use."""
+    """The kernel library for ``name``, built on first use (with every
+    other missing one, in parallel)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             path = lib_path(name)
             if not path.exists():
-                build([name])
+                build(kernel_names())
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib

@@ -1,16 +1,29 @@
 """GQA attention: prefill path and per-slot decode path over a KV cache
 (PyTorch port of ``repro.models.attention``).
 
-Plain torch ops only, mirroring the reference's ``_sdpa``: f32 scores,
-masked entries set to ``NEG_INF = -2**30`` (not ``-inf``, so a fully masked
-row softmaxes to uniform weights instead of NaN), softmax, then the value
-product in the cache's dtype. A prefill longer than ``chunk_threshold``
-tokens takes ``_chunk_attn``: flash-style two-level chunking with an
-online softmax in f32 that never computes a KV block past the causal
-frontier, nor, on a sliding-window (``local``) layer, one wholly before
-the window. An encoder (``cfg.is_encoder``) attends without the causal
-mask. The reference has no attention kernel of its own; these are the
-counterparts of the XLA ops it uses.
+Prefill, the encoder and decode on the CPU are plain torch ops, mirroring
+the reference's ``_sdpa``: f32 scores, masked entries set to ``NEG_INF =
+-2**30`` (not ``-inf``, so a fully masked row softmaxes to uniform weights
+instead of NaN), softmax, then the value product in the cache's dtype. A
+prefill longer than ``chunk_threshold`` tokens takes ``_chunk_attn``:
+flash-style two-level chunking with an online softmax in f32 that never
+computes a KV block past the causal frontier, nor, on a sliding-window
+(``local``) layer, one wholly before the window. An encoder
+(``cfg.is_encoder``) attends without the causal mask. The reference has no
+attention kernel of its own; these are the counterparts of the XLA ops it
+uses.
+
+Decode on any other device (the card; meta and fake tensors trace it) is
+one call of K3, ``kernels.decode_attn`` (``repro_torch::decode_attention``):
+it writes the new k and v rows into the caches and attends each row's
+valid keys only (the keys the plain route's mask lets through; the others
+weigh exp(NEG_INF - m) = 0 there), reading the caches in place in their
+own dtype: f32 sums of the exact products of q and k, an f32 softmax and
+value sum, the output rounded to the cache's dtype once. Both orders of
+the score product (``bf16_scores`` or not) compute that same sum, so the
+flag does not change the card's decode route, nor does
+``decode_window_slice`` (the kernel reads only the window's keys). Decode
+under ``kv_seq`` keeps the plain route on every device (below).
 
 ``bf16_scores`` (``RunFlags.attn_bf16_scores``) is the reference's
 ``preferred_element_type=f32`` score product: q and k stay in their own
@@ -61,6 +74,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.decode_attn import decode_attention as k3_decode_attention
 from ..sharding import collectives as coll
 from ..sharding.rules import current_ctx
 from .layers import (apply_rope, mesh_blocks, rmsnorm, row_psum, softcap,
@@ -454,43 +468,69 @@ def decode_attention(cfg: ModelConfig, params, h, cache, positions,
     ``kv_seq`` its positions: the module docstring); positions (B,)
     current index per sequence. Returns (out, cache).
 
-    The new k/v rows are written INTO ``cache`` at each row's position
-    (``write_rows``): an in-place scatter instead of the reference's
+    The new k/v rows are written INTO ``cache`` at each row's position,
+    clamped into the cache: an in-place scatter instead of the reference's
     functional copy of the whole cache per layer per step.
 
-    ``window_slice``: a ``local`` layer attends a gathered window-sized
-    slice of the cache (rows ``start .. start + w - 1``, ``start`` clamped
-    into the cache) instead of masking the whole context; the gather's
-    indices stay on the device. Under ``kv_seq`` it takes the masked
-    route over the rank's block (the same keys valid, the masked ones
-    weighing 0). ``bf16_scores``: see ``_sdpa``."""
-    B = h.shape[0]
+    On the card (any device but the CPU, without ``kv_seq``) the write and
+    the attention are one launch of K3 (``kernels.decode_attn``): row b
+    attends keys ``max(0, pos_b - window + 1) .. min(pos_b, Smax - 1)``
+    (from 0 on a global layer), the keys the plain route's mask lets
+    through, every key with equal weight where it lets none through, as
+    the plain route's softmax over ``NEG_INF`` does. Under a sharding
+    context the kernel reads the cache block's KV heads in place, query
+    head i of the plan reading KV head ``(h0 + i) // g - c0``, the heads
+    ``kv_for_queries`` gives the plain route. ``bf16_scores`` and
+    ``window_slice`` do not change this route (module docstring). On the
+    CPU, and under ``kv_seq``, ``plain_decode``."""
     seq = kv_split()[0]
     params, plan = mesh_layer(cfg, params, seq)
     q, k, v = _qkv(cfg, params, h, positions[:, None], kind, plan)
-
     kc, vc = cache["k"], cache["v"]
-    S = kc.shape[1]
+    window = _window(cfg, kind)
+    if kc.device.type != "cpu" and not seq:
+        g = cfg.n_heads // cfg.n_kv_heads
+        out = k3_decode_attention(
+            q[:, 0], k[:, 0], v[:, 0], kc, vc, positions, window=window,
+            softcap=cfg.attn_logit_softcap, group=g,
+            q_offset=0 if plan is None else plan.h0 - plan.c0 * g)[:, None]
+    else:
+        out = plain_decode(cfg, q, k, v, kc, vc, positions, window,
+                           plan=plan, seq=seq, bf16_scores=bf16_scores,
+                           window_slice=window_slice)
+    return _out(plan, params["wo"], out, cfg.head_dim), cache
+
+
+def plain_decode(cfg: ModelConfig, q, k, v, kc, vc, positions, window: int,
+                 *, plan=None, seq: tuple = (), bf16_scores: bool = False,
+                 window_slice: bool = False):
+    """``decode_attention``'s plain route from its projections, q (B,1,Hq,D)
+    and the new k, v (B,1,Hkv,D): ``write_rows`` into kc, vc, the key
+    positions' mask and ``_sdpa``; out (B,1,Hq,D). ``window_slice``: a
+    ``local`` layer attends a gathered window-sized slice of the cache
+    (rows ``start .. start + w - 1``, ``start`` clamped into the cache)
+    instead of masking the whole context; the gather's indices stay on the
+    device. Under ``kv_seq`` it takes the masked route over the rank's
+    block (the same keys valid, the masked ones weighing 0).
+    ``bf16_scores``: see ``_sdpa``."""
+    B, S = kc.shape[:2]
     write_rows(kc, k[:, 0], positions, seq)
     write_rows(vc, v[:, 0], positions, seq)
-
-    window = _window(cfg, kind)
     if window_slice and 0 < window < S and not seq:
-        rows = torch.arange(B, device=h.device)
+        rows = torch.arange(B, device=kc.device)
         start = (positions - (window - 1)).clamp(0, S - window)
-        kpos = start[:, None] + torch.arange(window, device=h.device)
+        kpos = start[:, None] + torch.arange(window, device=kc.device)
         k_att, v_att = kc[rows[:, None], kpos], vc[rows[:, None], kpos]
         valid = kpos <= positions[:, None]         # window via the slice
     else:
         k_att, v_att = kc, vc
-        kpos = seq_start(S, seq) + torch.arange(S, device=h.device)[None]
+        kpos = seq_start(S, seq) + torch.arange(S, device=kc.device)[None]
         valid = kpos <= positions[:, None]
         if window > 0:
             valid &= kpos > positions[:, None] - window
     k_att, v_att = kv_for_queries(plan, cfg.n_heads // cfg.n_kv_heads,
                                   k_att, v_att)
-    out = _sdpa(cfg, q, k_att, v_att, valid[:, None, :], bf16_scores, seq)
-    return _out(plan, params["wo"], out, cfg.head_dim), cache
+    return _sdpa(cfg, q, k_att, v_att, valid[:, None, :], bf16_scores, seq)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -51,10 +51,13 @@ class RunFlags:
     chunk_threshold: int = 2048
     logits_chunk: int = 2048
     # score products from bf16 q/k (or latents) summed in f32, without f32
-    # copies of the KV cache (attention.f32_bmm)
+    # copies of the KV cache (attention.f32_bmm): prefill, MLA, and GQA
+    # decode on the CPU; GQA decode on the card runs K3, which sums those
+    # same products in f32 either way
     attn_bf16_scores: bool = False
     # local layers: slice the cache to the window during decode instead of
-    # masking the full context
+    # masking the full context (the CPU's route; K3 on the card reads only
+    # the window's keys either way)
     decode_window_slice: bool = False
     # vocab-sharded embedding under a mesh: masked local take + all_reduce
     # (layers.embed_lookup_local) instead of a whole-table lookup

@@ -12,9 +12,10 @@ keys:
                          dots: ``mm``, ``bmm``, ``addmm``, ``baddbmm``,
                          their ``out_dtype`` overloads, ``mv``, ``dot``
                          and ``torch._grouped_mm`` at 2 · rows · K · N,
-                         and K2 (``repro_torch::gated_fuse``) at
-                         2 · T · d · (d + F). Convolutions and elementwise
-                         operations are not counted, as in the reference.
+                         K2 (``repro_torch::gated_fuse``) at
+                         2 · T · d · (d + F), and K3 (below).
+                         Convolutions and elementwise operations are not
+                         counted, as in the reference.
   * ``bytes_accessed`` — each operation's operands plus its result. Eager
                          execution has no fusion, so every operation is a
                          kernel boundary (the reference's fusion
@@ -31,8 +32,18 @@ keys:
                          rows read and written and its ids, K2 the bytes of
                          its bound (h, e, both weights read, the output
                          written): the numerators of the kernels' bounds in
-                         ``chip_smoke.py``. An expanded operand is charged
-                         its distinct elements.
+                         ``chip_smoke.py``. K3
+                         (``repro_torch::decode_attention``) is charged
+                         ``kernels.decode_attn.ops.cost``: its score and
+                         value products (in ``flops_dot``, 4 · Hq · D a
+                         key) and the bytes of the keys it may attend, K
+                         and V read once, plus the new rows, q and the
+                         output. The positions are on the device, so a
+                         row's keys are the bound that the shapes give:
+                         the cache's length, or the window where that is
+                         shorter, the same on real and fake tensors. An
+                         expanded operand is charged its distinct
+                         elements.
   * ``collectives``    — ``analysis.collective_stats`` of the c10d calls,
                          each with its payload and its process group's
                          size.
@@ -77,6 +88,8 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from ..kernels.decode_attn.ops import cost as k3_cost
+from ..kernels.decode_attn.ops import kv_heads_read
 from ..models.loops import abstract, sampling
 from .analysis import collective_stats
 
@@ -124,6 +137,7 @@ _C10D = {"c10d::allreduce_": "all-reduce",
 
 K1 = "repro_torch::engram_gather"
 K2 = "repro_torch::gated_fuse"
+K3 = "repro_torch::decode_attention"
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -164,12 +178,19 @@ def _dot_flops(name: str, args, out: torch.Tensor) -> float:
 
 
 def _kernel_stats(name: str, args, out: torch.Tensor) -> tuple:
-    """(flops, bytes) of a call of K1 or K2, from its operands."""
+    """(flops, bytes) of a call of K1, K2 or K3, from its operands."""
     if name == K1:
         tables, gid = args
         L, N = gid.shape
         row = tables[0].shape[-1] * tables[0].element_size()
         return 0.0, L * (2 * N * row + 8 * N)
+    if name == K3:
+        q, _, _, k_cache, _, _, window, _, group, q_offset = args
+        B, S, Hc, D = k_cache.shape
+        keys = min(S, window) if window > 0 else S
+        return k3_cost(q.shape[1], kv_heads_read(q.shape[1], group,
+                                                 q_offset),
+                       Hc, D, k_cache.element_size(), B, B * keys)
     h, e, wg, wp = args
     d, F = h.shape[-1], e.shape[-1]
     T = h.numel() // d
@@ -288,7 +309,7 @@ class CountingMode(TorchDispatchMode):
             if node is not None:
                 m = self.nodes.get(id(node), (None, m))[1]
         self.n_ops += m
-        if name in (K1, K2):
+        if name in (K1, K2, K3):
             f, b = _kernel_stats(name, args, out)
             self.flops += m * f
             self.bytes += m * b
@@ -422,4 +443,4 @@ def sample_loops(mode: CountingMode, k: int):
 
 
 __all__ = ["CountingMode", "LiveBytes", "LoopSampler", "sample_loops",
-           "tensor_bytes", "K1", "K2"]
+           "tensor_bytes", "K1", "K2", "K3"]

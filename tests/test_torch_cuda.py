@@ -15,6 +15,8 @@ from repro_torch.kernels.engram_gather import (engram_gather,  # noqa: E402
                                                gather_rows, gather_rows_multi,
                                                gather_rows_multi_ref,
                                                gather_rows_ref)
+from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
+                                             decode_attention_ref)
 from repro_torch.kernels.gated_fuse import (engram_gated_fuse,  # noqa: E402
                                             gated_fuse_ref)
 
@@ -151,6 +153,151 @@ def test_gated_fuse_kernel_long_prompt(T):
     torch.testing.assert_close(first.float(), gated_fuse_ref(*ops).float(),
                                **BF16_TOL)
     assert torch.equal(first, second)
+
+
+def _k3_case(dev, B, S, Hkv, g, D, dtype, pos, seed=0):
+    """K3's operands from numpy normals: q (B, g Hkv, D), the new rows
+    (B, Hkv, D), the caches (B, S, Hkv, D), positions (int32), on ``dev``."""
+    rng = np.random.RandomState(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.randn(*s).astype(np.float32)).to(dev, TORCH_DTYPES[dtype])
+    return (mk(B, g * Hkv, D), mk(B, Hkv, D), mk(B, Hkv, D),
+            mk(B, S, Hkv, D), mk(B, S, Hkv, D),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+def _k3_plain(ops, window, softcap, g):
+    """The plain route (``attention.plain_decode``: ``write_rows``, the
+    mask, ``_sdpa`` with f32 scores) on copies of K3's operands: its
+    output and the caches it leaves."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.attention import plain_decode
+    q, kn, vn, kc, vc, pos = ops
+    kc, vc = kc.clone(), vc.clone()
+    cfg = SimpleNamespace(n_heads=g, n_kv_heads=1, attn_logit_softcap=softcap)
+    out = plain_decode(cfg, q[:, None], kn[:, None], vn[:, None], kc, vc,
+                       pos, window)[:, 0]
+    return out, kc, vc
+
+
+def _rms(x):
+    return x.double().pow(2).mean().sqrt().item()
+
+
+# K3 against the plain route: bf16, the plain route rounds the softmax's
+# weights to bf16 (2^-9 relative each) before the value product and K3
+# keeps them f32, so an output moves by up to 2^-9 of sum(p |v|), about 1
+# with unit-normal values, beside a bf16 ulp of its own rounding (near
+# zero, values cancelling, up to 2^-8 absolute); f32, both sum the same
+# f32 products in another order and K3's exponential (ex2.approx) is
+# within 2 ulp
+K3_TOL = {"bfloat16": dict(rtol=2.0 ** -6, atol=2.0 ** -7),
+          "float32": dict(rtol=2e-5, atol=2e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["global", "local_softcap"])
+@pytest.mark.parametrize("g", [1, 5, 8])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_decode_attention_kernel_matches_plain_route(D, g, kind, dtype):
+    """K3 at head dim D and g query heads a KV head, on a global layer and
+    on a local one (window 37) with softcap 50, over ragged positions: 0,
+    S - 1, past S (the write clamps to S - 1; one row past S + window
+    has no valid key and weighs every key equally), -1 (a row not live:
+    writes at 0, no valid key) and two inside. One launch; the caches hold
+    the new rows exactly where ``write_rows`` puts them (bit-equal to the
+    plain route's); the output within ``K3_TOL`` of the plain route's and
+    one bf16 ulp (f32: ``F32_TOL``) of the plain version's; and K3's RMS
+    error against an f64 CPU evaluation no larger than the plain route's
+    (f32: plus 2 ulp of the output's RMS, ex2.approx's)."""
+    dev = _card()
+    B, S, Hkv = 6, 200, 2
+    window, softcap = (0, 0.0) if kind == "global" else (37, 50.0)
+    pos = [0, S - 1, S + 3, -1, 57, 130]
+    if window:
+        pos[2] = S + window + 1
+    ops = _k3_case(dev, B, S, Hkv, g, D, dtype, pos, seed=D + g)
+    want, kc_p, vc_p = _k3_plain(ops, window, softcap, g)
+    q, kn, vn, kc, vc, p = ops
+    exact = decode_attention_ref(*(t.cpu().double() for t in ops[:5]),
+                                 ops[5].cpu(), window=window,
+                                 softcap=softcap, group=g)
+    before = decode_attention.launches
+    got = decode_attention(q, kn, vn, kc, vc, p, window=window,
+                           softcap=softcap, group=g)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert got.dtype == kc.dtype and got.shape == (B, g * Hkv, D)
+    assert torch.equal(kc, kc_p) and torch.equal(vc, vc_p)
+    torch.testing.assert_close(got.float(), want.float(), **K3_TOL[dtype])
+    q2 = [t.clone() for t in ops]
+    ref = decode_attention_ref(*q2[:5], q2[5], window=window,
+                               softcap=softcap, group=g)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    err_k3 = _rms(got.cpu().double() - exact)
+    err_plain = _rms(want.cpu().double() - exact)
+    slack = 0.0 if dtype == "bfloat16" else 2.0 ** -22 * _rms(exact)
+    assert err_k3 <= err_plain + slack, (err_k3, err_plain)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_pool_chat_shape():
+    """K3 at engram27b-pool.chat's decode layer: 32 rows over a
+    4608-position bf16 cache, 8 KV heads of 128, g = 5, positions spread
+    over the mix's range (128 to 4607, and 0): caches equal to the plain
+    route's, the output within ``K3_TOL`` of it and within one bf16 ulp of
+    the plain version's, bit-identical across two calls."""
+    dev = _card()
+    B, S, Hkv, g, D = 32, 4608, 8, 5, 128
+    pos = [0] + [128 + (4479 * i) // 30 for i in range(31)]
+    ops = _k3_case(dev, B, S, Hkv, g, D, "bfloat16", pos, seed=31)
+    want, kc_p, vc_p = _k3_plain(ops, 0, 0.0, g)
+    q, kn, vn, kc, vc, p = ops
+    got = decode_attention(q, kn, vn, kc, vc, p, group=g)
+    again = decode_attention(q, kn, vn, kc, vc, p, group=g)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc_p) and torch.equal(vc, vc_p)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K3_TOL["bfloat16"])
+    ref = decode_attention_ref(q, kn, vn, kc.clone(), vc.clone(), p,
+                               group=g)
+    torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_decode_wave_launches_k3_once_per_attention_layer():
+    """One decode wave of reduced gemma2-27b (GQA, a local window and a
+    softcap on alternating layers) on the card launches K3 once per
+    attention layer, and the CPU's plain route gives the same greedy
+    tokens."""
+    from repro_torch.configs import gemma2_27b
+    from repro_torch.models.model import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Engine
+    dev = _card()
+    cfg = gemma2_27b.reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    prompt = [int(t) for t in np.random.RandomState(3).randint(
+        1, cfg.vocab_size, size=5)]
+    outs = []
+    for device, p in (("cpu", params),
+                      (dev, tree_map(lambda t: t.to(dev), params))):
+        eng = Engine(cfg, params=p, max_batch=2, max_len=32,
+                     prompt_bucket=8, device=device)
+        rid = eng.submit(prompt, max_new=2)
+        before = decode_attention.launches
+        eng.run()
+        outs.append(eng.done[rid].out)
+        waves = eng.stats.decode_steps
+        if device != "cpu":
+            assert waves == 1
+            assert decode_attention.launches - before == sum(
+                t == "attn" for t in cfg.layer_types) * waves
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.cuda

@@ -402,12 +402,24 @@ def test_unroll_changes_no_count(cells):
 def test_kernels_on_the_cards_path_only(cells):
     """gemma3-1b's config pools its tables (``pooled``): on the card's
     path K1 is the owners' read and K2 the fusion, one call each per
-    Engram layer; the CPU path runs their plain versions, the same FLOPs."""
+    Engram layer, and K3 the decode attention, one call a layer; the CPU
+    path runs their plain versions. The FLOPs differ by the local layers'
+    keys past the window alone: the CPU's plain route multiplies every one
+    of the 32,768 positions and masks them, K3 is charged the window's 512
+    (a rank computes one query head: its 64 of wo's 1024 rows lie in one
+    256-wide head; its batch is 128 over the 16 ranks of "data")."""
     meta, cpu = cells["records"]["meta"], cells["records"]["cpu"]
+    cfg = configs.get_config("gemma3-1b")
     assert meta["kernel_calls"] == {"repro_torch::engram_gather": 2,
-                                    "repro_torch::gated_fuse": 2}
+                                    "repro_torch::gated_fuse": 2,
+                                    "repro_torch::decode_attention":
+                                        cfg.n_layers}
     assert cpu["kernel_calls"] == {} and cpu["device"] == "cpu"
-    assert cpu["scaled"]["flops_dot"] == meta["scaled"]["flops_dot"]
+    shape = configs.SHAPES["decode_32k"]
+    n_local = sum(k == "local" for k in cfg.attn_kinds)
+    past = 4 * 1 * cfg.head_dim * (shape.global_batch // 16) * (
+        shape.seq_len - cfg.window_size) * n_local
+    assert cpu["scaled"]["flops_dot"] - meta["scaled"]["flops_dot"] == past
     # the pool's three all-to-alls a layer; the layout's all-reduces: a
     # layer's q, k and v gathered whole (1024 and 256 columns over 16
     # ranks do not fall on a 256-wide head's boundary), wo's and the MLP's
