@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import statistics
 import sys
 import time
 from typing import Optional
@@ -25,11 +26,12 @@ class Run:
     setup_s: float
     host_tables_s: Optional[float]
     trace: Optional[dict]            # ``trace.analyse``'s, or None
+    family: object                   # the cell's family: ``prefill``, ...
 
 
 def build(cell: cells.Cell, device):
     """The port's config and the weights' storage (host tables mapped)."""
-    cfg = model.model_config(cell.config)
+    cfg = cell.family.model_config(cell.config)
     host = cell.config["engram"]["placement"] == "host"
     return cfg, model.Weights(cfg, device, host)
 
@@ -39,14 +41,14 @@ def measure(cell: cells.Cell, cfg, weights, seed: int,
             control: bool = False) -> dict:
     """One run from the drawn weights to the result line's object.
     ``t_start``: the process's start on ``time.perf_counter``'s clock."""
-    c = cell.config
+    c, fam = cell.config, cell.family
     dev = torch.device(device)
     t_draw = time.perf_counter()
     tables_s = weights.draw(seed)
     host_tables_s = None if weights.host_tables_s is None \
         else weights.host_tables_s + tables_s
     t_engine = time.perf_counter()
-    eng = model.engine(cfg, c, weights, dev)
+    eng = model.engine(cfg, fam.run_flags(c), c, weights, dev)
     clients = drive.Clients(eng.runtime(), cell.traffic, cell.traffic_name,
                             seed, cfg.vocab_size)
     tr = Trace(min(seconds, TRACE_S), dev) if traced else None
@@ -63,7 +65,7 @@ def measure(cell: cells.Cell, cfg, weights, seed: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     run = Run(c, win, setup_s, host_tables_s,
-              analyse(tr.events) if tr is not None else None)
+              analyse(tr.events) if tr is not None else None, fam)
 
     chk = c["check"]
     number, limit = chk["number"], chk["gap_limit"]
@@ -74,9 +76,11 @@ def measure(cell: cells.Cell, cfg, weights, seed: int,
     if not picked:
         served = []
     elif control:
-        served, ctrl = check.control_gaps(c, weights.tree, picked, dev)
+        served, ctrl = check.control_gaps(fam.Reference, c, weights.tree,
+                                          picked, dev)
     else:
-        served = check.served_gaps(c, weights.tree, picked, dev)
+        served = check.served_gaps(fam.Reference, c, weights.tree, picked,
+                                   dev)
     ref_s = time.perf_counter() - t_ref
     got = check.summary(served)
     ok = got[number] is not None and got[number] <= limit
@@ -107,6 +111,7 @@ def measure(cell: cells.Cell, cfg, weights, seed: int,
             "idle_gaps": [[n, ns / 1e9] for n, ns in t["idle_gaps"]]}
     out["run"] = {"seed": seed, "window_steps": len(win.steps),
                   "warmup_steps": win.warmup_steps,
+                  "step_ms": step_spread(win.steps),
                   "checked_requests": len(picked),
                   "checked_tokens": sum(len(r.tokens) for r in picked),
                   "reference_s": ref_s, "setup_phases_s": phases,
@@ -118,6 +123,20 @@ def measure(cell: cells.Cell, cfg, weights, seed: int,
         out["control"] = cs
     out["checks"] = {number: {"value": got[number], "limit": limit}}
     return out
+
+
+def step_spread(steps) -> dict:
+    """How the window's host time spreads over its steps (ms), to tell a
+    few stalls from a host that is slow all through: the quartiles and
+    the longest of the decode-only steps, and the admitting steps' count
+    and total."""
+    dec = sorted(1e3 * (s.t1 - s.t0) for s in steps
+                 if s.decode and not s.prefills)
+    adm = [1e3 * (s.t1 - s.t0) for s in steps if s.prefills]
+    q = statistics.quantiles(dec, n=4) if len(dec) > 1 else dec
+    return {"decode_n": len(dec), "decode_q": q,
+            "decode_max": dec[-1] if dec else None,
+            "admit_n": len(adm), "admit_total": sum(adm)}
 
 
 def report_checks(out: dict) -> None:

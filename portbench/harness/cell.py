@@ -6,7 +6,9 @@
 - ``portbench/traffic/<traffic>.json``: the mix's parameters;
 - ``portbench/metrics/<metric>.py``: each metric's reader, a function
   ``read(run)`` that returns a number or None (nothing to read: the metric
-  is left out of the result line).
+  is left out of the result line);
+- ``portbench/families/<model_type>.py``: the configuration's family, where
+  it has one (``harness/family.py``).
 
 A metric belongs to a cell when its ``workloads`` list names the cell, or
 when it has no such list.
@@ -31,6 +33,12 @@ class Cell:
     traffic: dict           # the mix's JSON object
     end_to_end: list        # BENCHMARK.json metric entries of this cell
     per_layer: list
+    root: dataclasses.InitVar[Path] = ROOT   # the checkout of its files
+    family: object = dataclasses.field(init=False)   # ``family.of``'s
+
+    def __post_init__(self, root):
+        from .family import of      # family.py imports this module
+        self.family = of(self.config, root)
 
 
 def _mine(metrics: list, cell: str) -> list:
@@ -51,15 +59,21 @@ def load(name: str, root: Path = ROOT) -> Cell:
         .read_text())
     return Cell(name, w["traffic"], int(w["chips"]), config, traffic,
                 _mine(bench["end_to_end"], name),
-                _mine(bench["per_layer"], name))
+                _mine(bench["per_layer"], name), root)
+
+
+def load_file(path: Path, kind: str):
+    """The module in ``path`` (a file found by name: a metric's reader, a
+    family), loaded afresh."""
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_{kind}_" + path.stem.replace(".", "_").replace("-", "_"),
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, root: Path = ROOT):
     """The ``read`` function of ``portbench/metrics/<metric>.py``."""
-    path = root / "portbench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(root / "portbench" / "metrics" / f"{metric}.py",
+                     "metric").read

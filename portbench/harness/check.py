@@ -15,6 +15,9 @@ The control puts the reference in the program's place in float8 (e4m3)
 products (``reference.common.Float8Linear``): at each position of the same
 prompts and tokens, the token the float8 logits put first is read against
 the float32 logits the same way.
+
+The reference is the configuration's family's (``harness/family.py``):
+``Ref(c, params, device, linear=None)`` with ``.logits(seqs, want)``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ import numpy as np
 import torch
 
 from ..reference.common import Float8Linear
-from ..reference.model import Reference
 
 
 def sample(reqs: list, t_close: float, seed: int, tokens: int,
@@ -60,20 +62,20 @@ def gap_of(logits: torch.Tensor, tokens) -> torch.Tensor:
     return (top - logits.gather(1, tok)[:, 0]) / logits.std(dim=-1)
 
 
-def served_gaps(c: dict, params, reqs: list, device) -> list:
+def served_gaps(Ref, c: dict, params, reqs: list, device) -> list:
     """Per checked request, the gap of each of its served tokens."""
     seqs, want = _inputs(reqs)
-    ref = Reference(c, params, device).logits(seqs, want)
+    ref = Ref(c, params, device).logits(seqs, want)
     return [gap_of(L, r.tokens).cpu() for L, r in zip(ref, reqs)]
 
 
-def control_gaps(c: dict, params, reqs: list, device) -> tuple:
+def control_gaps(Ref, c: dict, params, reqs: list, device) -> tuple:
     """Per checked request, the gaps of its served tokens and those of the
     tokens the float8 reference puts first, from one pass of each
     reference."""
     seqs, want = _inputs(reqs)
-    ref = Reference(c, params, device).logits(seqs, want)
-    low = Reference(c, params, device, Float8Linear()).logits(seqs, want)
+    ref = Ref(c, params, device).logits(seqs, want)
+    low = Ref(c, params, device, Float8Linear()).logits(seqs, want)
     served = [gap_of(R, r.tokens).cpu() for R, r in zip(ref, reqs)]
     return served, [gap_of(R, L.argmax(dim=-1)).cpu()
                     for R, L in zip(ref, low)]

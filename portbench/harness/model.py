@@ -199,15 +199,19 @@ class Weights:
         return time.perf_counter() - t0
 
 
-def engine(cfg, c: dict, weights: Weights, device):
+def run_flags(c: dict):
+    """The engine's ``RunFlags``: the configuration's retrieval strategy."""
+    from repro_torch.models.transformer import RunFlags
+    return RunFlags(engram_strategy=c["engram"]["strategy"])
+
+
+def engine(cfg, flags, c: dict, weights: Weights, device):
     """The serving engine the window drives: monolithic admission, greedy
     decode waves, no pool tier (``pool=None``: no modelled stall is slept),
-    the configuration's retrieval strategy and sizes."""
-    from repro_torch.models.transformer import RunFlags
+    the family's ``flags`` and the configuration's sizes."""
     from repro_torch.serving import Engine
     s = c["serving"]
-    return Engine(cfg, params=weights.tree,
-                  flags=RunFlags(engram_strategy=c["engram"]["strategy"]),
+    return Engine(cfg, params=weights.tree, flags=flags,
                   max_batch=s["max_batch"], max_len=s["max_len"],
                   prompt_bucket=s["prompt_bucket"], pool=None,
                   device=device)

@@ -1,6 +1,11 @@
 """The plain reference forward: dense GQA with Engram (engram-27b's family)
-and MLA with MoE and Engram (DeepSeek-V2's), in float32, one layer at a
+and MLA with MoE and Engram as the port's mirror of the JAX reference
+computes it (routed experts without an up projection, ROADMAP.md F10; a
+renormalised softmax top-k router; plain RoPE), which is not the published
+DeepSeek-V2: a configuration that states another model brings its own
+reference in its family (``harness/family.py``). In float32, one layer at a
 time over a handful of whole sequences, with no cache and no batching.
+This is the harness's own reference, a family's default.
 
 It reads a configuration's JSON object (``portbench/configs/``) and the
 weights the benchmark drew, in the parameter tree the port is handed:
@@ -22,11 +27,12 @@ The model, as the configuration states it:
   (MLA: on the rope part of q and the shared rope key).
 - MLA: q = RMSNorm(x Wdq) Wuq split into nope and rope parts; c = RMSNorm
   of the first kv_lora_rank columns of x Wdkv, the rest the rope key;
-  k_nope = c Wuk, v = c Wuv; scores over [nope | rope] at 1/sqrt(192).
+  k_nope = c Wuk, v = c Wuv; scores over [nope | rope] at 1/sqrt(nope +
+  rope).
 - MoE: softmax router over all experts, the top k renormalised to sum to
   one and scaled by ``routed_scaling_factor``; a routed expert computes
   silu(x W_gate) W_down (the port's expert, which has no up projection:
-  PERF.md, F10), the shared experts a SwiGLU of n_shared x f.
+  ROADMAP.md, F10), the shared experts a SwiGLU of n_shared x f.
 - Output: RMSNorm, then the head, in f32.
 """
 from __future__ import annotations

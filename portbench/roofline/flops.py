@@ -1,7 +1,13 @@
 """Model FLOPs per token and the least time of the port's kernels K1 and
 K2, from shapes alone (a frozen copy of the formulas the port's
 ``roofline.counting`` applies to K1 and K2; the model formula is the
-published model's arithmetic, each matrix product at 2 x m x n x k).
+arithmetic of the model ``reference/model.py`` computes, each matrix
+product at 2 x m x n x k). Its MLA and MoE are the port's mirror of the
+JAX reference (routed experts of two products, ROADMAP.md F10; every expert
+the router names), not the published DeepSeek-V2: a configuration that
+states another model counts its FLOPs in its family
+(``harness/family.py``); ``prefill`` and ``decode`` here are a family's
+default.
 
 A configuration is the JSON object of ``portbench/configs/`` (Hugging
 Face key names, plus an ``engram`` group). Counted as model FLOPs: every

@@ -1,7 +1,7 @@
 """``BENCHMARK.json`` and the files it names: every cell's configuration
-and mix load, every configuration maps onto the port's ``ModelConfig``,
-every metric has its reader, and every reader of a cell reads a whole
-window of the harness at a tiny size."""
+and mix load, every configuration maps onto the port's ``ModelConfig``
+through its family, every metric has its reader, and every reader of a
+cell reads a whole window of the harness at a tiny size."""
 import json
 import re
 import time
@@ -10,7 +10,6 @@ import pytest
 
 from portbench.harness import bench
 from portbench.harness import cell as cells
-from portbench.harness import model
 
 from . import tiny
 
@@ -22,7 +21,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 def test_cell_loads(w):
     cell = cells.load(w["name"])
     assert cell.chips == w["chips"] == 1
-    cfg = model.model_config(cell.config)
+    cfg = cell.family.model_config(cell.config)
     assert cfg.n_layers == cell.config["num_hidden_layers"]
     assert cell.config["check"]["number"] in ("widest_gap", "mean_gap")
     e2e = {m["name"] for m in cell.end_to_end}
@@ -57,9 +56,15 @@ def test_every_reader_reads_a_window():
     assert {"step_ms.decode", "step_ms.admit", "step_mfu",
             "step_mfu.itl"} <= got
     assert out["metrics"]["step_mfu.itl"] == out["metrics"]["step_mfu"]
+    assert out["metrics"]["step_ms.admit.chat"] == \
+        out["metrics"]["step_ms.admit"]
+    sp = out["run"]["step_ms"]
+    assert 0 < sp["decode_n"] + sp["admit_n"] <= out["run"]["window_steps"]
+    assert sp["decode_q"][0] <= sp["decode_q"][-1] <= sp["decode_max"]
     # no kernel on the CPU, no host tables apart from the card
     assert not got & {"k2_roofline", "k2_roofline.itl", "k1_roofline.host",
                       "k1_roofline.hbm", "host_tables_s"}
     out = bench.measure(cell, cfg, w, 2, 3.0, False, "cpu",
                         time.perf_counter())
     assert set(out["metrics"]) == {m["name"] for m in e2e}
+    assert out["metrics"]["itl_p95_ms.chat"] == out["metrics"]["itl_p95_ms"]

@@ -43,3 +43,78 @@ def f32(c: dict) -> dict:
     c = copy.deepcopy(c)
     c["dtype"] = "float32"
     return c
+
+
+# A family file (``harness/family.py``) for MLA_MOE under the model_type
+# ``tiny_mla_moe``. Its configuration states a YaRN ``rope_scaling`` of
+# factor 1, which is plain RoPE: the harness's own mapping refuses any
+# ``rope_scaling``, the family maps it. Each call of a member is noted, one
+# line each, in ``<file>.log`` beside it. ``fault`` plants one in its
+# reference: the shared experts left out.
+FAMILY = '''
+from pathlib import Path
+
+from portbench.harness import model
+from portbench.reference.model import Reference as _Reference
+
+LOG = Path(__file__).with_suffix(".log")
+
+
+def _note(what):
+    with open(LOG, "a") as f:
+        f.write(what + "\\n")
+
+
+def _plain(c):
+    rs = c.get("rope_scaling")
+    if rs is not None and rs.get("factor") != 1.0:
+        raise ValueError("only YaRN of factor 1 (plain RoPE)")
+    return {k: v for k, v in c.items() if k != "rope_scaling"}
+
+
+def model_config(c):
+    _note("model_config")
+    return model.model_config(_plain(c))
+
+
+def run_flags(c):
+    _note("run_flags")
+    return model.run_flags(c)
+
+
+class Reference(_Reference):
+    def __init__(self, c, params, device, linear=None):
+        _note("Reference " + type(linear).__name__)
+        super().__init__(_plain(c), params, device, linear)
+{fault}
+
+def prefill(c, n):
+    _note("prefill")
+    return {prefill}
+
+
+def decode(c, pos):
+    _note("decode")
+    return {decode}
+'''
+PREFILL_FLOPS, DECODE_FLOPS = 3.0e9, 1.0e9
+
+FAULT = '''
+    def _moe(self, p, x):
+        return super()._moe(p, x) - self._swiglu(p["shared"], x)
+'''
+
+FAMILY_CONFIG = dict(copy.deepcopy(MLA_MOE), model_type="tiny_mla_moe",
+                     rope_scaling={"type": "yarn", "factor": 1.0})
+
+
+def write_family(root, fault: bool = False):
+    """``FAMILY`` as ``<root>/portbench/families/tiny_mla_moe.py``; returns
+    the path of its log."""
+    d = root / "portbench" / "families"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tiny_mla_moe.py").write_text(
+        FAMILY.replace("{fault}", FAULT if fault else "")
+        .replace("{prefill}", repr(PREFILL_FLOPS))
+        .replace("{decode}", repr(DECODE_FLOPS)))
+    return d / "tiny_mla_moe.log"
